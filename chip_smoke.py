@@ -10,17 +10,28 @@ Run from the repository root on a machine with one CUDA card. It
 3. kernel phase: holds each kernel against its plain PyTorch version at the
    ViT-H shapes of the main path (float32, bfloat16, and the int8 epilogue),
    and times the kernel, the plain version, and one PyTorch library call of
-   the same function (``scaled_dot_product_attention`` with the bias
-   materialised as ``attn_mask``: a yardstick only, the port never calls it);
-4. main-path phase: builds ViT-H from seeded random weights (rel-pos tables
+   the same function, a yardstick the port never calls:
+   ``scaled_dot_product_attention`` with the bias materialised as
+   ``attn_mask`` for attention, ``torch.matmul`` on the weight dequantized
+   beforehand for the dequant-matmuls, and dense lin1 -> tanh GELU -> lin2
+   for the fused MLP;
+4. dense main path: builds ViT-H from seeded random weights (rel-pos tables
    filled, so the bias contributes), encodes a 1024x1024 image with the
    kernel path and the plain (eager) path in float32 and bfloat16 and
    compares them, then serves 1200x1600 uint8 images through ``SamPredictor``
    with a bfloat16 encoder (set_image, three clicks, the later two with the
    previous low-res mask): the launch counters are reset just before the
    first served image and read just after it, and the times are the median
-   and spread over all served images; finally a vit_tiny predictor on the
-   card is held against the same model on the CPU.
+   and spread over all served images;
+5. W4 main path: the same ViT-H, RTN-quantized to 4 bits (group 128) by the
+   port; its kernel-path embedding is held against the dense model of the
+   dequantized weights on the eager path (float32 and bfloat16), then it is
+   served like the dense model, with exact launch counts per image, and one
+   ``set_image`` is profiled;
+6. W3 encode: the same ViT-H at 3 bits, one bfloat16 encode with its
+   launch counts, held against its dequantized dense model;
+7. small inputs: vit_tiny predictors, dense and W4, on the card against the
+   same models on the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -39,6 +50,10 @@ import time
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32, dense bf16 tensor
 SERVED_IMAGES = 7  # timed images; the first is also the one the launch counts read
+# Embedding tolerances (rel. L2) of the quantized encoders against the dense
+# model of their dequantized weights on the eager path, in float32:
+W4_F32_TOL = 1e-2  # flash kernels vs eager, and the fused MLP's tanh GELU vs erf
+BF16_TOL = 5e-2  # bf16 rounding over 32 blocks (as the dense bf16 check)
 FAILURES = []
 
 
@@ -73,9 +88,11 @@ def print_device_profile(what: str, fn) -> None:
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
-    groups = {"attention kernels": 0.0, "matmul": 0.0, "memcpy": 0.0, "other": 0.0}
+    groups = {"attention kernels": 0.0, "quant kernels": 0.0, "matmul": 0.0, "memcpy": 0.0,
+              "other": 0.0}
     for ms, _, key in rows:
         group = ("attention kernels" if "flash_" in key else
+                 "quant kernels" if "qmm_" in key or "fused_mlp" in key else
                  "matmul" if any(s in key for s in ("gemm", "nvjet", "cutlass", "xmma")) else
                  "memcpy" if key.startswith("Memcpy") else "other")
         groups[group] += ms
@@ -97,9 +114,13 @@ def main() -> int:
 
     from sam_quantization_tpu_torch.models import build_sam
     from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
     from sam_quantization_tpu_torch.ops import _build
     from sam_quantization_tpu_torch.ops import flash_attention as fa
+    from sam_quantization_tpu_torch.ops import fused_mlp as fm
+    from sam_quantization_tpu_torch.ops import quant_matmul as qm
     from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import sequential as seq
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -133,6 +154,27 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def reset_counts():
+        for mod in (fa, qm, fm):
+            mod.reset_launch_counts()
+
+    def counts():
+        return {**fa.LAUNCHES, **qm.LAUNCHES, **fm.LAUNCHES}
+
+    def rel_ok(out, ref, dtype):
+        """Packed-weight kernels: both sides multiply the same values and
+        differ in the float32 sum order. float32 |d| <= 1e-5 |ref| + 1e-4
+        max|ref|; bfloat16 two output steps, |d| <= 8e-3 |ref| + 1e-3 max|ref|."""
+        d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+        rtol, mtol = (1e-5, 1e-4) if dtype == torch.float32 else (8e-3, 1e-3)
+        return float(d.max()), bool((d <= rtol * r + mtol * r.max()).all())
+
+    def bound(r, tag):
+        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / PEAK_FLOPS[tag] * 1e3
+        r["bound_ms"], r["bound_by"] = max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "operations")
 
     def err_ok(out, ref, dtype, quant):
         d = (out.float() - ref.float()).abs()
@@ -205,35 +247,97 @@ def main() -> int:
             lambda: TF.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 5)
         del q, k, v, rh, rw, mask, ref, out, ref8, out8
         for name, r in (("flash_windowed", win), ("flash_global", glob)):
-            t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-            t_ops = r["flops"] / PEAK_FLOPS[tag] * 1e3
-            r["bound_ms"], r["bound_by"] = max(t_bytes, t_ops), (
-                "bytes" if t_bytes >= t_ops else "operations")
+            bound(r, tag)
             print(f"{name} {tag}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), max|d| {r['err']:.3e}")
             report[(name, tag)] = r
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------ packed-weight kernels
+    # ViT-H, B = 1: qkv/proj on 25 windows x 196 tokens, the MLP on 64 x 64
+    # global tokens; RTN 4-bit (3-bit for quant_matmul3) with groups of 128.
+    Mw, Mg, H = NW * Lw, Lg, 4 * C
+    gen.manual_seed(2)
+
+    def rtn(K, N, bits, bias=True):
+        return packed_lib.quantize_rtn(randn(K, N, std=K**-0.5), bits, 128,
+                                       bias=randn(N, std=0.02) if bias else None)
+
+    qkv4, proj4, qkv3 = rtn(C, 3 * C, 4), rtn(C, C, 4), rtn(C, 3 * C, 3)
+    lin1, lin2 = rtn(C, H, 4), rtn(H, C, 4, bias=False)  # b2 is added outside the kernel
+
+    def words(p):
+        hi = 0 if p.qweight_hi is None else p.qweight_hi.numel()
+        return (p.qweight.numel() + hi + 2 * p.scales.numel()) * 4
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        item = 4 if dtype == torch.float32 else 2
+        cases = []
+        for name, shape, p in (("quant_matmul", "qkv", qkv4), ("quant_matmul", "proj", proj4),
+                               ("quant_matmul3", "qkv", qkv3)):
+            x = randn(Mw, C, dtype=dtype)
+            wd = packed_lib.dequantize(p).to(dtype)
+            cases.append((name, shape, x, (lambda x=x, p=p: qm.quant_matmul(x, p)),
+                          (lambda x=x, p=p: qm.quant_matmul_plain(x, p)),
+                          (lambda x=x, wd=wd: torch.matmul(x, wd)),
+                          dict(bytes=Mw * (C + p.out_features) * item + words(p),
+                               flops=2 * Mw * C * p.out_features)))
+        x = randn(Mg, C, dtype=dtype)
+        w1d, w2d = packed_lib.dequantize(lin1).to(dtype), packed_lib.dequantize(lin2).to(dtype)
+        b1d = lin1.bias.to(dtype)
+        cases.append(("fused_mlp", "mlp", x, (lambda x=x: fm.fused_mlp(x, lin1, lin2)),
+                      (lambda x=x: fm.fused_mlp_plain(x, lin1, lin2)),
+                      (lambda x=x: torch.matmul(
+                          TF.gelu(torch.addmm(b1d, x, w1d), approximate="tanh"), w2d)),
+                      dict(bytes=2 * Mg * C * item + words(lin1) + H * 4 + words(lin2),
+                           flops=4 * Mg * C * H)))
+        for name, shape, x, kernel, plain, library, r in cases:
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            r["err"], ok = rel_ok(out, ref, dtype)
+            check(ok and out.dtype == dtype and tuple(out.shape) == tuple(ref.shape),
+                  f"{name} {shape} {tag}: max|d| {r['err']:.3e} vs plain")
+            slow = dtype == torch.float32 and name == "fused_mlp"
+            r["ms"] = cuda_ms(kernel, 3 if slow else 20)
+            r["plain_ms"] = cuda_ms(plain, 3 if slow else 10)
+            r["library_ms"] = cuda_ms(library, 3 if slow else 20)
+            bound(r, tag)
+            print(f"{name} {shape} {tag} (M {x.shape[0]}): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max|d| {r['err']:.3e}")
+            report[(name if shape != "proj" else "quant_matmul proj", tag)] = r
+            del out, ref
+        del cases, x, w1d, w2d
+        torch.cuda.empty_cache()
+    del qkv4, proj4, qkv3, lin1, lin2
+
     # --------------------------------------------------------------- main path
-    model = build_sam.sam_model_registry["vit_h"](device="cuda", seed=0)
-    gen.manual_seed(1)
-    for blk in model.image_encoder.blocks:
-        blk.attn.rel_pos_h.copy_(randn(*blk.attn.rel_pos_h.shape, std=0.2))
-        blk.attn.rel_pos_w.copy_(randn(*blk.attn.rel_pos_w.shape, std=0.2))
+    def vit_h():
+        """ViT-H from seed 0 with rel-pos tables drawn from seed 1."""
+        model = build_sam.sam_model_registry["vit_h"](device="cuda", seed=0)
+        gen.manual_seed(1)
+        for blk in model.image_encoder.blocks:
+            blk.attn.rel_pos_h.copy_(randn(*blk.attn.rel_pos_h.shape, std=0.2))
+            blk.attn.rel_pos_w.copy_(randn(*blk.attn.rel_pos_w.shape, std=0.2))
+        return model
+
+    model = vit_h()
     x = randn(1, 1024, 1024, 3)
+    dense_launches = {"quant_matmul": 0, "quant_matmul3": 0, "fused_mlp": 0}
     with torch.no_grad():
         embs = {}
         for dtype in (torch.float32, torch.bfloat16):
             tag = str(dtype).split(".")[1]
             model.image_encoder.to(dtype)
             for impl in ("kernel", "eager"):
-                fa.reset_launch_counts()
+                reset_counts()
                 embs[tag, impl] = sam_lib.encode_image(model, x.to(dtype), impl).float()
                 torch.cuda.synchronize()
-                want = {"flash_windowed": 28, "flash_global": 4} if impl == "kernel" else {
-                    "flash_windowed": 0, "flash_global": 0}
-                check(fa.LAUNCHES == want, f"encode {tag} {impl}: launches {fa.LAUNCHES}")
+                n = impl == "kernel"
+                want = {"flash_windowed": 28 * n, "flash_global": 4 * n, **dense_launches}
+                check(counts() == want, f"encode {tag} {impl}: launches {counts()}")
             e = embs[tag, "kernel"]
             check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all()),
                   f"encode {tag}: shape {tuple(e.shape)}, finite")
@@ -248,7 +352,6 @@ def main() -> int:
         # Served as bfloat16, like the JAX package's serving benchmark: the
         # encoder runs in its weights' dtype, as README's example sets it.
         model.image_encoder.to(torch.bfloat16)
-        predictor = SamPredictor(model)
         rng = np.random.default_rng(0)
         images = [rng.integers(0, 256, (1200, 1600, 3), dtype=np.uint8)
                   for _ in range(SERVED_IMAGES)]
@@ -257,7 +360,7 @@ def main() -> int:
                   (np.array([[800.0, 600.0], [300.0, 900.0], [1200.0, 200.0]]),
                    np.array([1.0, 0.0, 1.0]))]
 
-        def serve(image):
+        def serve(predictor, image):
             """set_image + the clicks; returns the wall ms of each and the outputs."""
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -274,26 +377,85 @@ def main() -> int:
                 prev = low[int(np.argmax(iou))][None]
             return times, outs
 
-        serve(images[-1])  # warm-up: first-call allocations and library set-up
-        fa.reset_launch_counts()
-        times, outs = serve(images[0])
-        launches = dict(fa.LAUNCHES)
-        check(launches == {"flash_windowed": 28, "flash_global": 4},
-              f"served image: launches {launches}")
-        for i, (masks, iou, low) in enumerate(outs):
-            nm = 3 if i == 0 else 1
-            check(masks.shape == (nm, 1200, 1600) and masks.dtype == np.bool_
-                  and iou.shape == (nm,) and low.shape == (nm, 256, 256)
-                  and np.isfinite(iou).all() and np.isfinite(low).all(),
-                  f"click {i + 1}: masks {masks.shape}, iou {iou.shape}, low {low.shape}, finite")
-        all_times = [times] + [serve(im)[0] for im in images[1:]]
-        for j, what in enumerate(["set_image"] + [f"click {i + 1}" for i in range(len(clicks))]):
-            ms = sorted(t[j] for t in all_times)
-            print(f"{what}: median {ms[len(ms) // 2]:.2f} ms, min {ms[0]:.2f}, max {ms[-1]:.2f} "
-                  f"over {len(ms)} served images  [{card}]")
-        print_device_profile("set_image", lambda: predictor.set_image(images[0]))
-        print_device_profile("click", lambda: predictor.predict(*clicks[0]))
+        def serve_all(what, want):
+            """Serve every image; check the launches of one and the outputs."""
+            predictor = SamPredictor(model)
+            serve(predictor, images[-1])  # warm-up: first-call allocations and library set-up
+            reset_counts()
+            times, outs = serve(predictor, images[0])
+            launches = counts()
+            check(launches == want, f"{what} served image: launches {launches}")
+            for i, (masks, iou, low) in enumerate(outs):
+                nm = 3 if i == 0 else 1
+                check(masks.shape == (nm, 1200, 1600) and masks.dtype == np.bool_
+                      and iou.shape == (nm,) and low.shape == (nm, 256, 256)
+                      and np.isfinite(iou).all() and np.isfinite(low).all(),
+                      f"{what} click {i + 1}: masks {masks.shape}, iou {iou.shape}, "
+                      f"low {low.shape}, finite")
+            all_times = [times] + [serve(predictor, im)[0] for im in images[1:]]
+            steps = ["set_image"] + [f"click {i + 1}" for i in range(len(clicks))]
+            for j, step in enumerate(steps):
+                ms = sorted(t[j] for t in all_times)
+                print(f"{what} {step}: median {ms[len(ms) // 2]:.2f} ms, min {ms[0]:.2f}, "
+                      f"max {ms[-1]:.2f} over {len(ms)} served images  [{card}]")
+            return predictor, launches
+
+        predictor, _ = serve_all("dense", {"flash_windowed": 28, "flash_global": 4,
+                                           **dense_launches})
+        print_device_profile("dense set_image", lambda: predictor.set_image(images[0]))
+        print_device_profile("dense click", lambda: predictor.predict(*clicks[0]))
         del predictor, model
+        torch.cuda.empty_cache()
+
+        # W4: the same ViT-H, RTN 4-bit, groups of 128, quantized by the port.
+        model = vit_h()
+        dense_encoder = copy.deepcopy(model.image_encoder)  # for the W3 encode
+        seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=4, groupsize=128))
+        reference = packed_lib.dense_copy(model.image_encoder)  # float32, dequantized weights
+        ref = reference(x, "eager").float()
+        del reference
+        w4_launches = {"flash_windowed": 28, "flash_global": 4, "quant_matmul": 64,
+                       "quant_matmul3": 0, "fused_mlp": 32}
+        qkv = model.image_encoder.blocks[0].attn.qkv
+        float_buffers = {k: getattr(qkv, k).clone() for k in ("scales", "zeros", "bias")}
+        for dtype, tol in ((torch.float32, W4_F32_TOL), (torch.bfloat16, BF16_TOL)):
+            tag = str(dtype).split(".")[1]
+            model.image_encoder.to(dtype)
+            check(all(getattr(qkv, k).dtype == torch.float32 and torch.equal(getattr(qkv, k), t)
+                      for k, t in float_buffers.items()),
+                  f"W4 {tag}: scales, zeros, bias unchanged float32 "
+                  f"({qkv.scales.dtype}, {qkv.zeros.dtype}, {qkv.bias.dtype})")
+            reset_counts()
+            e = sam_lib.encode_image(model, x.to(dtype), "kernel").float()
+            torch.cuda.synchronize()
+            check(counts() == w4_launches, f"W4 encode {tag}: launches {counts()}")
+            rel_err = float((e - ref).norm() / ref.norm())
+            check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all())
+                  and rel_err <= tol, f"W4 encode {tag} vs dequantized dense float32 eager: "
+                                      f"rel L2 {rel_err:.3e} (<= {tol})")
+        predictor, launches = serve_all("W4", w4_launches)
+        print_device_profile("W4 set_image", lambda: predictor.set_image(images[0]))
+        del predictor
+        torch.cuda.empty_cache()
+
+        # W3: split-plane 3-bit never fuses, so all four linears of a block
+        # run quant_matmul3.
+        model.image_encoder = dense_encoder
+        seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=3, groupsize=128))
+        ref = packed_lib.dense_copy(model.image_encoder)(x, "eager").float()
+        model.image_encoder.to(torch.bfloat16)
+        reset_counts()
+        e = sam_lib.encode_image(model, x.to(torch.bfloat16), "kernel").float()
+        torch.cuda.synchronize()
+        w3_launches = counts()
+        check(w3_launches == {**w4_launches, "quant_matmul": 0, "quant_matmul3": 128,
+                              "fused_mlp": 0}, f"W3 encode bfloat16: launches {w3_launches}")
+        rel_err = float((e - ref).norm() / ref.norm())
+        check(bool(torch.isfinite(e).all()) and rel_err <= BF16_TOL,
+              f"W3 encode bfloat16 vs dequantized dense float32 eager: rel L2 {rel_err:.3e} "
+              f"(<= {BF16_TOL})")
+        launches["quant_matmul3"] = w3_launches["quant_matmul3"]
+        del model, dense_encoder, ref, e
         torch.cuda.empty_cache()
 
         # Small input: a vit_tiny predictor on the card against the same weights on the CPU.
@@ -302,30 +464,36 @@ def main() -> int:
         for blk in tiny_cpu.image_encoder.blocks:
             for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
                 t.copy_(torch.randn(t.shape, generator=gen_cpu) * 0.5)
-        tiny_gpu = copy.deepcopy(tiny_cpu).to(dev)
         small = rng.integers(0, 256, (150, 200, 3), dtype=np.uint8)
-        res = []
-        for m in (tiny_cpu, tiny_gpu):
-            p = SamPredictor(m)
-            p.set_image(small)
-            res.append(p.predict(np.array([[90.0, 70.0]]), np.array([1.0])))
-        d_low = float(np.abs(res[0][2] - res[1][2]).max())
-        d_iou = float(np.abs(res[0][1] - res[1][1]).max())
-        check(d_low <= 1e-3 and d_iou <= 1e-3,
-              f"vit_tiny predictor, card vs CPU: low-res max|d| {d_low:.2e}, iou {d_iou:.2e}")
+        for what in ("dense", "W4"):
+            if what == "W4":
+                seq.rtn_quantize_encoder(tiny_cpu.image_encoder, seq.GPTQConfig(4, 32))
+            tiny_gpu = copy.deepcopy(tiny_cpu).to(dev)
+            res = []
+            for m in (tiny_cpu, tiny_gpu):
+                p = SamPredictor(m)
+                p.set_image(small)
+                res.append(p.predict(np.array([[90.0, 70.0]]), np.array([1.0])))
+            d_low = float(np.abs(res[0][2] - res[1][2]).max())
+            d_iou = float(np.abs(res[0][1] - res[1][1]).max())
+            check(d_low <= 1e-3 and d_iou <= 1e-3,
+                  f"vit_tiny {what} predictor, card vs CPU: low-res max|d| {d_low:.2e}, "
+                  f"iou {d_iou:.2e}")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
-    sources = {"flash_windowed": ("sam_quantization_tpu_torch/csrc/flash_windowed.cu",
-                                  "sam_quantization_tpu/ops/flash_attention.py:242"),
-               "flash_global": ("sam_quantization_tpu_torch/csrc/flash_global.cu",
-                                "sam_quantization_tpu/ops/flash_attention.py:552")}
+    csrc, jax_ops = "sam_quantization_tpu_torch/csrc/", "sam_quantization_tpu/ops/"
+    sources = {"flash_windowed": ("flash_windowed.cu", "flash_attention.py:242"),
+               "flash_global": ("flash_global.cu", "flash_attention.py:552"),
+               "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:223"),
+               "quant_matmul3": ("quant_matmul.cu", "quant_matmul.py:244"),
+               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:28")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[(name, "bfloat16")]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": jax_ops + replaces,
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -1,0 +1,75 @@
+"""Quantized-inference CLI: load a packed encoder artifact, time the encoder.
+
+Counterpart of ``sam_quantization_tpu/cli/infer.py`` (the ``--load`` and
+``--benchmark`` parts). Serve an artifact written by the JAX package's
+``cli/quantize``::
+
+    python -m sam_quantization_tpu_torch.cli.infer vit_h --load DIR --benchmark
+
+The encoder is timed in bfloat16 on a zero image, like the JAX CLI's
+benchmark, with ``torch.cuda.synchronize()`` around the timed loop; the
+result is one JSON line with ``encoder_s_per_image`` and
+``encoder_images_per_s``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("samq-infer")
+    p.add_argument("model", choices=["vit_b", "vit_l", "vit_h", "vit_tiny"])
+    p.add_argument("--checkpoint", default=None, help="FP .pth checkpoint")
+    p.add_argument("--load", default=None, help="quantized artifact dir")
+    p.add_argument("--benchmark", action="store_true")
+    p.add_argument("--bench-iters", type=int, default=100)
+    p.add_argument("--bench-warmup", type=int, default=25)
+    p.add_argument("--seed", type=int, default=42,
+                   help="seed of the random weights when no --checkpoint is given")
+    from sam_quantization_tpu_torch.cli import add_platform_arg, device_of
+
+    add_platform_arg(p)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.quant import artifacts
+
+    device = device_of(args)
+    model = build_sam.sam_model_registry[args.model](
+        checkpoint=args.checkpoint, device=device, seed=args.seed
+    )
+    if args.load:
+        enc, qcfg = artifacts.load_quantized(args.load)
+        build_sam.load_jax_encoder(model, enc)
+        print(f"loaded quantized encoder: {qcfg.get('method')}", file=sys.stderr)
+
+    out = {}
+    if args.benchmark:
+        size = model.config.image_encoder.img_size
+        model.image_encoder.to(torch.bfloat16)  # packed scales stay float32
+        x = torch.zeros((1, size, size, 3), dtype=torch.bfloat16, device=device)
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        with torch.inference_mode():
+            for _ in range(args.bench_warmup):
+                sam_lib.encode_image(model, x)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(args.bench_iters):
+                sam_lib.encode_image(model, x)
+            sync()
+        dt = (time.perf_counter() - t0) / args.bench_iters
+        out["encoder_s_per_image"] = round(dt, 5)
+        out["encoder_images_per_s"] = round(1.0 / dt, 3)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,20 +4,94 @@ Counterpart of ``sam_quantization_tpu/models/build_sam.py``. The port's
 modules carry the upstream ``segment_anything`` parameter names and layouts,
 so an official SAM ``.pth`` state dict loads with ``load_state_dict`` as it
 is. :func:`from_jax_params` turns the JAX package's parameter pytree
-(nested dicts of numpy arrays) into that same state dict without JAX.
+(nested dicts of numpy arrays) into that same state dict without JAX, and
+:func:`load_jax_encoder` installs a JAX encoder pytree, quantized or not, on
+a model whose prompt encoder and decoder come from elsewhere.
+
+A packed linear in a JAX pytree is given as the dict of its ``PackedLinear``
+fields (``qweight``, ``scales``, ..., ``bits``, ``groupsize``, ...), as
+``quant.artifacts.load_quantized`` returns it.
 
 Builders run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sam_quantization_tpu_torch.models import sam as sam_lib
-from sam_quantization_tpu_torch.models.configs import CONFIGS, SamConfig
+from sam_quantization_tpu_torch.models.configs import CONFIGS, ImageEncoderConfig, SamConfig
+from sam_quantization_tpu_torch.models.image_encoder import BLOCK_LINEARS
+from sam_quantization_tpu_torch.nn.layers import Linear
+from sam_quantization_tpu_torch.nn.packed import PackedLinear
+
+_PACKED_FIELDS = ("bits", "in_features", "out_features", "groupsize", "pack_block",
+                  "act_bits", "sym")
+
+
+def _tensor(a, perm=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    if perm is not None:
+        a = a.transpose(perm)
+    return torch.tensor(a)  # a copy: the source may be read-only
+
+
+def _encoder_state_dict(
+    enc: dict, ecfg: ImageEncoderConfig, prefix: str = ""
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, dict]]:
+    """Upstream-named state dict of a JAX encoder pytree, and the static
+    fields of each packed linear by module name (its buffers are in the
+    state dict under that name)."""
+    out: Dict[str, torch.Tensor] = {}
+    packed: Dict[str, dict] = {}
+
+    def put(key, a, perm=None):
+        out[prefix + key] = _tensor(a, perm)
+
+    def put_lin(name, p):
+        if "qweight" in p:  # a packed linear, given as its fields
+            packed[name] = {k: p[k] for k in _PACKED_FIELDS}
+            for k in ("qweight", "qweight_hi", "scales", "zeros", "bias"):
+                if p.get(k) is not None:
+                    put(f"{name}.{k}", p[k])
+            return
+        put(f"{name}.weight", p["w"], (1, 0))
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    def put_ln(name, p):
+        put(f"{name}.weight", p["w"])
+        put(f"{name}.bias", p["b"])
+
+    def put_conv(name, p):
+        put(f"{name}.weight", p["w"], (3, 2, 0, 1))
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    put_conv("patch_embed.proj", enc["patch_embed"])
+    if ecfg.use_abs_pos:
+        put("pos_embed", enc["pos_embed"])
+    put_conv("neck.0", enc["neck"]["conv1"])
+    put_ln("neck.1", enc["neck"]["ln1"])
+    put_conv("neck.2", enc["neck"]["conv2"])
+    put_ln("neck.3", enc["neck"]["ln2"])
+    for i, blk in enumerate(enc["blocks"]):
+        b = f"blocks.{i}"
+        put_ln(f"{b}.norm1", blk["norm1"])
+        put_lin(f"{b}.attn.qkv", blk["attn"]["qkv"])
+        put_lin(f"{b}.attn.proj", blk["attn"]["proj"])
+        put_ln(f"{b}.norm2", blk["norm2"])
+        put_lin(f"{b}.mlp.lin1", blk["mlp"]["lin1"])
+        put_lin(f"{b}.mlp.lin2", blk["mlp"]["lin2"])
+        if ecfg.use_rel_pos:
+            put(f"{b}.attn.rel_pos_h", blk["attn"]["rel_pos_h"])
+            put(f"{b}.attn.rel_pos_w", blk["attn"]["rel_pos_w"])
+    return out, packed
 
 
 def from_jax_params(image_encoder: dict, prompt_encoder: dict, mask_decoder: dict,
@@ -28,15 +102,14 @@ def from_jax_params(image_encoder: dict, prompt_encoder: dict, mask_decoder: dic
     Linear (in, out) -> (out, in); HWIO conv -> OIHW; (kh, kw, I, O)
     transposed conv -> (I, O, kh, kw); the stacked ``point_embeddings`` and
     the ``hypernetworks`` / ``iou_head`` lists are split into upstream keys.
-    The inverse of the JAX package's ``convert_torch_state_dict``.
+    The inverse of the JAX package's ``convert_torch_state_dict``. A packed
+    encoder linear contributes its buffers; :func:`load_jax_encoder` also
+    swaps in the ``PackedLinear`` modules that take them.
     """
-    out: Dict[str, torch.Tensor] = {}
+    out, _ = _encoder_state_dict(image_encoder, cfg.image_encoder, "image_encoder.")
 
     def put(key, a, perm=None):
-        a = np.asarray(a, np.float32)
-        if perm is not None:
-            a = a.transpose(perm)
-        out[key] = torch.tensor(a)  # a copy: the source may be read-only
+        out[key] = _tensor(a, perm)
 
     def put_lin(prefix, p):
         put(f"{prefix}.weight", p["w"], (1, 0))
@@ -51,27 +124,6 @@ def from_jax_params(image_encoder: dict, prompt_encoder: dict, mask_decoder: dic
         put(f"{prefix}.weight", p["w"], perm)
         if "b" in p:
             put(f"{prefix}.bias", p["b"])
-
-    ecfg = cfg.image_encoder
-    enc = image_encoder
-    put_conv("image_encoder.patch_embed.proj", enc["patch_embed"])
-    if ecfg.use_abs_pos:
-        put("image_encoder.pos_embed", enc["pos_embed"])
-    put_conv("image_encoder.neck.0", enc["neck"]["conv1"])
-    put_ln("image_encoder.neck.1", enc["neck"]["ln1"])
-    put_conv("image_encoder.neck.2", enc["neck"]["conv2"])
-    put_ln("image_encoder.neck.3", enc["neck"]["ln2"])
-    for i, blk in enumerate(enc["blocks"]):
-        b = f"image_encoder.blocks.{i}"
-        put_ln(f"{b}.norm1", blk["norm1"])
-        put_lin(f"{b}.attn.qkv", blk["attn"]["qkv"])
-        put_lin(f"{b}.attn.proj", blk["attn"]["proj"])
-        put_ln(f"{b}.norm2", blk["norm2"])
-        put_lin(f"{b}.mlp.lin1", blk["mlp"]["lin1"])
-        put_lin(f"{b}.mlp.lin2", blk["mlp"]["lin2"])
-        if ecfg.use_rel_pos:
-            put(f"{b}.attn.rel_pos_h", blk["attn"]["rel_pos_h"])
-            put(f"{b}.attn.rel_pos_w", blk["attn"]["rel_pos_w"])
 
     pe, pp = "prompt_encoder", prompt_encoder
     put(f"{pe}.pe_layer.positional_encoding_gaussian_matrix", pp["pe_gaussian"])
@@ -117,6 +169,81 @@ def from_jax_params(image_encoder: dict, prompt_encoder: dict, mask_decoder: dic
     for j, lin in enumerate(dd["iou_head"]["layers"]):
         put_lin(f"{m}.iou_prediction_head.layers.{j}", lin)
     return out
+
+
+def load_jax_encoder(model: sam_lib.Sam, image_encoder: dict) -> sam_lib.Sam:
+    """Install a JAX encoder pytree on ``model``, on the model's device: each
+    linear given as packed fields replaces its ``Linear`` with a
+    ``PackedLinear``, each one given as ``{"w", "b"}`` becomes a ``Linear``
+    again, and every tensor of the encoder is loaded (strict)."""
+    enc = model.image_encoder
+    device = model.device
+    sd, packed = _encoder_state_dict(image_encoder, model.config.image_encoder)
+    for i, blk in enumerate(enc.blocks):
+        for owner_name, name in BLOCK_LINEARS:
+            owner = getattr(blk, owner_name)
+            old = getattr(owner, name)
+            fields = packed.get(f"blocks.{i}.{owner_name}.{name}")
+            if fields is not None:
+                new = PackedLinear(fields["in_features"], fields["out_features"],
+                                   bits=fields["bits"], groupsize=fields["groupsize"],
+                                   pack_block=fields["pack_block"],
+                                   bias=f"blocks.{i}.{owner_name}.{name}.bias" in sd,
+                                   act_bits=fields["act_bits"], sym=fields["sym"],
+                                   device=device)
+            elif isinstance(old, PackedLinear):
+                new = Linear(old.in_features, old.out_features,
+                             bias=f"blocks.{i}.{owner_name}.{name}.bias" in sd, device=device)
+            else:
+                continue
+            setattr(owner, name, new)
+    enc.load_state_dict(sd, strict=True)
+    return model
+
+
+def to_jax_encoder(encoder) -> dict:
+    """The JAX encoder pytree (numpy arrays; packed linears as their fields)
+    of a port ``ImageEncoderViT``: the inverse of :func:`load_jax_encoder`."""
+    cfg = encoder.cfg
+
+    def arr(t, perm=None):
+        a = t.detach().float().cpu().numpy() if t.is_floating_point() else t.detach().cpu().numpy()
+        return a.transpose(perm) if perm is not None else a
+
+    def lin(m):
+        if isinstance(m, PackedLinear):
+            return {
+                **{k: None if getattr(m, k) is None else arr(getattr(m, k))
+                   for k in ("qweight", "qweight_hi", "scales", "zeros", "bias")},
+                **{k: getattr(m, k) for k in _PACKED_FIELDS},
+            }
+        return {"w": arr(m.weight, (1, 0)), **({"b": arr(m.bias)} if m.bias is not None else {})}
+
+    def ln(m):
+        return {"w": arr(m.weight), "b": arr(m.bias)}
+
+    def conv(m):
+        return {"w": arr(m.weight, (2, 3, 1, 0)),
+                **({"b": arr(m.bias)} if m.bias is not None else {})}
+
+    tree = {
+        "patch_embed": conv(encoder.patch_embed.proj),
+        "neck": {"conv1": conv(encoder.neck[0]), "ln1": ln(encoder.neck[1]),
+                 "conv2": conv(encoder.neck[2]), "ln2": ln(encoder.neck[3])},
+        "blocks": [],
+    }
+    if cfg.use_abs_pos:
+        tree["pos_embed"] = arr(encoder.pos_embed)
+    for blk in encoder.blocks:
+        b = {"norm1": ln(blk.norm1),
+             "attn": {"qkv": lin(blk.attn.qkv), "proj": lin(blk.attn.proj)},
+             "norm2": ln(blk.norm2),
+             "mlp": {"lin1": lin(blk.mlp.lin1), "lin2": lin(blk.mlp.lin2)}}
+        if cfg.use_rel_pos:
+            b["attn"]["rel_pos_h"] = arr(blk.attn.rel_pos_h)
+            b["attn"]["rel_pos_w"] = arr(blk.attn.rel_pos_w)
+        tree["blocks"].append(b)
+    return tree
 
 
 def load_state_dict(model: sam_lib.Sam, sd: Dict[str, torch.Tensor]) -> sam_lib.Sam:

@@ -19,6 +19,12 @@ Attention has three branches:
 
 The kernel branches need ``use_rel_pos``; without it ``attn_impl="kernel"``
 raises. On a CPU tensor the kernel wrappers run their plain versions.
+
+Any of a block's four linears may be a ``PackedLinear`` (a quantized
+encoder): qkv and proj then run the dequant-matmul kernel, and under
+``attn_impl="kernel"`` an MLP whose two linears pass ``fused_mlp_supported``
+runs the fused quantized-MLP kernel (the JAX ``_use_fused_mlp``, which the
+eager branch, like JAX's ``"xla"``, turns off).
 """
 
 from __future__ import annotations
@@ -31,9 +37,12 @@ from torch import nn
 from sam_quantization_tpu_torch.models.configs import ImageEncoderConfig
 from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, MLPBlock
-from sam_quantization_tpu_torch.ops import flash_attention
+from sam_quantization_tpu_torch.ops import flash_attention, fused_mlp
 
 ATTN_IMPLS = ("kernel", "eager")
+# The linears of a Block, as (child, attribute): the layers a quantized
+# encoder packs.
+BLOCK_LINEARS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "lin1"), ("mlp", "lin2"))
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +236,13 @@ class Block(nn.Module):
         if ws > 0:
             x = window_unpartition(x, ws, pad_hw, (H, W))
         x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        h = self.norm2(x)
+        lin1, lin2 = self.mlp.lin1, self.mlp.lin2
+        if attn_impl == "kernel" and fused_mlp.fused_mlp_supported(lin1, lin2):
+            h = fused_mlp.fused_mlp(h, lin1, lin2)
+        else:
+            h = self.mlp(h)
+        return x + h
 
 
 class ImageEncoderViT(nn.Module):

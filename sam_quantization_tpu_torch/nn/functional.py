@@ -1,6 +1,7 @@
-"""Dense NN primitives on tensors, NHWC like the JAX package.
+"""NN primitives on tensors, NHWC like the JAX package.
 
-Counterpart of ``sam_quantization_tpu/nn/functional.py`` (dense parts only).
+Counterpart of ``sam_quantization_tpu/nn/functional.py`` (dense parts and
+the weight-only packed linear, :func:`quant_linear`).
 Parameters keep the upstream ``segment_anything`` torch layout: linear
 weights are ``(out, in)``, convolutions ``OIHW``, transposed convolutions
 ``(I, O, kh, kw)``. Activations stay NHWC at every function, so each result
@@ -31,6 +32,20 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     y = torch.matmul(x, weight.to(x.dtype).t())
     if bias is not None:
         y = y + bias.to(x.dtype)
+    return y
+
+
+def quant_linear(x: torch.Tensor, p) -> torch.Tensor:
+    """Packed linear (:class:`~sam_quantization_tpu_torch.nn.packed.PackedLinear`):
+    the dequant-matmul kernel on x's rows, then the float32 bias cast to the
+    output dtype (the JAX ``quant_linear``)."""
+    from sam_quantization_tpu_torch.ops import quant_matmul
+
+    lead = x.shape[:-1]
+    y = quant_matmul.quant_matmul(x.reshape(-1, x.shape[-1]), p)
+    y = y.reshape(*lead, p.out_features)
+    if p.bias is not None:
+        y = y + p.bias.to(y.dtype)
     return y
 
 
@@ -105,9 +120,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return TF.gelu(x)
 
 
-def mlp_block(x, lin1_w, lin1_b, lin2_w, lin2_b, act=gelu) -> torch.Tensor:
-    """lin1 -> act -> lin2 (ref segment_anything/modeling/common.py:13-27)."""
-    return linear(act(linear(x, lin1_w, lin1_b)), lin2_w, lin2_b)
+def mlp_block(x, lin1, lin2, act=gelu) -> torch.Tensor:
+    """lin1 -> act -> lin2 (ref segment_anything/modeling/common.py:13-27);
+    ``lin1`` / ``lin2`` are ``Linear`` or ``PackedLinear`` modules."""
+    return lin2(act(lin1(x)))
 
 
 # ---------------------------------------------------------------------------

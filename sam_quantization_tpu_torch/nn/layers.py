@@ -105,7 +105,7 @@ class Embedding(nn.Module):
 
 class MLPBlock(nn.Module):
     """lin1 -> act -> lin2 (ref common.py:13-27); GELU in the encoder, ReLU
-    in the two-way transformer."""
+    in the two-way transformer. Either linear may be a ``PackedLinear``."""
 
     def __init__(self, dim, hidden, act=F.gelu, *, gen=None, device="cpu"):
         super().__init__()
@@ -114,6 +114,4 @@ class MLPBlock(nn.Module):
         self.lin2 = Linear(hidden, dim, gen=gen, device=device)
 
     def forward(self, x):
-        return F.mlp_block(
-            x, self.lin1.weight, self.lin1.bias, self.lin2.weight, self.lin2.bias, self.act
-        )
+        return F.mlp_block(x, self.lin1, self.lin2, self.act)

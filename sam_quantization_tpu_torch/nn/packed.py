@@ -1,0 +1,241 @@
+"""Packed low-bit linear layers in the JAX package's block-planar layout.
+
+Counterpart of ``sam_quantization_tpu/nn/packed.py`` (weight-only parts).
+The layout is kept word for word, so an artifact written by the JAX package
+loads unchanged:
+
+* ``qweight`` is int32 ``(K // per, N)``, K-major, ``per = 32 // bits``. K is
+  split into pack blocks of ``pack_block`` rows; within a block, the ``per``
+  values of one word hold rows ``pack_block // per`` apart (plane ``s`` sits
+  at bit ``s * bits``).
+* 3-bit weights are two planes with the same pack block: the low 2 bits in
+  ``qweight`` (16 per word, ``(K // 16, N)``) and the high bit in
+  ``qweight_hi`` (32 per word, ``(K // 32, N)``).
+* ``scales`` / ``zeros`` are float32 ``(K // groupsize, N)``:
+  ``w[k, n] = (q[k, n] - zeros[k // g, n]) * scales[k // g, n]``.
+
+Packing runs in int64 and wraps to int32 explicitly (torch's uint32
+arithmetic is thin); unpacking shifts, then masks below ``2**bits``, which
+makes the arithmetic ``>>`` of a negative int32 safe.
+
+:class:`PackedLinear` keeps ``scales``, ``zeros`` and ``bias`` as they are,
+float32 values unrounded, whatever ``module.to(dtype)`` asks: the kernels
+dequantize with float32
+scales, as the JAX kernel does, so a bfloat16 encoder keeps the numbers.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import torch
+from torch import nn
+
+_FLOAT_BUFFERS = ("scales", "zeros", "bias")
+
+
+def default_pack_block(in_features: int, bits: int) -> int:
+    # bits=3 packs as a 2-bit plane + a 1-bit plane; the 1-bit plane's 32
+    # values per word is the binding alignment constraint.
+    per = 32 if bits == 3 else 32 // bits
+    pb = min(128, in_features)
+    while in_features % pb != 0 or pb % per != 0:
+        pb //= 2
+        if pb < per:
+            raise ValueError(f"cannot find pack block for K={in_features}, bits={bits}")
+    return pb
+
+
+class PackedLinear(nn.Module):
+    """Quantized linear layer: ``y = x @ dequant(qweight) + bias``.
+
+    Built from its static fields with buffers of the right shapes (filled by
+    a state dict or by :func:`pack_int_weights`), like ``Linear``.
+    ``act_bits`` 8 (int8 activations) is carried for artifacts but has no
+    kernel in the port yet.
+    """
+
+    def __init__(self, in_features: int, out_features: int, *, bits: int = 4,
+                 groupsize: int = 0, pack_block: int = 128, bias: bool = True,
+                 act_bits: int = 0, sym: bool = False, device="cpu"):
+        super().__init__()
+        if bits not in (2, 3, 4, 8):
+            raise ValueError(f"PackedLinear supports bits in (2, 3, 4, 8); got {bits}")
+        g = groupsize if groupsize > 0 else in_features
+        if in_features % g or g % pack_block:
+            raise ValueError(
+                f"groupsize {g} must divide K={in_features} and be a multiple of "
+                f"pack_block {pack_block}"
+            )
+        self.bits, self.in_features, self.out_features = bits, in_features, out_features
+        self.groupsize, self.pack_block = g, pack_block
+        self.act_bits, self.sym = act_bits, sym
+        K, N, G = in_features, out_features, in_features // g
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.register_buffer("qweight", torch.zeros(K // self.values_per_word, N, **i32))
+        self.register_buffer(
+            "qweight_hi", torch.zeros(K // 32, N, **i32) if bits == 3 else None
+        )
+        self.register_buffer("scales", torch.zeros(G, N, **f32))
+        self.register_buffer("zeros", torch.zeros(G, N, **f32))
+        self.register_buffer("bias", torch.zeros(N, **f32) if bias else None)
+
+    @property
+    def values_per_word(self) -> int:
+        # bits=3: the low (2-bit) plane's word count defines qweight's shape.
+        return 16 if self.bits == 3 else 32 // self.bits
+
+    @property
+    def num_groups(self) -> int:
+        return self.in_features // self.groupsize
+
+    def _apply(self, fn, recurse=True):
+        # fn may change a buffer's dtype (module.to(torch.bfloat16)). Where it
+        # does, the float32 buffer is put back, moved only to fn's device:
+        # casting fn's result back would keep its rounding.
+        before = {name: getattr(self, name) for name in _FLOAT_BUFFERS}
+        super()._apply(fn, recurse)
+        for name, t in before.items():
+            new = getattr(self, name)
+            if t is not None and new.dtype != t.dtype:
+                setattr(self, name, t.to(new.device))
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from sam_quantization_tpu_torch.nn import functional as F
+
+        return F.quant_linear(x, self)
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"bits={self.bits}, groupsize={self.groupsize}, "
+                f"pack_block={self.pack_block}, act_bits={self.act_bits}, sym={self.sym}")
+
+
+def pack_int_weights(
+    int_weight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    bias: Optional[torch.Tensor], bits: int, groupsize: int = 0, sym: bool = False,
+) -> PackedLinear:
+    """Pack integer grid weights (K, N), values in [0, 2^bits - 1], on their device.
+
+    ``w[k, n] = (int_weight[k, n] - zeros[k // groupsize, n]) * scales[k // groupsize, n]``.
+    """
+    K, N = int_weight.shape
+    g = groupsize if groupsize > 0 else K
+    pb = default_pack_block(K, bits)
+    if g % pb != 0:
+        pb = default_pack_block(g, bits)
+    p = PackedLinear(K, N, bits=bits, groupsize=g, pack_block=pb, bias=bias is not None,
+                     sym=sym, device=int_weight.device)
+    q = int_weight.to(torch.int64)
+    if bits == 3:
+        p.qweight.copy_(_pack_planar(q & 3, 2, pb))
+        p.qweight_hi.copy_(_pack_planar(q >> 2, 1, pb))
+    else:
+        p.qweight.copy_(_pack_planar(q, bits, pb))
+    p.scales.copy_(scales.reshape(-1, N))
+    p.zeros.copy_(zeros.reshape(-1, N))
+    if bias is not None:
+        p.bias.copy_(bias)
+    return p
+
+
+def _pack_planar(int_vals: torch.Tensor, bits: int, pb: int) -> torch.Tensor:
+    """Block-planar bit-pack (K, N) grid values in [0, 2^bits) into (K//per, N)
+    int32 words: within each pack block, word row r of plane s holds original
+    in-block row s * rows_per_plane + r."""
+    K, N = int_vals.shape
+    per = 32 // bits
+    w = int_vals.to(torch.int64).reshape(K // pb, per, pb // per, N)
+    shifts = (torch.arange(per, dtype=torch.int64, device=w.device) * bits).reshape(1, per, 1, 1)
+    words = (w << shifts).sum(dim=1)  # disjoint bit fields: the sum is the OR, < 2^32
+    words = torch.where(words >= 2**31, words - 2**32, words)  # wrap to int32
+    return words.to(torch.int32).reshape(K // per, N)
+
+
+def unpack_words(qwords: torch.Tensor, bits: int, pack_block: int) -> torch.Tensor:
+    """Unpack block-planar int32 words (R, N) into int32 grid values (R * per, N).
+
+    ``qwords`` must cover whole pack blocks (R divisible by pack_block/per).
+    """
+    per = 32 // bits
+    R, N = qwords.shape
+    rows_per_plane = pack_block // per
+    mask = (1 << bits) - 1
+    qb = qwords.reshape(R // rows_per_plane, rows_per_plane, N)
+    planes = [(qb >> (s * bits)) & mask for s in range(per)]
+    return torch.cat(planes, dim=1).reshape(R * per, N)
+
+
+def unpack_to_int(p: PackedLinear) -> torch.Tensor:
+    """Full int32 grid values of shape (K, N)."""
+    if p.bits == 3:
+        low = unpack_words(p.qweight, 2, p.pack_block)
+        hi = unpack_words(p.qweight_hi, 1, p.pack_block)
+        return low | (hi << 2)
+    return unpack_words(p.qweight, p.bits, p.pack_block)
+
+
+def dequantize(p: PackedLinear, dtype=torch.float32) -> torch.Tensor:
+    """Dequantized (K, N) weight: ``(q - zero) * scale`` per group in float32,
+    then cast to ``dtype``."""
+    q = unpack_to_int(p).float()
+    K, N = q.shape
+    g = p.groupsize
+    w = (q.reshape(K // g, g, N) - p.zeros[:, None, :]) * p.scales[:, None, :]
+    return w.reshape(K, N).to(dtype)
+
+
+def quantize_rtn(
+    w: torch.Tensor, bits: int, groupsize: int = 0, sym: bool = False,
+    bias: Optional[torch.Tensor] = None,
+) -> PackedLinear:
+    """Round-to-nearest per-group quantization of a (K, N) weight matrix
+    (the JAX package's ``quantize_rtn``, operation for operation)."""
+    K, N = w.shape
+    g = groupsize if groupsize > 0 else K
+    g = min(g, K)  # tiny layers: a group never exceeds the K axis
+    maxq = (1 << bits) - 1
+    wg = w.reshape(K // g, g, N).float()
+    wmax = wg.amax(dim=1)
+    wmin = wg.amin(dim=1)
+    if sym:
+        m = torch.maximum(wmax.abs(), wmin.abs())
+        wmax, wmin = m, -m
+    wmax = torch.where(wmax == wmin, wmax + 1e-8, wmax)
+    scale = (wmax - wmin) / maxq
+    if sym:
+        zero = torch.full_like(scale, (maxq + 1) / 2)
+    else:
+        zero = torch.round(-wmin / scale)
+    q = torch.clamp(torch.round(wg / scale[:, None, :]) + zero[:, None, :], 0, maxq)
+    return pack_int_weights(
+        q.reshape(K, N).to(torch.int32), scale, zero,
+        None if bias is None else bias.float(), bits, g, sym=sym,
+    )
+
+
+def dense_copy(module: nn.Module) -> nn.Module:
+    """A deep copy of ``module`` with every :class:`PackedLinear` replaced by
+    a float32 ``Linear`` holding its dequantized weight: the dense model the
+    packed one stands for."""
+    from sam_quantization_tpu_torch.nn.layers import Linear
+
+    def dense(p: PackedLinear) -> Linear:
+        lin = Linear(p.in_features, p.out_features, bias=p.bias is not None,
+                     device=p.qweight.device)
+        lin.weight.data.copy_(dequantize(p).t())
+        if p.bias is not None:
+            lin.bias.data.copy_(p.bias)
+        return lin
+
+    if isinstance(module, PackedLinear):
+        return dense(module)
+    out = copy.deepcopy(module)
+    for name, child in list(out.named_modules()):
+        for attr, sub in list(child.named_children()):
+            if isinstance(sub, PackedLinear):
+                setattr(child, attr, dense(sub))
+    return out

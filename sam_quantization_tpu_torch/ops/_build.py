@@ -19,14 +19,17 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_windowed", "flash_global")
+KERNELS = ("flash_windowed", "flash_global", "quant_matmul", "fused_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' `dtype` argument
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures, one per library: (symbol, argtypes).
 SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
@@ -40,6 +43,18 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
     "flash_global": (
         "samq_flash_global",
         (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    ),
+    # dtype, bits, x, qweight, qweight_hi, scales, zeros, out, M, K, N,
+    # groupsize, pack_block, stream
+    "quant_matmul": (
+        "samq_quant_matmul",
+        (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    ),
+    # dtype, bits, x, qw1, s1, z1, b1, qw2, s2, z2, out, M, K, H, N,
+    # groupsize1, pack_block1, groupsize2, pack_block2, stream
+    "fused_mlp": (
+        "samq_fused_mlp",
+        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
 }
 
@@ -114,3 +129,12 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry point of library ``name`` with ``args``; raise if it
+    returns a CUDA error. The caller counts the launch."""
+    symbol, _ = SIGNATURES[name]
+    err = getattr(load(name), symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -37,7 +37,6 @@ CLAMP_CAP, CLAMP_FLOOR = 64.0, -60.0
 MAX_HEAD_DIM = 128  # the kernels' register tile
 
 LAUNCHES: Dict[str, int] = {"flash_windowed": 0, "flash_global": 0}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
@@ -57,7 +56,7 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor, dtype, out_inv_scale):
 
 
 def _check_cuda(name: str, dtype, *tensors: torch.Tensor) -> None:
-    if dtype not in _DTYPE_CODE:
+    if dtype not in _build.DTYPE_CODE:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32 or bfloat16)")
     dev = tensors[0].device
     for t in tensors:
@@ -67,14 +66,6 @@ def _check_cuda(name: str, dtype, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-
-
-def _launch(name: str, *args) -> None:
-    symbol, _ = _build.SIGNATURES[name]
-    err = getattr(_build.load(name), symbol)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +129,12 @@ def flash_attention_qkv_packed(
     )
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(
-            "flash_windowed", _DTYPE_CODE[qkv.dtype], int(quant), qkv.data_ptr(),
+        _build.launch(
+            "flash_windowed", _build.DTYPE_CODE[qkv.dtype], int(quant), qkv.data_ptr(),
             rel.data_ptr(), out.data_ptr(), NW, L, nh, hd, kh, kw,
             float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
         )
+    LAUNCHES["flash_windowed"] += 1
     return out
 
 
@@ -204,9 +196,11 @@ def flash_attention_relpos(
     out = torch.empty(q.shape, dtype=torch.int8 if quant else q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(
-            "flash_global", _DTYPE_CODE[q.dtype], int(quant), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(), B * nh, L,
-            hd, kh, kw, float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
+        _build.launch(
+            "flash_global", _build.DTYPE_CODE[q.dtype], int(quant), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+            B * nh, L, hd, kh, kw, float(scale * LOG2E),
+            float(out_inv_scale) if quant else 0.0, stream,
         )
+    LAUNCHES["flash_global"] += 1
     return out

@@ -5,16 +5,20 @@ JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
 
-Tolerances: float32 atol 1e-4; bfloat16 |d| <= 2e-2 + 1e-2 |ref| (one bf16
-step of an output, or of a p before the p.v product); int8 epilogue |d| <= 1
-on at most 0.5% of the elements.
+Attention tolerances: float32 atol 1e-4; bfloat16 |d| <= 2e-2 + 1e-2 |ref|
+(one bf16 step of an output, or of a p before the p.v product); int8
+epilogue |d| <= 1 on at most 0.5% of the elements. The packed-weight
+kernels' tolerances are stated above their tests.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sam_quantization_tpu_torch.nn import packed as tpacked
 from sam_quantization_tpu_torch.ops import flash_attention as tfa
+from sam_quantization_tpu_torch.ops import fused_mlp as tfm
+from sam_quantization_tpu_torch.ops import quant_matmul as tqm
 
 DTYPES = {"f32": (torch.float32, 1e-4, 0.0), "bf16": (torch.bfloat16, 2e-2, 1e-2)}
 
@@ -91,3 +95,75 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qkv = torch.zeros(2, 3 * 64, 25, device=cuda).transpose(1, 2)  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_qkv_packed(qkv, rel.float(), 0.25, nh=4, hd=16, kh=5, kw=5)
+
+
+# ---------------------------------------------------------------------------
+# Packed-weight kernels. Tolerances: float32 |d| <= 1e-5 |ref| + 1e-4 max|ref|
+# (the same dequantized weights, float32 sums in another order); bfloat16
+# |d| <= 8e-3 |ref| + 1e-3 max|ref| (two bf16 steps of an output: both sides
+# multiply the same bf16 values and differ only in the f32 sum order, and in
+# the fused MLP in an occasional one-step flip of a rounded hidden value).
+# ---------------------------------------------------------------------------
+
+QTOL = {"f32": (1e-5, 1e-4), "bf16": (8e-3, 1e-3)}
+
+
+def _check_rel(out, ref, dtype):
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    rtol, mtol = QTOL[dtype]
+    bound = rtol * np.abs(ref) + mtol * np.abs(ref).max()
+    d = np.abs(out - ref)
+    assert (d <= bound).all(), (d.max(), float((d - bound).max()))
+
+
+def _packed(seed, K, N, bits, g, device, std=0.05):
+    w = _randn(seed, K, N) * std
+    return tpacked.quantize_rtn(w.to(device), bits, g, bias=_randn(seed + 1, N).to(device) * 0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M,K,N,g", [(64, 256, 128, 32), (100, 512, 192, 64), (37, 256, 250, 128),
+                                     (130, 384, 128, 0), (1, 128, 64, 0)])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, bits, M, K, N, g):
+    tdt = DTYPES[dtype][0]
+    p = _packed(10, K, N, bits, g, cuda)
+    x = _randn(11, M, K).to(cuda, tdt)
+    name = "quant_matmul3" if bits == 3 else "quant_matmul"
+    before = dict(tqm.LAUNCHES)
+    out = tqm.quant_matmul(x, p)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES[name] == before[name] + 1 and out.dtype == tdt
+    _check_rel(out, tqm.quant_matmul_plain(x, p), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits,g", [(4, 128), (4, 32), (8, 64), (2, 0)])
+@pytest.mark.parametrize("M,K,H,N", [(64, 128, 512, 128), (45, 256, 1024, 384),
+                                     (33, 128, 512, 1408)])  # two column groups
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, bits, g, M, K, H, N):
+    tdt = DTYPES[dtype][0]
+    p1, p2 = _packed(20, K, H, bits, g, cuda), _packed(22, H, N, bits, g, cuda)
+    assert tfm.fused_mlp_supported(p1, p2)
+    x = _randn(23, M, K).to(cuda, tdt)
+    before = tfm.LAUNCHES["fused_mlp"]
+    out = tfm.fused_mlp(x, p1, p2)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES["fused_mlp"] == before + 1
+    _check_rel(out, tfm.fused_mlp_plain(x, p1, p2) + p2.bias.to(tdt), dtype)
+
+
+@pytest.mark.gpu
+def test_packed_kernels_reject_what_they_do_not_take(cuda):
+    p = _packed(30, 128, 128, 4, 32, cuda)
+    with pytest.raises(TypeError):
+        tqm.quant_matmul(torch.zeros(4, 128, device=cuda, dtype=torch.float16), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.quant_matmul(torch.zeros(128, 4, device=cuda).t(), p)
+    with pytest.raises(ValueError, match="weights on cpu"):
+        tqm.quant_matmul(torch.zeros(4, 128, device=cuda), _packed(30, 128, 128, 4, 32, "cpu"))
+    p1, p2 = _packed(31, 128, 512, 4, 32, cuda), _packed(32, 512, 96, 4, 32, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_supported"):  # N % 128 != 0
+        tfm.fused_mlp(torch.zeros(4, 128, device=cuda), p1, p2)

@@ -334,4 +334,8 @@ def test_port_imports_no_jax():
     offenders = [str(f) for f in files if bad.search(f.read_text())]
     assert not offenders, offenders
     assert len(files) > 10
-    assert os.path.exists(REPO / "sam_quantization_tpu_torch" / "csrc" / "flash_windowed.cu")
+    for module in ("nn/packed.py", "ops/quant_matmul.py", "ops/fused_mlp.py",
+                   "quant/artifacts.py", "quant/sequential.py", "cli/infer.py"):
+        assert REPO / "sam_quantization_tpu_torch" / module in files, module
+    for src in ("flash_windowed.cu", "quant_matmul.cu", "fused_mlp.cu"):
+        assert os.path.exists(REPO / "sam_quantization_tpu_torch" / "csrc" / src), src
