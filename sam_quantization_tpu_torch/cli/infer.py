@@ -6,7 +6,10 @@ Counterpart of ``sam_quantization_tpu/cli/infer.py`` (the ``--load`` and
 
     python -m sam_quantization_tpu_torch.cli.infer vit_h --load DIR --benchmark
 
-The encoder is timed in bfloat16 on a zero image, like the JAX CLI's
+An artifact whose layers store ``act_bits: 8`` (written from
+``with_act_bits(params, 8)``) serves through the W-A8 kernels; weight-only
+ones through the dequant-matmul kernels. The encoder is timed in bfloat16
+on a zero image, like the JAX CLI's
 benchmark, with ``torch.cuda.synchronize()`` around the timed loop; the
 result is one JSON line with ``encoder_s_per_image`` and
 ``encoder_images_per_s``.

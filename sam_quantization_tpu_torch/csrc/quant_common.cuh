@@ -1,6 +1,7 @@
-// Shared pieces of the packed-weight kernels (quant_matmul.cu, fused_mlp.cu):
-// loading and decoding packed words, filling shared-memory tiles of
-// dequantized weights and of activations, and the launch helper.
+// Shared pieces of the packed-weight kernels (quant_matmul.cu, fused_mlp.cu,
+// quant_matmul_a8.cu): loading and decoding packed words, filling
+// shared-memory tiles of dequantized weights and of activations (float32,
+// bfloat16 or int8), and the launch helper.
 //
 // Layout (sam_quantization_tpu/nn/packed.py, kept word for word): K is split
 // into pack blocks of `pb` rows (a power of two <= 128); with PER values per
@@ -207,7 +208,7 @@ __device__ __forceinline__ void fill_x_tile(T* dst, int ld, const T* __restrict_
   } else {
     for (int i = threadIdx.x; i < ROWS * COLS; i += NTHREADS) {
       const int r = i / COLS, c = i % COLS, m = m0 + r, k = k0 + c;
-      dst[r * ld + c] = (m < M && k < K) ? x[(long)m * K + k] : from_f32<T>(0.f);
+      dst[r * ld + c] = (m < M && k < K) ? x[(long)m * K + k] : T{};  // T{}: zero bits
     }
   }
 }

@@ -1,0 +1,354 @@
+// Int8-activation (W-A8) dequant-matmul on block-planar packed weights, for
+// activations already quantized per token (xq int8, scale xs[m]):
+//   sym:  out[m, n] = xs[m] * sum_seg s_g[n] * (xq @ (w - mid))[m, n]
+//   asym: out[m, n] = xs[m] * sum_seg s_g[n] * ((xq @ (w - off))[m, n]
+//                                              - (z_g[n] - off) * rowsum_seg(xq)[m])
+// with mid = 2^(bits - 1), off = 128 at 8 bits and 0 below, and the output
+// in x's type (float32 or bfloat16). A segment is a scale group cut at the
+// 128-row K tiles: its integer dot is exact in int32, converted to float32
+// and scaled once, in the segment order, as the TPU kernels do.
+//
+// Replaces: sam_quantization_tpu/ops/quant_matmul.py::_qmm_a8_sym_kernel
+// (:369-406, launched by _qmm_a8_sym_call :414-447 through
+// _quant_matmul_a8_sym :460-484) and ::_qmm_a8_kernel (:279-316, launched by
+// _qmm_a8_call :325-358 through _quant_matmul_a8_asym :487-516). The TPU
+// writes the float32 accumulator and multiplies by the token scale outside
+// the kernel; here that multiply and the cast are the kernel's epilogue, in
+// the same float32 order, which saves an (M, N) float32 round trip. The TPU
+// wrapper's M padding and its replication of scale rows to a
+// (num_k, groups_per_bk, N) array are Mosaic tiling; here ragged M and N are
+// masked and scales are indexed by k / groupsize.
+//
+// What bounds it on an H100: at ViT-H (qkv: M 4900, K 1280, N 3840, 4-bit,
+// g 128) the product is 48.2 G integer operations against ~46.5 MB moved
+// (xq 6.3 MB, bf16 out 37.6 MB, packed words and scales 2.6 MB): 24 us of
+// int8 tensor-core time against 14 us of memory, so it is bound by
+// operations.
+//
+// Design (a simple first version): one block of 8 warps owns a (128, 128)
+// output tile and walks K in tiles of 128 rows, a whole number of pack
+// blocks. Per tile the int8 x tile arrives by cp.async and the packed words
+// are decoded, as w - mid or w - off (subtracted before the narrowing, so a
+// grid value of 255 never wraps), into an int8 [n][k] tile: a thread takes
+// four word rows of one column and writes each plane's four consecutive k
+// as one 32-bit word. Both tiles are double-buffered as in quant_matmul.cu.
+// Each warp owns a 32 x 64 sub-tile and runs
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on the int8 tensor cores; its
+// int32 sums cover one segment and are folded into float32 accumulators in
+// registers at the segment's end (the accumulator layout of m16n8k32 is
+// documented, so s_g[n], z_g[n] and the row's rowsum apply per register).
+// The asymmetric rowsum comes from the A fragments the warp already holds
+// (dp4a of each register with 0x01010101, then two shuffles across the four
+// lanes of a row). Group boundaries must fall on the 32-row k steps of the
+// mma: groupsize % 32 == 0, or one group over all of K.
+#include "quant_common.cuh"
+
+namespace samq_quant {
+
+constexpr int A8_BM = 128, A8_BN = 128;
+constexpr int A8_THREADS = 256;     // 8 warps, 4 (M) x 2 (N), each a 32 x 64 sub-tile
+constexpr int A8_LD = KT + 16;      // int8 row pitch: 144 B = 36 words, fragment loads conflict-free
+constexpr int KSTEP = 32;           // k of one mma.m16n8k32
+constexpr int KSTEPS = KT / KSTEP;  // k steps per K tile
+constexpr size_t A8_BUF = (size_t)(A8_BM + A8_BN) * A8_LD + 2 * KSTEPS * A8_BN * sizeof(float);
+constexpr size_t A8_SMEM = 2 * A8_BUF;
+
+template <int BITS, bool SYM>
+constexpr int a8_sub() {
+  return SYM ? 1 << (BITS - 1) : (BITS == 8 ? 128 : 0);
+}
+
+// The packed words of one (KT, A8_BN) weight tile, and the scales (and
+// zeros less off) of its k steps, held in registers between load() and
+// store(). An item is four consecutive word rows of one column; a warp's
+// lanes take up to four items down K and eight or sixteen columns across,
+// so the 32-bit stores of store() fall in distinct banks.
+template <int BITS, bool SYM>
+struct Int8WeightTile {
+  static constexpr int PER = Packing<BITS>::PER;
+  static constexpr int Q = KT / PER / 4;  // items down a tile's word rows
+  static constexpr int QL = Q < 4 ? Q : 4;
+  static constexpr int CL = 32 / QL;
+  static constexpr int ITEMS = Q * A8_BN / A8_THREADS;
+  static constexpr int SITEMS = KSTEPS * A8_BN / A8_THREADS;
+  static constexpr int SUB = a8_sub<BITS, SYM>();
+  static_assert(Q * A8_BN % A8_THREADS == 0 && KSTEPS * A8_BN % A8_THREADS == 0, "whole items");
+  int w[ITEMS][4];
+  float sc[SITEMS], zr[SITEMS];
+
+  __device__ __forceinline__ static void item(int p, int& q, int& c) {
+    const int l = p & 31, wi = p >> 5;
+    q = (wi / (A8_BN / CL)) * QL + l % QL;
+    c = (wi % (A8_BN / CL)) * CL + l / QL;
+  }
+
+  __device__ __forceinline__ void load(const int32_t* __restrict__ qw,
+                                       const float* __restrict__ scales,
+                                       const float* __restrict__ zeros, int k0, int K, int n0,
+                                       int N, int pb, int groupsize) {
+    const int rpp = pb / PER, rl = __ffs(rpp) - 1;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      int q, c;
+      item(threadIdx.x + it * A8_THREADS, q, c);
+      const int n = n0 + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int i, row0;
+        locate_row(4 * q + j, rpp, rl, pb, i, row0);
+        const int kb = k0 + row0;
+        w[it][j] = (kb < K && n < N) ? __ldg(qw + (long)(kb / PER + i) * N + n) : 0;
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < SITEMS; ++it) {
+      const int e = threadIdx.x + it * A8_THREADS;
+      const int k = k0 + (e / A8_BN) * KSTEP, n = n0 + e % A8_BN;
+      const bool in = k < K && n < N;
+      const long gi = (long)(k / groupsize) * N + n;
+      sc[it] = in ? __ldg(scales + gi) : 0.f;
+      if constexpr (!SYM) zr[it] = in ? __fsub_rn(__ldg(zeros + gi), (float)SUB) : 0.f;
+    }
+  }
+
+  // Ws[c * A8_LD + r] = w[k0 + r, n0 + c] - SUB as int8; Ss / Zs[ks * A8_BN + c].
+  __device__ __forceinline__ void store(int8_t* Ws, float* Ss, float* Zs, int pb) const {
+    const int rpp = pb / PER, rl = __ffs(rpp) - 1;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      int q, c;
+      item(threadIdx.x + it * A8_THREADS, q, c);
+      int8_t* col = Ws + c * A8_LD;
+      if (rpp >= 4) {  // the four word rows hold four consecutive k of each plane
+        int i0, row0;
+        locate_row(4 * q, rpp, rl, pb, i0, row0);
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          unsigned v = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v |= (unsigned)((grid_value<BITS>(w[it][j], 0, s, 0) - SUB) & 0xff) << (8 * j);
+          *reinterpret_cast<unsigned*>(col + row0 + s * rpp + i0) = v;
+        }
+      } else {  // pack blocks of fewer than 4 * PER rows: byte by byte
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int i, row0;
+          locate_row(4 * q + j, rpp, rl, pb, i, row0);
+#pragma unroll
+          for (int s = 0; s < PER; ++s)
+            col[row0 + s * rpp + i] = (int8_t)(grid_value<BITS>(w[it][j], 0, s, 0) - SUB);
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < SITEMS; ++it) {
+      const int e = threadIdx.x + it * A8_THREADS;
+      Ss[e] = sc[it];
+      if constexpr (!SYM) Zs[e] = zr[it];
+    }
+  }
+};
+
+__device__ __forceinline__ unsigned lds32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// c += a (16x32, row) * b (32x8, col), int8 in, int32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BITS, bool SYM, typename T>
+__global__ void __launch_bounds__(A8_THREADS, 1)
+    qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                  const int32_t* __restrict__ qw, const float* __restrict__ scales,
+                  const float* __restrict__ zeros, T* __restrict__ out, int M, int K, int N,
+                  int pb, int groupsize, bool vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* Xs = reinterpret_cast<int8_t*>(smem);             // 2 x BM x LD
+  int8_t* Ws = Xs + 2 * A8_BM * A8_LD;                        // 2 x BN x LD
+  float* Ss = reinterpret_cast<float*>(Ws + 2 * A8_BN * A8_LD);  // 2 x KSTEPS x BN
+  float* Zs = Ss + 2 * KSTEPS * A8_BN;                        // 2 x KSTEPS x BN
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // the mma fragments' row group and lane in it
+  const int m0 = blockIdx.x * A8_BM, n0 = blockIdx.y * A8_BN;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int tiles = (K + KT - 1) / KT;
+
+  // acc: float32 sums of finished segments; iacc: int32 sums of the current
+  // one; rsp: this lane's part of the rowsum of rows gid and gid + 8.
+  float acc[2][8][4];
+  int iacc[2][8][4], rsp[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rsp[i][0] = rsp[i][1] = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f, iacc[i][j][r] = 0;
+  }
+
+  // Tile t sits in buffer t % 2; while tile t is multiplied, the x copy of
+  // tile t + 1 and the word loads of tile t + 2 are in flight.
+  Int8WeightTile<BITS, SYM> wt;
+  copy_x_tile_async<int8_t, A8_BM, KT, A8_THREADS>(Xs, A8_LD, xq, m0, M, 0, K, vec);
+  wt.load(qw, scales, zeros, 0, K, n0, N, pb, groupsize);
+  wt.store(Ws, Ss, Zs, pb);
+  if (tiles > 1) wt.load(qw, scales, zeros, KT, K, n0, N, pb, groupsize);
+  for (int t = 0; t < tiles; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in place; step t - 1's products are done with buffer nxt
+    if (t + 1 < tiles) {
+      copy_x_tile_async<int8_t, A8_BM, KT, A8_THREADS>(Xs + nxt * A8_BM * A8_LD, A8_LD, xq, m0,
+                                                       M, (t + 1) * KT, K, vec);
+      wt.store(Ws + nxt * A8_BN * A8_LD, Ss + nxt * KSTEPS * A8_BN, Zs + nxt * KSTEPS * A8_BN,
+               pb);
+      if (t + 2 < tiles) wt.load(qw, scales, zeros, (t + 2) * KT, K, n0, N, pb, groupsize);
+    }
+    const int8_t* xt = Xs + cur * A8_BM * A8_LD;
+    const int8_t* wt_s = Ws + cur * A8_BN * A8_LD;
+    const float* st = Ss + cur * KSTEPS * A8_BN;
+    const float* zt = Zs + cur * KSTEPS * A8_BN;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int k = t * KT + ks * KSTEP, kk = ks * KSTEP;
+      if (k >= K) break;
+      unsigned a[2][4], b[8][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* r = xt + (wm + 16 * i + gid) * A8_LD + kk + 4 * tig;
+        a[i][0] = lds32(r);
+        a[i][1] = lds32(r + 8 * A8_LD);
+        a[i][2] = lds32(r + 16);
+        a[i][3] = lds32(r + 8 * A8_LD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int8_t* c = wt_s + (wn + 8 * j + gid) * A8_LD + kk + 4 * tig;
+        b[j][0] = lds32(c);
+        b[j][1] = lds32(c + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_s8(iacc[i][j], a[i], b[j]);
+      if constexpr (!SYM) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          rsp[i][0] = __dp4a((int)a[i][2], 0x01010101, __dp4a((int)a[i][0], 0x01010101, rsp[i][0]));
+          rsp[i][1] = __dp4a((int)a[i][3], 0x01010101, __dp4a((int)a[i][1], 0x01010101, rsp[i][1]));
+        }
+      }
+      // End of a segment: the last k step of the tile, of K, or of a group.
+      if (ks == KSTEPS - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0) {
+        int rs[2][2];
+        if constexpr (!SYM) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              int v = rsp[i][h];
+              v += __shfl_xor_sync(0xffffffffu, v, 1);
+              v += __shfl_xor_sync(0xffffffffu, v, 2);
+              rs[i][h] = v;
+              rsp[i][h] = 0;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cidx = ks * A8_BN + wn + 8 * j + 2 * tig + e;
+            const float s = st[cidx];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = 2 * h + e;
+                const float d = __int2float_rn(iacc[i][j][r]);
+                float term;
+                if constexpr (SYM) {
+                  term = __fmul_rn(d, s);
+                } else {
+                  const float zrs = __fmul_rn(zt[cidx], __int2float_rn(rs[i][h]));
+                  term = __fmul_rn(__fsub_rn(d, zrs), s);
+                }
+                acc[i][j][r] = __fadd_rn(acc[i][j][r], term);
+                iacc[i][j][r] = 0;
+              }
+          }
+      }
+    }
+  }
+
+  // Epilogue: the token scale, then the cast, in x's type.
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + gid + 8 * h;
+      if (m >= M) continue;
+      const float xsm = __ldg(xs + m);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + 8 * j + 2 * tig + e;
+          if (n < N) out[(long)m * N + n] = from_f32<T>(__fmul_rn(acc[i][j][2 * h + e], xsm));
+        }
+    }
+}
+
+template <int BITS, bool SYM>
+static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* qw,
+                  const float* s, const float* z, void* out, int M, int K, int N, int pb, int g,
+                  cudaStream_t stream) {
+  const dim3 grid((M + A8_BM - 1) / A8_BM, (N + A8_BN - 1) / A8_BN);
+  const bool vec = vec_ok(xq, K, 16);
+  if (dtype == 1)
+    return launch(qmm_a8_kernel<BITS, SYM, __nv_bfloat16>, grid, A8_THREADS, A8_SMEM, stream, xq,
+                  xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, vec);
+  return launch(qmm_a8_kernel<BITS, SYM, float>, grid, A8_THREADS, A8_SMEM, stream, xq, xs, qw,
+                s, z, static_cast<float*>(out), M, K, N, pb, g, vec);
+}
+
+template <int BITS>
+static int run_a8_bits(int dtype, int sym, const int8_t* xq, const float* xs, const int32_t* qw,
+                       const float* s, const float* z, void* out, int M, int K, int N, int pb,
+                       int g, cudaStream_t stream) {
+  if (sym) return run_a8<BITS, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  return run_a8<BITS, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+}
+
+}  // namespace samq_quant
+
+// dtype (of out): 0 float32, 1 bfloat16. bits 2, 4 or 8; sym: 1 for the
+// symmetric kernel (zeros unused, may be null), 0 for the asymmetric one.
+// xq int8 (M, K), xs float32 (M,). Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int samq_quant_matmul_a8(int dtype, int bits, int sym, const void* xq, const void* xs,
+                                    const void* qweight, const void* scales, const void* zeros,
+                                    void* out, int M, int K, int N, int groupsize, int pack_block,
+                                    void* stream) {
+  using namespace samq_quant;
+  if ((dtype != 0 && dtype != 1) || M < 1 || (bits != 2 && bits != 4 && bits != 8) ||
+      N > 65535 * A8_BN || !packing_ok(bits, K, N, pack_block, groupsize) ||
+      (groupsize != K && groupsize % KSTEP != 0) || (!sym && zeros == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* x8 = static_cast<const int8_t*>(xq);
+  const float* xsf = static_cast<const float*>(xs);
+  const int32_t* qw = static_cast<const int32_t*>(qweight);
+  const float* s = static_cast<const float*>(scales);
+  const float* z = static_cast<const float*>(zeros);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return run_a8_bits<2>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
+    case 4: return run_a8_bits<4>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
+    default: return run_a8_bits<8>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
+  }
+}

@@ -21,10 +21,11 @@ The kernel branches need ``use_rel_pos``; without it ``attn_impl="kernel"``
 raises. On a CPU tensor the kernel wrappers run their plain versions.
 
 Any of a block's four linears may be a ``PackedLinear`` (a quantized
-encoder): qkv and proj then run the dequant-matmul kernel, and under
-``attn_impl="kernel"`` an MLP whose two linears pass ``fused_mlp_supported``
-runs the fused quantized-MLP kernel (the JAX ``_use_fused_mlp``, which the
-eager branch, like JAX's ``"xla"``, turns off).
+encoder): qkv and proj then run the dequant-matmul kernel (the W-A8 kernels
+for ``act_bits == 8``), and under ``attn_impl="kernel"`` an MLP whose two
+linears pass ``fused_mlp_supported`` runs the fused quantized-MLP kernel
+(the JAX ``_use_fused_mlp``, which the eager branch, like JAX's ``"xla"``,
+turns off). Other MLPs, int8-activation ones among them, call their layers.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Packed low-bit linear layers in the JAX package's block-planar layout.
 
-Counterpart of ``sam_quantization_tpu/nn/packed.py`` (weight-only parts).
+Counterpart of ``sam_quantization_tpu/nn/packed.py`` (``PackedLinear`` and
+its helpers; ``IntLinear`` and ``cache_int8`` are not ported yet).
 The layout is kept word for word, so an artifact written by the JAX package
 loads unchanged:
 
@@ -52,8 +53,8 @@ class PackedLinear(nn.Module):
 
     Built from its static fields with buffers of the right shapes (filled by
     a state dict or by :func:`pack_int_weights`), like ``Linear``.
-    ``act_bits`` 8 (int8 activations) is carried for artifacts but has no
-    kernel in the port yet.
+    ``act_bits`` 8 quantizes the activations per token to int8 and runs the
+    integer W-A8 kernels (:func:`with_act_bits`); 0 is weight-only.
     """
 
     def __init__(self, in_features: int, out_features: int, *, bits: int = 4,
@@ -215,6 +216,19 @@ def quantize_rtn(
         q.reshape(K, N).to(torch.int32), scale, zero,
         None if bias is None else bias.float(), bits, g, sym=sym,
     )
+
+
+def with_act_bits(module: nn.Module, act_bits: int) -> nn.Module:
+    """A copy of ``module`` with ``act_bits`` set on every :class:`PackedLinear`
+    (0 = weight-only, 8 = int8 activations, the W-A8 kernels), the JAX
+    ``with_act_bits``. The copy shares its tensors with ``module``, as JAX's
+    ``dataclasses.replace`` shares arrays; ``module`` is left as it was."""
+    memo = {id(t): t for t in (*module.parameters(), *module.buffers())}
+    out = copy.deepcopy(module, memo)
+    for m in out.modules():
+        if isinstance(m, PackedLinear):
+            m.act_bits = act_bits
+    return out
 
 
 def dense_copy(module: nn.Module) -> nn.Module:

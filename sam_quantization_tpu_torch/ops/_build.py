@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_windowed", "flash_global", "quant_matmul", "fused_mlp")
+KERNELS = ("flash_windowed", "flash_global", "quant_matmul", "fused_mlp", "quant_matmul_a8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +55,12 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
     "fused_mlp": (
         "samq_fused_mlp",
         (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    ),
+    # dtype (of out), bits, sym, xq, xs, qweight, scales, zeros, out, M, K, N,
+    # groupsize, pack_block, stream
+    "quant_matmul_a8": (
+        "samq_quant_matmul_a8",
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
 }
 

@@ -9,7 +9,9 @@ memory. The numerics are the TPU kernel's, in its order:
 outside the kernel in x's dtype. The GELU is always the tanh form, where
 the unfused path uses erf in float32, so whether an MLP fuses changes its
 numbers: :func:`fused_mlp_supported` is the JAX package's rule, unchanged,
-and the encoder fuses exactly where JAX on a TPU does.
+and the encoder fuses exactly where JAX on a TPU does. A pair that does not
+meet it (3-bit, int8 activations, other widths) runs the unfused sequence
+of layers, as JAX's ``fused_mlp`` does.
 
 The wrapper launches the kernel for a CUDA tensor and uses the plain version
 only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
@@ -22,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.packed import PackedLinear, dequantize
 from sam_quantization_tpu_torch.ops import _build
 from sam_quantization_tpu_torch.ops import quant_matmul as qm
@@ -66,15 +69,26 @@ def fused_mlp_plain(x: torch.Tensor, p1: PackedLinear, p2: PackedLinear) -> torc
 
 
 def fused_mlp(x: torch.Tensor, p1: PackedLinear, p2: PackedLinear) -> torch.Tensor:
-    """``lin2(gelu_tanh(lin1(x)))`` with both linears packed. x: (..., K)."""
-    if not fused_mlp_supported(p1, p2):
-        for p in (p1, p2):
-            if isinstance(p, PackedLinear):
-                qm.check_weight_only(p, "fused_mlp")
-        raise ValueError("fused_mlp: the two layers do not meet fused_mlp_supported")
+    """``lin2(gelu(lin1(x)))`` with both linears packed. x: (..., K).
+
+    A pair that meets :func:`fused_mlp_supported` runs the fused kernel
+    (tanh GELU); any other pair runs the JAX package's unfused sequence:
+    ``quant_matmul`` (the W-A8 kernels for int8-activation layers), bias,
+    :func:`~sam_quantization_tpu_torch.nn.functional.gelu` (erf in float32,
+    tanh in bfloat16), ``quant_matmul``, bias."""
+    if not (isinstance(p1, PackedLinear) and isinstance(p2, PackedLinear)):
+        raise TypeError("fused_mlp: both layers must be PackedLinear")
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     M, H, N = x2.shape[0], p1.out_features, p2.out_features
+    if not fused_mlp_supported(p1, p2):
+        h = qm.quant_matmul(x2, p1)
+        if p1.bias is not None:
+            h = h + p1.bias.to(h.dtype)
+        y = qm.quant_matmul(F.gelu(h), p2)
+        if p2.bias is not None:
+            y = y + p2.bias.to(y.dtype)
+        return y.reshape(*lead, N)
     if x.device.type == "cpu":
         out = fused_mlp_plain(x2, p1, p2)
     elif x.device.type != "cuda":

@@ -12,7 +12,8 @@ lists of numpy arrays, each packed linear as a dict of its ``PackedLinear``
 fields (the dataclass fields of the JAX ``PackedLinear``, so a dict with a
 ``qweight`` key); :func:`~sam_quantization_tpu_torch.models.build_sam.load_jax_encoder`
 installs it on a model. Layers left dense (``--overrides`` skips) stay
-``{"w", "b"}`` dicts, and per-layer bit widths load as they are.
+``{"w", "b"}`` dicts, and per-layer bit widths and ``act_bits`` load as
+they are.
 """
 
 from __future__ import annotations
@@ -89,11 +90,6 @@ def _unflatten(arrays: Dict[str, np.ndarray], meta: Dict[str, Any]) -> Any:
         parts = key.split(".")
         ensure(parts[:-1])[parts[-1]] = arr
     for prefix, m in packed.items():
-        if m.get("act_bits", 0) == 8:
-            raise NotImplementedError(
-                f"{prefix}: int8-activation (W-A8) layers are not ported yet; they "
-                "come with the W-A8 slice (ROADMAP Queue 2 items 6-7)"
-            )
         parts = prefix.split(".")
         ensure(parts[:-1])[parts[-1]] = {
             **{k: arrays.get(f"{prefix}.{k}") for k in _PACKED_ARRAYS},
@@ -117,8 +113,9 @@ def _unflatten(arrays: Dict[str, np.ndarray], meta: Dict[str, Any]) -> Any:
 def load_quantized(directory: str) -> Tuple[Any, Dict[str, Any]]:
     """Load (encoder tree, quant_config) from a ``save_quantized`` directory.
 
-    Raises ``NotImplementedError`` for artifacts whose serving path is not
-    ported yet: FQ-ViT (``method == "fq"``) and int8-activation layers.
+    Weight-only and int8-activation (``act_bits == 8``) layers load as they
+    are. Raises ``NotImplementedError`` for FQ-ViT artifacts (``method ==
+    "fq"``), whose serving path is not ported yet.
     """
     if not os.path.isfile(os.path.join(directory, "quant_config.json")):
         raise FileNotFoundError(

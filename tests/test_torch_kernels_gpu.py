@@ -7,8 +7,8 @@ JAX, so it also runs where only PyTorch is installed:
 
 Attention tolerances: float32 atol 1e-4; bfloat16 |d| <= 2e-2 + 1e-2 |ref|
 (one bf16 step of an output, or of a p before the p.v product); int8
-epilogue |d| <= 1 on at most 0.5% of the elements. The packed-weight
-kernels' tolerances are stated above their tests.
+epilogue |d| <= 1 on at most 0.5% of the elements. The packed-weight and
+W-A8 kernels' tolerances are stated above their tests.
 """
 
 import numpy as np
@@ -164,6 +164,86 @@ def test_packed_kernels_reject_what_they_do_not_take(cuda):
         tqm.quant_matmul(torch.zeros(128, 4, device=cuda).t(), p)
     with pytest.raises(ValueError, match="weights on cpu"):
         tqm.quant_matmul(torch.zeros(4, 128, device=cuda), _packed(30, 128, 128, 4, 32, "cpu"))
+    # A pair that fails fused_mlp_supported (N % 128 != 0) runs the unfused
+    # sequence, as JAX does: two dequant-matmul launches and no fused one.
     p1, p2 = _packed(31, 128, 512, 4, 32, cuda), _packed(32, 512, 96, 4, 32, cuda)
-    with pytest.raises(ValueError, match="fused_mlp_supported"):  # N % 128 != 0
-        tfm.fused_mlp(torch.zeros(4, 128, device=cuda), p1, p2)
+    x = _randn(33, 4, 128).to(cuda)
+    before = {**tqm.LAUNCHES, **tfm.LAUNCHES}
+    out = tfm.fused_mlp(x, p1, p2)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul"] == before["quant_matmul"] + 2
+    assert tfm.LAUNCHES["fused_mlp"] == before["fused_mlp"]
+    want = p2(torch.nn.functional.gelu(p1(x)))
+    assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# W-A8 kernels, on the same int8 input as their plain version. The integer
+# sums are exact on both sides and the float32 epilogue runs in the same
+# order, so the outputs agree to float32 rounding: |d| <= 1e-5 max|ref| in
+# float32; in bfloat16 one output step, |d| <= 2**-7 |ref| + 1e-5 max|ref|.
+# ---------------------------------------------------------------------------
+
+
+def _packed_a8(seed, K, N, bits, g, sym, device):
+    """RTN weights with int8 activations; asymmetric grids on skewed weights,
+    so the zero points sit far from the middle (and from 128 at 8 bits)."""
+    w = _randn(seed, K, N) * 0.05 + (0.0 if sym else 0.08)
+    p = tpacked.quantize_rtn(w.to(device), bits, g, sym,
+                             bias=_randn(seed + 1, N).to(device) * 0.01)
+    return tpacked.with_act_bits(p, 8)
+
+
+def _check_a8(out, ref, dtype):
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    peak = np.abs(ref).max() if ref.size else 0.0
+    bound = (2.0**-7 * np.abs(ref) if dtype == "bf16" else 0.0) + 1e-5 * peak
+    d = np.abs(out - ref)
+    assert (d <= bound).all(), (d.max(), float((d - bound).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N,g", [(64, 256, 128, 32), (100, 512, 192, 64), (37, 256, 250, 128),
+                                     (130, 384, 128, 0), (1, 128, 64, 0), (0, 128, 64, 32)])
+def test_a8_kernels_match_plain(cuda, dtype, sym, bits, M, K, N, g):
+    tdt = DTYPES[dtype][0]
+    p = _packed_a8(40, K, N, bits, g, sym, cuda)
+    x = _randn(41, M, K).to(cuda, tdt)
+    xq, xs = tqm.quantize_activations_int8(x)
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    before = dict(tqm.LAUNCHES)
+    out = tqm.a8_matmul(xq, xs, p, tdt, sym)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES[name] == before[name] + (M > 0) and out.dtype == tdt
+    assert out.shape == (M, N)
+    _check_a8(out, tqm.a8_matmul_plain(xq, xs, p, tdt, sym), dtype)
+    # quant_matmul dispatches the layer (sym or not) to this kernel and
+    # quantizes x to the same xq.
+    assert torch.equal(tqm.quant_matmul(x, p), out)
+
+
+@pytest.mark.gpu
+def test_a8_kernels_reject_what_they_do_not_take(cuda):
+    p = _packed_a8(50, 128, 128, 4, 32, True, cuda)
+    with pytest.raises(TypeError):
+        tqm.quant_matmul(torch.zeros(4, 128, device=cuda, dtype=torch.float16), p)
+    xq, xs = tqm.quantize_activations_int8(torch.zeros(4, 128, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.a8_matmul(torch.zeros(128, 4, device=cuda, dtype=torch.int8).t(), xs, p,
+                      torch.float32, True)
+    with pytest.raises(TypeError, match="int8"):
+        tqm.a8_matmul(xq.float(), xs, p, torch.float32, True)
+    with pytest.raises(ValueError, match="weights on cpu"):
+        tqm.quant_matmul(torch.zeros(4, 128, device=cuda), _packed_a8(50, 128, 128, 4, 32, True,
+                                                                       "cpu"))
+    with pytest.raises(ValueError, match="xs on cpu"):
+        tqm.a8_matmul(xq, xs.cpu(), p, torch.float32, True)
+    with pytest.raises(ValueError, match="not symmetric"):
+        tqm.quant_matmul_a8_sym(torch.zeros(4, 128, device=cuda),
+                                _packed_a8(51, 128, 128, 4, 32, False, cuda))
+    with pytest.raises(ValueError, match="groupsize 16"):
+        tqm.quant_matmul(torch.zeros(4, 128, device=cuda), _packed_a8(52, 128, 128, 4, 16, True,
+                                                                       cuda))
