@@ -8,10 +8,12 @@ Run from the repository root on a machine with one CUDA card. It
 2. builds every kernel from ``sam_quantization_tpu_torch/csrc`` (nvcc, into
    ``build/torch_kernels/``);
 3. kernel phase: holds each kernel against its plain PyTorch version at the
-   ViT-H shapes of the main path (float32, bfloat16, and the int8 epilogue),
-   and times the kernel, the plain version, and one PyTorch library call of
-   the same function, a yardstick the port never calls:
-   ``scaled_dot_product_attention`` with the bias materialised as
+   ViT-H shapes of the main paths (float32, bfloat16, and the int8 epilogue;
+   the head-split kernel at the training shape, rel-less, and at long L with
+   and without a rel grid, each also showing that its bound rejects a wrong
+   output), and times the kernel, the plain version, and one
+   PyTorch library call of the same function, a yardstick the port never
+   calls: ``scaled_dot_product_attention`` with the bias materialised as
    ``attn_mask`` for attention, ``torch.matmul`` on the weight dequantized
    beforehand for the dequant-matmuls, dense lin1 -> tanh GELU -> lin2
    for the fused MLP, and ``torch._int_mm`` on the weight unpacked to int8
@@ -39,7 +41,17 @@ Run from the repository root on a machine with one CUDA card. It
    ``set_image`` profiled with the per-token quantize pass's share; then one
    bfloat16 encode of the asymmetric W4A8 model;
 8. small inputs: vit_tiny predictors, dense, W4 and W4A8, on the card
-   against the same models on the CPU.
+   against the same models on the CPU;
+9. rel-less ViT-H encode (``use_rel_pos=False``): 28 ``flash_whole`` and 4
+   ``flash_rowblock`` launches, held against the eager path (float32 and
+   bfloat16);
+10. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
+    ``flash_train`` against eager on the same weights and click, then
+    training steps with 11 clicks and AdamW (exactly 28 ``flash_whole``
+    launches and no other kernel per step, finite losses, parameters that
+    move, step times and peak memory, one profiled step), and a checkpoint
+    save/load round trip in the JAX trainer's format from the card, bit for
+    bit (on a vit_tiny trained two steps there).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -50,7 +62,11 @@ check fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
+import math
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -75,6 +91,31 @@ A8_BF16_TOL = BF16_TOL
 # activation step (measured 1.9e-3 on the low-res logits).
 A8_TINY_TOL = 1e-2
 QUANT_RANGE = "quantize_activations_int8"  # profiler range around the quantize pass
+# Head-split kernel vs its plain version in bfloat16: both round p and the
+# output to bf16 from float32 sums taken in another order, so an output may
+# sit one bf16 step away: |d| <= 2**-7 |ref| + HS_BF16_C max|ref|. On an
+# H100 the four kernel-phase cases read c <= 0 (each difference a flipped
+# output rounding), and the plain version with its last key tile skipped in
+# p.v reads 0.35 to 1.05; HS_BF16_C leaves room for a flipped p rounding.
+HS_BF16_C = 2.0**-10
+TRAIN_STEPS = 4  # timed ViT-H training steps (one more is profiled)
+# One-click flash_train vs eager on identical weights and click: the forward
+# differs only by the kernel's clamped exp2 softmax and float32 sum order.
+# Limits set from the first H100 runs on these seeded weights: loss rel.
+# 9.2e-8, so 1e-6; the whole gradient's rel. L2 3.7e-7, so 1e-5; the worst
+# leaf 2.4e-4 (a key bias, whose exact gradient is zero: both sides are
+# float32 noise at the floor below), so 1e-3.
+TRAIN_LOSS_TOL = 1e-6
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_LEAF_TOL = 1e-3
+GRAD_FLOOR = 1e-6  # leaf gradients below this share of the whole are noise
+# Parameters whose change shows that the steps trained the whole model.
+TRAIN_WATCH = ("image_encoder.blocks.0.attn.qkv.weight", "image_encoder.blocks.0.attn.rel_pos_h",
+               "image_encoder.blocks.31.mlp.lin2.weight", "mask_decoder.iou_token.weight",
+               "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix")
+# The JSON row of each kernel is its bfloat16 kernel-phase case, except
+# flash_whole's, which is the float32 training shape its launches come from.
+JSON_DTYPE = {"flash_whole": "float32"}
 FAILURES = []
 
 
@@ -120,9 +161,12 @@ def print_device_profile(what: str, fn, qm=None) -> None:
         if qm is not None:
             qm.quantize_activations_int8 = real
     events = prof.key_averages()
+    # Ranges (the quantize pass's, the optimizer's step) span kernels that
+    # are counted on their own.
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in events
-         if e.device_type == DeviceType.CUDA and e.key != QUANT_RANGE), reverse=True)
+         if e.device_type == DeviceType.CUDA and e.key != QUANT_RANGE
+         and not e.key.startswith("Optimizer.")), reverse=True)
     busy = sum(r[0] for r in rows)
     groups = {"attention kernels": 0.0, "quant kernels": 0.0, "matmul": 0.0, "memcpy": 0.0,
               "other": 0.0}
@@ -153,7 +197,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as TF
 
-    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import build_sam, configs
     from sam_quantization_tpu_torch.models import sam as sam_lib
     from sam_quantization_tpu_torch.nn import packed as packed_lib
     from sam_quantization_tpu_torch.ops import _build
@@ -162,6 +207,8 @@ def main() -> int:
     from sam_quantization_tpu_torch.ops import quant_matmul as qm
     from sam_quantization_tpu_torch.predictor import SamPredictor
     from sam_quantization_tpu_torch.quant import sequential as seq
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+    from sam_quantization_tpu_torch.train import trainer as trainer_lib
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -227,6 +274,17 @@ def main() -> int:
             return float(d.max()), bool(d.max() <= 1e-4)
         return float(d.max()), bool((d <= 2e-2 + 1e-2 * ref.float().abs()).all())
 
+    def head_split_ok(out, ref, dtype):
+        """(max|d|, reading, ok) of the head-split kernel against its plain
+        version: float32 reads max|d| <= 1e-4; bfloat16 reads the least c
+        with |d| <= 2**-7 |ref| + c max|ref| everywhere, <= HS_BF16_C."""
+        d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+        if dtype == torch.float32:
+            reading = float(d.max())
+            return reading, reading, reading <= 1e-4
+        reading = float(((d - 2.0**-7 * r) / r.max()).max())
+        return float(d.max()), reading, reading <= HS_BF16_C
+
     # ------------------------------------------------------------------ kernels
     # ViT-H, B = 1: 25 windows of 14x14 x 16 heads; global 64x64 x 16 heads; hd 80.
     nh, hd, ws, g = 16, 80, 14, 64
@@ -267,20 +325,20 @@ def main() -> int:
         # global
         q, k, v = (randn(1, nh, Lg, hd, dtype=dtype) for _ in range(3))
         rh, rw = randn(1, nh, Lg, g, dtype=dtype), randn(1, nh, Lg, g, dtype=dtype)
-        ref = fa.flash_global_plain(q, k, v, rh, rw, scale)
+        ref = fa.flash_attention_plain(q, k, v, rh, rw, scale)
         out = fa.flash_attention_relpos(q, k, v, rh, rw, scale)
         torch.cuda.synchronize()
         err, ok = err_ok(out, ref, dtype, False)
         check(ok, f"flash_global {tag}: max|d| {err:.3e} vs plain")
         ois = 127.0 / float(ref.float().abs().max())
         out8 = fa.flash_attention_relpos(q, k, v, rh, rw, scale, out_inv_scale=ois)
-        ref8 = fa.flash_global_plain(q, k, v, rh, rw, scale, out_inv_scale=ois)
+        ref8 = fa.flash_attention_plain(q, k, v, rh, rw, scale, out_inv_scale=ois)
         err8, ok8 = err_ok(out8, ref8, dtype, True)
         check(ok8 and out8.dtype == torch.int8, f"flash_global {tag} int8: max|d| {err8:.0f}")
         glob = dict(
             err=err,
             ms=cuda_ms(lambda: fa.flash_attention_relpos(q, k, v, rh, rw, scale), 5),
-            plain_ms=cuda_ms(lambda: fa.flash_global_plain(q, k, v, rh, rw, scale), 3),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, rh, rw, scale), 3),
             bytes=(nh * Lg * (3 * hd + 2 * g) + nh * Lg * hd) * item,
             flops=4 * nh * Lg * Lg * hd,
         )
@@ -295,6 +353,63 @@ def main() -> int:
                   f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), max|d| {r['err']:.3e}")
             report[(name, tag)] = r
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- head-split kernel
+    # One kernel (csrc/flash_attn.cu) behind two counters: flash_whole at the
+    # ViT-H training shape (25 windows x 16 heads, L 196, rel 14 + 14) and
+    # rel-less; flash_rowblock at the rel-less ViT-H global shape (16 heads,
+    # L 4096) and at a rel grid the bias3d kernel cannot take (50 x 50,
+    # 128 % 50 != 0). The first case of each counter is its JSON row. Each
+    # case also reads a wrong output, the plain version with the last key
+    # tile (L % 64 keys, or 64) left out of p.v, and fails if the bound
+    # takes it.
+    gen.manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        item = 4 if dtype == torch.float32 else 2
+        for name, what, B, L, kv in (("flash_whole", "train", NW, Lw, (ws, ws)),
+                                     ("flash_whole", "rel-less", NW, Lw, None),
+                                     ("flash_rowblock", "rel-less global", 1, Lg, None),
+                                     ("flash_rowblock", "50x50", 1, 2500, (50, 50))):
+            q, k, v = (randn(B, nh, L, hd, dtype=dtype) for _ in range(3))
+            rel = (None, None) if kv is None else tuple(
+                randn(B, nh, L, n, dtype=dtype) for n in kv)
+            ref = fa.flash_attention_plain(q, k, v, *rel, scale)
+            before = counts()
+            out = fa.flash_attention_relpos(q, k, v, *rel, scale)
+            torch.cuda.synchronize()
+            err, reading, ok = head_split_ok(out, ref, dtype)
+            launched = {n: c - before[n] for n, c in counts().items() if c != before[n]}
+            v_skip = v.clone()
+            v_skip[..., L - (L % 64 or 64):, :] = 0
+            _, wrong, wrong_ok = head_split_ok(
+                fa.flash_attention_plain(q, k, v_skip, *rel, scale), ref, dtype)
+            limit = 1e-4 if dtype == torch.float32 else HS_BF16_C
+            check(ok and not wrong_ok and out.dtype == dtype and launched == {name: 1},
+                  f"{name} {what} {tag}: max|d| {err:.3e} vs plain, reading {reading:.3e} "
+                  f"(<= {limit}; last tile skipped reads {wrong:.3e}), launches {launched}")
+            del v_skip
+            mask = None
+            if kv is not None:
+                n = torch.arange(L, device=dev)
+                mask = (rel[0][..., n // kv[1]] + rel[1][..., n % kv[1]]).contiguous()
+            iters = 20 if L <= 512 else 5
+            r = dict(
+                err=err,
+                ms=cuda_ms(lambda: fa.flash_attention_relpos(q, k, v, *rel, scale), iters),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, *rel, scale), 3),
+                library_ms=cuda_ms(lambda: TF.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale), iters),
+                bytes=B * nh * L * (4 * hd + (sum(kv) if kv else 0)) * item,
+                flops=4 * B * nh * L * L * hd,
+            )
+            bound(r, tag)
+            print(f"{name} {what} {tag} (BH {B * nh}, L {L}): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|d| {r['err']:.3e}")
+            report.setdefault((name, tag), r)
+            del q, k, v, rel, mask, ref, out
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------ packed-weight kernels
@@ -624,6 +739,157 @@ def main() -> int:
             check(d_low <= tol and d_iou <= tol,
                   f"vit_tiny {what} predictor, card vs CPU: low-res max|d| {d_low:.2e}, "
                   f"iou {d_iou:.2e} (<= {tol})")
+        del tiny_cpu, tiny_gpu, dense_tiny
+
+        # Rel-less ViT-H (use_rel_pos=False): JAX's kernel branch sends the
+        # 28 windowed blocks to the whole-problem route and the 4 global
+        # blocks (L 4096) to the row-block route.
+        cfg = configs.VIT_H
+        cfg = dataclasses.replace(
+            cfg, image_encoder=dataclasses.replace(cfg.image_encoder, use_rel_pos=False))
+        encoder = sam_lib.init(cfg, 0, dev).image_encoder
+        norel_launches = {**zero, "flash_whole": 28, "flash_rowblock": 4}
+        embs = {}
+        for dtype, impl in ((torch.float32, "eager"), (torch.float32, "kernel"),
+                            (torch.bfloat16, "kernel")):
+            tag = str(dtype).split(".")[1]
+            encoder.to(dtype)
+            reset_counts()
+            embs[tag, impl] = encoder(x.to(dtype), impl).float()
+            torch.cuda.synchronize()
+            got = counts()
+            check(got == (norel_launches if impl == "kernel" else zero),
+                  f"rel-less encode {tag} {impl}: launches {got}")
+        launches["flash_rowblock"] = got["flash_rowblock"]
+        ref = embs["float32", "eager"]
+        for tag, tol in (("float32", 1e-3), ("bfloat16", BF16_TOL)):
+            e = embs[tag, "kernel"]
+            rel_err = float((e - ref).norm() / ref.norm())
+            check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all())
+                  and rel_err <= tol, f"rel-less encode {tag} kernel vs float32 eager: "
+                                      f"rel L2 {rel_err:.3e} (<= {tol})")
+        del encoder, embs, ref, e
+        torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- training
+    # ViT-H fine-tuning in float32 on seeded easy scenes at 1024, batch 1,
+    # TrainConfig defaults (11 clicks): the windowed blocks' attention is the
+    # head-split kernel forward (28 flash_whole launches a step), the global
+    # blocks and every backward are eager.
+    model = vit_h()
+    trainer_lib.trainable_parameters(model)
+    scenes = synthetic_samples(TRAIN_STEPS + 1, 1024, 0)
+    batches = [(torch.from_numpy(im).to(dev), torch.from_numpy(gt[None].astype(np.float32)).to(dev))
+               for im, gt in scenes]
+    train_launches = {**zero, "flash_whole": 28}
+
+    # (a) One click: the click then depends only on the generator and the
+    # ground truth, so flash_train and eager see the same prompt.
+    grads, losses = {}, {}
+    for impl in ("flash_train", "eager"):
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        loss, _ = trainer_lib.click_train_loss(
+            model, *batches[0], torch.Generator(device=dev).manual_seed(5),
+            trainer_lib.TrainConfig(num_clicks=1), impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == (train_launches if impl == "flash_train" else zero),
+              f"one-click loss {impl}: launches {got}")
+        losses[impl] = float(loss.detach())
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    # Per-leaf rel. L2 of the flash_train gradient against eager's, with a
+    # floor of GRAD_FLOOR x the whole gradient's norm under each leaf's norm:
+    # some leaves' exact gradient is zero (a key bias shifts every logit of
+    # a row alike, and softmax ignores that), so eager leaves them float32
+    # noise, and the noise of two runs differs by its own size.
+    total = math.sqrt(sum(float(b.norm()) ** 2 for b in grads["eager"].values()
+                          if b is not None))
+    errs, zeros_agree = [], True
+    for n, b in grads["eager"].items():
+        a = grads["flash_train"][n]
+        if b is None or not bool(b.any()):
+            zeros_agree &= a is None or not bool(a.any())
+            continue
+        errs.append((float((a - b).norm()) / max(float(b.norm()), GRAD_FLOOR * total), n))
+    errs.sort(reverse=True)
+    worst = errs[0][0]
+    whole = math.sqrt(sum(float((grads["flash_train"][n] - b).norm()) ** 2
+                          for n, b in grads["eager"].items() if b is not None)) / total
+    loss_err = abs(losses["flash_train"] - losses["eager"]) / abs(losses["eager"])
+    check(loss_err <= TRAIN_LOSS_TOL and whole <= TRAIN_GRAD_TOL and worst <= TRAIN_LEAF_TOL
+          and zeros_agree,
+          f"one-click flash_train vs eager: loss {losses['flash_train']:.7f} vs "
+          f"{losses['eager']:.7f} (rel {loss_err:.2e} <= {TRAIN_LOSS_TOL}); gradient rel L2 "
+          f"{whole:.3e} over all leaves (<= {TRAIN_GRAD_TOL}), worst leaf {worst:.3e} "
+          f"(<= {TRAIN_LEAF_TOL}), zero gradients agree {zeros_agree}")
+    print("  worst leaves: " + ", ".join(f"{n} {e:.2e}" for e, n in errs[:4]))
+    del grads
+
+    # (b) Steps with 11 clicks and AdamW.
+    tcfg = trainer_lib.TrainConfig()
+    optimizer = trainer_lib.make_optimizer(tcfg, model)
+    step = trainer_lib.make_train_step(tcfg, optimizer)
+    gen_train = torch.Generator(device=dev).manual_seed(6)
+    watched = {n: p.detach().clone() for n, p in model.named_parameters() if n in TRAIN_WATCH}
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i, (img, gt) in enumerate(batches[:TRAIN_STEPS]):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        aux = step(model, img, gt, gen_train)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = counts()
+        if i == 0:  # the JSON row counts one step's launches; every step is checked
+            launches["flash_whole"] = got["flash_whole"]
+        loss = float(aux["loss"])
+        check(got == train_launches and math.isfinite(loss),
+              f"train step {i}: launches {got}, loss {loss:.5f}, iou {float(aux['iou']):.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = dict(model.named_parameters())
+    moved = [n for n, t in watched.items() if not torch.equal(params[n], t)]
+    check(len(moved) == len(TRAIN_WATCH), f"train steps moved {moved}")
+    ms = sorted(step_ms)
+    print(f"train step (ViT-H f32, 11 clicks): median {ms[len(ms) // 2]:.1f} ms, min "
+          f"{ms[0]:.1f}, max {ms[-1]:.1f} over {len(ms)} steps (first {step_ms[0]:.1f}); "
+          f"peak memory {peak:.2f} GiB  [{card}]")
+    print_device_profile("train step", lambda: step(model, *batches[TRAIN_STEPS], gen_train))
+
+    del model, optimizer, step, batches
+    torch.cuda.empty_cache()
+
+    # (c) Checkpoint round trip in the JAX trainer's format, from the card and
+    # back, on a vit_tiny trained two steps there (the format does not depend
+    # on the model's size; a ViT-H checkpoint is what cli.train writes).
+    tiny = build_sam.sam_model_registry["vit_tiny"](device="cuda", seed=3)
+    tiny_opt = trainer_lib.make_optimizer(tcfg, tiny)
+    tiny_step = trainer_lib.make_train_step(tcfg, tiny_opt)
+    gen_tiny = torch.Generator(device=dev).manual_seed(7)
+    for im, gt in synthetic_samples(2, tiny.config.image_encoder.img_size, 1):
+        tiny_step(tiny, torch.from_numpy(im).to(dev),
+                  torch.from_numpy(gt[None].astype(np.float32)).to(dev), gen_tiny)
+    tiny_opt.zero_grad(set_to_none=True)
+    ckpt_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_ckpt"
+    fresh = sam_lib.Sam(tiny.config, device=dev)
+    fresh_opt = trainer_lib.make_optimizer(tcfg, fresh)
+    try:
+        ckpt_lib.save_checkpoint(str(ckpt_dir), tiny, tiny_opt, 2)
+        epoch = ckpt_lib.load_checkpoint(str(ckpt_dir), fresh, fresh_opt)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = epoch == 2
+    for p, q in zip(tiny.parameters(), fresh.parameters()):
+        sp, sq = tiny_opt.state[p], fresh_opt.state[q]
+        same &= (q.is_cuda and torch.equal(p, q) and torch.equal(sp["exp_avg"], sq["exp_avg"])
+                 and torch.equal(sp["exp_avg_sq"], sq["exp_avg_sq"])
+                 and float(sp["step"]) == float(sq["step"]) == 2.0)
+    check(same, "vit_tiny checkpoint round trip from the card: parameters and AdamW state "
+                "bit for bit")
+    del tiny, tiny_opt, fresh, fresh_opt
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -631,6 +897,8 @@ def main() -> int:
     csrc, jax_ops = "sam_quantization_tpu_torch/csrc/", "sam_quantization_tpu/ops/"
     sources = {"flash_windowed": ("flash_windowed.cu", "flash_attention.py:242"),
                "flash_global": ("flash_global.cu", "flash_attention.py:552"),
+               "flash_whole": ("flash_attn.cu", "flash_attention.py:213"),
+               "flash_rowblock": ("flash_attn.cu", "flash_attention.py:680"),
                "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:223"),
                "quant_matmul3": ("quant_matmul.cu", "quant_matmul.py:244"),
                "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:28"),
@@ -638,7 +906,7 @@ def main() -> int:
                "quant_matmul_a8": ("quant_matmul_a8.cu", "quant_matmul.py:279")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        r = report[(name, "bfloat16")]
+        r = report[(name, JSON_DTYPE.get(name, "bfloat16"))]
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": jax_ops + replaces,
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],

@@ -1,5 +1,5 @@
-// Shared body of the two rel-pos attention kernels (flash_windowed.cu,
-// flash_global.cu): one thread block computes BQ query rows of one
+// Shared body of the attention kernels (flash_windowed.cu, flash_global.cu,
+// flash_attn.cu): one thread block computes BQ query rows of one
 // (problem, head) against all L keys, streamed through shared memory in
 // tiles of BK keys.
 //
@@ -14,7 +14,8 @@
 // Because the shift is static, streaming the keys needs no online-softmax
 // rescale: sum p.v and sum p accumulate in float32 and divide once.
 // Keys n >= L do not exist (the port does not pad L), so rows average over
-// the L real keys only.
+// the L real keys only. With REL false there is no bias term: kh = kw = 0,
+// and neither the bias tiles nor the n // kw, n % kw index rows are touched.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,7 +83,7 @@ __host__ __device__ inline size_t smem_floats(int hd, int kh, int kw) {
 
 inline size_t smem_bytes(int hd, int kh, int kw) { return smem_floats(hd, kh, kw) * 4; }
 
-template <typename T, typename OutT>
+template <typename T, typename OutT, bool REL = true>
 __device__ void attend_rows(const Problem<T>& P, int m0, OutT* out, long out_stride, float ois) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -100,13 +101,15 @@ __device__ void attend_rows(const Problem<T>& P, int m0, OutT* out, long out_str
     const int r = i / hd, c = i - r * hd, m = m0 + r;
     Qs[r * ld + c] = m < L ? round_to<T>(to_f32(P.q[(long)m * P.q_stride + c]) * P.q_scale) : 0.f;
   }
-  for (int i = tid; i < BQ * kh; i += NTHREADS) {
-    const int r = i / kh, c = i - r * kh, m = m0 + r;
-    Rh[i] = m < L ? round_to<T>(to_f32(P.rel_h[(long)m * P.rel_h_stride + c]) * LOG2E_F) : 0.f;
-  }
-  for (int i = tid; i < BQ * kw; i += NTHREADS) {
-    const int r = i / kw, c = i - r * kw, m = m0 + r;
-    Rw[i] = m < L ? round_to<T>(to_f32(P.rel_w[(long)m * P.rel_w_stride + c]) * LOG2E_F) : 0.f;
+  if constexpr (REL) {
+    for (int i = tid; i < BQ * kh; i += NTHREADS) {
+      const int r = i / kh, c = i - r * kh, m = m0 + r;
+      Rh[i] = m < L ? round_to<T>(to_f32(P.rel_h[(long)m * P.rel_h_stride + c]) * LOG2E_F) : 0.f;
+    }
+    for (int i = tid; i < BQ * kw; i += NTHREADS) {
+      const int r = i / kw, c = i - r * kw, m = m0 + r;
+      Rw[i] = m < L ? round_to<T>(to_f32(P.rel_w[(long)m * P.rel_w_stride + c]) * LOG2E_F) : 0.f;
+    }
   }
 
   float acc[4][MAX_HD / 16];
@@ -128,10 +131,12 @@ __device__ void attend_rows(const Problem<T>& P, int m0, OutT* out, long out_str
       Ks[r * ld + c] = kv;
       Vs[r * hd + c] = vv;
     }
-    if (tid < BK) {
-      const int n = n0 + tid, hq = n / kw;
-      colh[tid] = hq;
-      colw[tid] = n - hq * kw;
+    if constexpr (REL) {
+      if (tid < BK) {
+        const int n = n0 + tid, hq = n / kw;
+        colh[tid] = hq;
+        colw[tid] = n - hq * kw;
+      }
     }
     __syncthreads();
 
@@ -140,16 +145,35 @@ __device__ void attend_rows(const Problem<T>& P, int m0, OutT* out, long out_str
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float a[4], b[4];
+    if constexpr (REL) {
+      for (int d = 0; d < hd; ++d) {
+        float a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * ld + d];
+        for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * ld + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
+    } else {
+      // The same loop with an explicit unroll: left to itself nvcc unrolled the
+      // rel-less instantiation less, and it ran about 1.7x slower than the
+      // rel one. The rel instantiations keep nvcc's own choice, which is
+      // faster for flash_windowed.
+#pragma unroll 8
+      for (int d = 0; d < hd; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * ld + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -159,8 +183,9 @@ __device__ void attend_rows(const Problem<T>& P, int m0, OutT* out, long out_str
         const int c = tx + 16 * j;
         float p = 0.f;
         if (n0 + c < L) {
-          const float bias = Rw[r * kw + colw[c]] + Rh[r * kh + colh[c]];
-          const float x = fminf(fmaxf(s[i][j] + bias, CLAMP_FLOOR), CLAMP_CAP);
+          float x = s[i][j];
+          if constexpr (REL) x += Rw[r * kw + colw[c]] + Rh[r * kh + colh[c]];
+          x = fminf(fmaxf(x, CLAMP_FLOOR), CLAMP_CAP);
           p = exp2f(x - CLAMP_CAP);
           lsum[i] += p;
           p = round_to<T>(p);

@@ -201,49 +201,151 @@ def load_jax_encoder(model: sam_lib.Sam, image_encoder: dict) -> sam_lib.Sam:
     return model
 
 
+def _np(t: torch.Tensor, perm=None) -> np.ndarray:
+    a = t.detach().cpu()
+    a = (a.float() if a.is_floating_point() else a).numpy()
+    return a.transpose(perm) if perm is not None else a
+
+
+def _lin_tree(get, has, name) -> Optional[dict]:
+    """``{"w", "b"}`` of a dense linear, or None when ``name.weight`` is absent."""
+    if not has(f"{name}.weight"):
+        return None
+    p = {"w": get(f"{name}.weight", (1, 0))}
+    if has(f"{name}.bias"):
+        p["b"] = get(f"{name}.bias")
+    return p
+
+
+def _jax_encoder_tree(sd: Dict[str, torch.Tensor], ecfg: ImageEncoderConfig,
+                      prefix: str = "") -> dict:
+    """The JAX encoder pytree (numpy) of an upstream-named dict of tensors:
+    the inverse of :func:`_encoder_state_dict` for dense layers. A linear
+    with no ``weight`` in ``sd`` (a packed one) is left as None."""
+
+    def get(key, perm=None):
+        return _np(sd[prefix + key], perm)
+
+    def has(key):
+        return prefix + key in sd
+
+    def ln(name):
+        return {"w": get(f"{name}.weight"), "b": get(f"{name}.bias")}
+
+    def conv(name):
+        return {"w": get(f"{name}.weight", (2, 3, 1, 0)),
+                **({"b": get(f"{name}.bias")} if has(f"{name}.bias") else {})}
+
+    tree = {
+        "patch_embed": conv("patch_embed.proj"),
+        "neck": {"conv1": conv("neck.0"), "ln1": ln("neck.1"),
+                 "conv2": conv("neck.2"), "ln2": ln("neck.3")},
+        "blocks": [],
+    }
+    if ecfg.use_abs_pos:
+        tree["pos_embed"] = get("pos_embed")
+    for i in range(ecfg.depth):
+        b = f"blocks.{i}"
+        blk = {"norm1": ln(f"{b}.norm1"),
+               "attn": {"qkv": _lin_tree(get, has, f"{b}.attn.qkv"),
+                        "proj": _lin_tree(get, has, f"{b}.attn.proj")},
+               "norm2": ln(f"{b}.norm2"),
+               "mlp": {"lin1": _lin_tree(get, has, f"{b}.mlp.lin1"),
+                       "lin2": _lin_tree(get, has, f"{b}.mlp.lin2")}}
+        if ecfg.use_rel_pos:
+            blk["attn"]["rel_pos_h"] = get(f"{b}.attn.rel_pos_h")
+            blk["attn"]["rel_pos_w"] = get(f"{b}.attn.rel_pos_w")
+        tree["blocks"].append(blk)
+    return tree
+
+
 def to_jax_encoder(encoder) -> dict:
     """The JAX encoder pytree (numpy arrays; packed linears as their fields)
     of a port ``ImageEncoderViT``: the inverse of :func:`load_jax_encoder`."""
-    cfg = encoder.cfg
-
-    def arr(t, perm=None):
-        a = t.detach().float().cpu().numpy() if t.is_floating_point() else t.detach().cpu().numpy()
-        return a.transpose(perm) if perm is not None else a
-
-    def lin(m):
-        if isinstance(m, PackedLinear):
-            return {
-                **{k: None if getattr(m, k) is None else arr(getattr(m, k))
-                   for k in ("qweight", "qweight_hi", "scales", "zeros", "bias")},
-                **{k: getattr(m, k) for k in _PACKED_FIELDS},
-            }
-        return {"w": arr(m.weight, (1, 0)), **({"b": arr(m.bias)} if m.bias is not None else {})}
-
-    def ln(m):
-        return {"w": arr(m.weight), "b": arr(m.bias)}
-
-    def conv(m):
-        return {"w": arr(m.weight, (2, 3, 1, 0)),
-                **({"b": arr(m.bias)} if m.bias is not None else {})}
-
-    tree = {
-        "patch_embed": conv(encoder.patch_embed.proj),
-        "neck": {"conv1": conv(encoder.neck[0]), "ln1": ln(encoder.neck[1]),
-                 "conv2": conv(encoder.neck[2]), "ln2": ln(encoder.neck[3])},
-        "blocks": [],
-    }
-    if cfg.use_abs_pos:
-        tree["pos_embed"] = arr(encoder.pos_embed)
-    for blk in encoder.blocks:
-        b = {"norm1": ln(blk.norm1),
-             "attn": {"qkv": lin(blk.attn.qkv), "proj": lin(blk.attn.proj)},
-             "norm2": ln(blk.norm2),
-             "mlp": {"lin1": lin(blk.mlp.lin1), "lin2": lin(blk.mlp.lin2)}}
-        if cfg.use_rel_pos:
-            b["attn"]["rel_pos_h"] = arr(blk.attn.rel_pos_h)
-            b["attn"]["rel_pos_w"] = arr(blk.attn.rel_pos_w)
-        tree["blocks"].append(b)
+    tree = _jax_encoder_tree(encoder.state_dict(), encoder.cfg)
+    for i, blk in enumerate(encoder.blocks):
+        for owner_name, name in BLOCK_LINEARS:
+            m = getattr(getattr(blk, owner_name), name)
+            if isinstance(m, PackedLinear):
+                tree["blocks"][i][owner_name][name] = {
+                    **{k: None if getattr(m, k) is None else _np(getattr(m, k))
+                       for k in ("qweight", "qweight_hi", "scales", "zeros", "bias")},
+                    **{k: getattr(m, k) for k in _PACKED_FIELDS},
+                }
     return tree
+
+
+def to_jax_params(sd: Dict[str, torch.Tensor], cfg: SamConfig) -> Tuple[dict, dict, dict]:
+    """The JAX ``Sam`` pytree's three subtrees (image encoder, prompt
+    encoder, mask decoder; nested dicts and lists of numpy arrays) of an
+    upstream-named dict of dense tensors: the inverse of
+    :func:`from_jax_params`. The trainer's checkpoints write the model and
+    its AdamW moments through it."""
+
+    def get(key, perm=None):
+        return _np(sd[key], perm)
+
+    def has(key):
+        return key in sd
+
+    def lin(name):
+        return _lin_tree(get, has, name)
+
+    def ln(name):
+        return {"w": get(f"{name}.weight"), "b": get(f"{name}.bias")}
+
+    def conv(name, perm=(2, 3, 1, 0)):
+        return {"w": get(f"{name}.weight", perm),
+                **({"b": get(f"{name}.bias")} if has(f"{name}.bias") else {})}
+
+    pe = "prompt_encoder"
+    prompt = {
+        "pe_gaussian": get(f"{pe}.pe_layer.positional_encoding_gaussian_matrix"),
+        "point_embeddings": np.concatenate(
+            [get(f"{pe}.point_embeddings.{i}.weight") for i in range(4)], axis=0),
+        "not_a_point_embed": get(f"{pe}.not_a_point_embed.weight"),
+        "no_mask_embed": get(f"{pe}.no_mask_embed.weight"),
+        "mask_downscaling": {"conv1": conv(f"{pe}.mask_downscaling.0"),
+                             "ln1": ln(f"{pe}.mask_downscaling.1"),
+                             "conv2": conv(f"{pe}.mask_downscaling.3"),
+                             "ln2": ln(f"{pe}.mask_downscaling.4"),
+                             "conv3": conv(f"{pe}.mask_downscaling.6")},
+    }
+
+    m = "mask_decoder"
+    mcfg = cfg.mask_decoder
+
+    def attn(prefix):
+        return {name: lin(f"{prefix}.{name}")
+                for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    def mlp(prefix, n):
+        return {"layers": [lin(f"{prefix}.layers.{j}") for j in range(n)]}
+
+    layers = []
+    for i in range(mcfg.transformer.depth):
+        t = f"{m}.transformer.layers.{i}"
+        layers.append({
+            "self_attn": attn(f"{t}.self_attn"), "norm1": ln(f"{t}.norm1"),
+            "cross_attn_t2i": attn(f"{t}.cross_attn_token_to_image"), "norm2": ln(f"{t}.norm2"),
+            "mlp": {"lin1": lin(f"{t}.mlp.lin1"), "lin2": lin(f"{t}.mlp.lin2")},
+            "norm3": ln(f"{t}.norm3"), "norm4": ln(f"{t}.norm4"),
+            "cross_attn_i2t": attn(f"{t}.cross_attn_image_to_token"),
+        })
+    decoder = {
+        "transformer": {"layers": layers,
+                        "final_attn": attn(f"{m}.transformer.final_attn_token_to_image"),
+                        "norm_final": ln(f"{m}.transformer.norm_final_attn")},
+        "iou_token": get(f"{m}.iou_token.weight"),
+        "mask_tokens": get(f"{m}.mask_tokens.weight"),
+        "output_upscaling": {"convt1": conv(f"{m}.output_upscaling.0", (2, 3, 0, 1)),
+                             "ln": ln(f"{m}.output_upscaling.1"),
+                             "convt2": conv(f"{m}.output_upscaling.3", (2, 3, 0, 1))},
+        "hypernetworks": [mlp(f"{m}.output_hypernetworks_mlps.{i}", 3)
+                          for i in range(mcfg.num_mask_tokens)],
+        "iou_head": mlp(f"{m}.iou_prediction_head", mcfg.iou_head_depth),
+    }
+    return _jax_encoder_tree(sd, cfg.image_encoder, "image_encoder."), prompt, decoder
 
 
 def load_state_dict(model: sam_lib.Sam, sd: Dict[str, torch.Tensor]) -> sam_lib.Sam:

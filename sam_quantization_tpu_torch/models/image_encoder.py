@@ -6,19 +6,24 @@ except at ``global_attn_indexes``), decomposed relative-position bias, and a
 two-conv neck to ``out_chans`` channels. Parameter names follow upstream
 ``segment_anything``, so an official state dict loads unchanged.
 
-Attention has three branches:
+Attention has four branches:
 
-* ``attn_impl="kernel"`` (default), windowed block: the rel-pos tiles are
-  computed from the packed qkv output and :func:`flash_attention_qkv_packed`
-  runs the windowed CUDA kernel;
-* ``attn_impl="kernel"``, global block: head-split q/k/v and the rel tiles go
-  to :func:`flash_attention_relpos`, the global CUDA kernel (any L, including
-  vit_tiny's 64);
+* ``attn_impl="kernel"`` (default), windowed block with rel-pos: the rel-pos
+  tiles are computed from the packed qkv output and
+  :func:`flash_attention_qkv_packed` runs the windowed CUDA kernel;
+* ``attn_impl="kernel"``, any other block (global, or a config without
+  rel-pos): head-split q/k/v and the rel tiles (none without rel-pos) go to
+  :func:`flash_attention_relpos`, which routes as JAX does: the bias3d
+  global kernel for ViT-H's 64x64 global blocks, the head-split kernel for
+  the rest (vit_tiny's 64-token global blocks, rel-less blocks);
+* ``attn_impl="flash_train"``: a block with rel-pos and L <= 512 runs
+  :func:`flash_attention_relpos_trainable` (kernel forward, eager-recompute
+  backward; the JAX ``flash_train`` branch); every other block runs eager,
+  whose backward materialises the (L, L) logits either way;
 * ``attn_impl="eager"``: the JAX package's eager branch, matmul + softmax with
-  the full (L, L) logits - the plain reference for the two kernel branches.
+  the full (L, L) logits - the plain reference for the kernel branches.
 
-The kernel branches need ``use_rel_pos``; without it ``attn_impl="kernel"``
-raises. On a CPU tensor the kernel wrappers run their plain versions.
+On a CPU tensor the kernel wrappers run their plain versions.
 
 Any of a block's four linears may be a ``PackedLinear`` (a quantized
 encoder): qkv and proj then run the dequant-matmul kernel (the W-A8 kernels
@@ -40,7 +45,7 @@ from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, MLPBlock
 from sam_quantization_tpu_torch.ops import flash_attention, fused_mlp
 
-ATTN_IMPLS = ("kernel", "eager")
+ATTN_IMPLS = ("kernel", "flash_train", "eager")
 # The linears of a Block, as (child, attribute): the layers a quantized
 # encoder packs.
 BLOCK_LINEARS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "lin1"), ("mlp", "lin2"))
@@ -166,38 +171,35 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, windowed: bool, attn_impl: str = "kernel"):
         """(B, H, W, C) tokens -> (B, H, W, C); ``windowed`` selects the
-        windowed kernel for the kernel branch."""
+        packed windowed kernel for the kernel branch (with rel-pos)."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         cfg = self.cfg
-        use_kernel = attn_impl == "kernel"
-        if use_kernel and not cfg.use_rel_pos:
-            raise NotImplementedError(
-                "the attention kernels take the rel-pos bias; a config without "
-                "rel-pos runs with attn_impl='eager'"
-            )
         B, H, W, C = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
         L = H * W
         qkv = self.qkv(x.reshape(B, L, C))
 
-        if use_kernel and windowed:
+        if attn_impl == "kernel" and windowed and cfg.use_rel_pos:
             out = self._packed_rel_and_flash(qkv, H, W)
             return self.proj(out.reshape(B, H, W, C))
 
         qkv = qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, L, hd)
         q2 = q.reshape(B * nh, L, hd)
-        if use_kernel:
-            rel_h, rel_w = decomposed_rel_pos_tiles(
-                q2, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W)
-            )
-            out = flash_attention.flash_attention_relpos(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                rel_h.reshape(B, nh, L, H).contiguous(),
-                rel_w.reshape(B, nh, L, W).contiguous(),
-                hd**-0.5,
-            )
+        train = (attn_impl == "flash_train" and cfg.use_rel_pos
+                 and L <= flash_attention.WHOLE_MAX_L)
+        if attn_impl == "kernel" or train:
+            rel_h = rel_w = None
+            if cfg.use_rel_pos:
+                rel_h, rel_w = decomposed_rel_pos_tiles(
+                    q2, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W)
+                )
+                rel_h = rel_h.reshape(B, nh, L, H).contiguous()
+                rel_w = rel_w.reshape(B, nh, L, W).contiguous()
+            attend = (flash_attention.flash_attention_relpos_trainable if train
+                      else flash_attention.flash_attention_relpos)
+            out = attend(q.contiguous(), k.contiguous(), v.contiguous(), rel_h, rel_w, hd**-0.5)
         else:
             k2 = k.reshape(B * nh, L, hd)
             v2 = v.reshape(B * nh, L, hd)

@@ -26,7 +26,10 @@ class PositionEmbeddingRandom(nn.Module):
         g = torch.empty(2, embed_dim // 2, device=device)
         if gen is not None:
             g.normal_(generator=gen)
-        self.register_buffer("positional_encoding_gaussian_matrix", g)
+        # A parameter, not upstream's buffer: the JAX pytree leaf
+        # ``pe_gaussian`` is trained (optax updates and decays it), so the
+        # trainer optimises it too. The state-dict key is upstream's.
+        self.positional_encoding_gaussian_matrix = nn.Parameter(g, requires_grad=False)
 
     def forward(self, coords: torch.Tensor) -> torch.Tensor:
         """[0, 1]-normalised (..., 2) coords -> (..., embed_dim)."""

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_windowed", "flash_global", "quant_matmul", "fused_mlp", "quant_matmul_a8")
+KERNELS = ("flash_windowed", "flash_global", "flash_attn", "quant_matmul", "fused_mlp",
+           "quant_matmul_a8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +44,12 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
     "flash_global": (
         "samq_flash_global",
         (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    ),
+    # dtype, has_rel, q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale,
+    # stream
+    "flash_attn": (
+        "samq_flash_attn",
+        (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     ),
     # dtype, bits, x, qweight, qweight_hi, scales, zeros, out, M, K, N,
     # groupsize, pack_block, stream

@@ -1,24 +1,31 @@
 """Attention with decomposed relative-position bias: CUDA kernels and their
 plain PyTorch versions.
 
-Counterpart of ``sam_quantization_tpu/ops/flash_attention.py``. Two kernels
-carry the image encoder:
+Counterpart of ``sam_quantization_tpu/ops/flash_attention.py``. The image
+encoder's attention runs through three CUDA kernels, behind these functions:
 
 * :func:`flash_attention_qkv_packed` - windowed attention read straight from
-  the qkv projection output (replaces ``_attn_kernel_qkv_packed``);
-* :func:`flash_attention_relpos` - global attention on head-split q/k/v
-  (replaces ``_attn_kernel_rowblock_bias3d``).
+  the qkv projection output (``flash_windowed``, replaces
+  ``_attn_kernel_qkv_packed``);
+* :func:`flash_attention_relpos` - attention on head-split q/k/v, routed as
+  JAX routes it: the bias3d global kernel (``flash_global``, replaces
+  ``_attn_kernel_rowblock_bias3d``) where that shape rule holds, otherwise
+  one kernel, ``csrc/flash_attn.cu``, with or without the rel-pos bias,
+  counted as ``flash_whole`` for L <= 512 (replaces ``_attn_kernel``) and as
+  ``flash_rowblock`` above (replaces ``_attn_kernel_rowblock``);
+* :func:`flash_attention_relpos_trainable` - the same forward with an exact
+  backward: autograd of :func:`attention_reference` on recomputed inputs.
 
-Both compute the JAX package's default numerics: logits pre-scaled by
+All compute the JAX package's default numerics: logits pre-scaled by
 log2(e) so the softmax is a raw ``exp2``, a static clamp shift
 ``exp2(clip(s, -60, 64) - 64)`` instead of a row max, normalisation deferred
-past the p.v product, and an optional int8 epilogue
-``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
+past the p.v product, and (windowed and bias3d global only) an optional int8
+epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
-real keys, where the JAX windowed kernel's padded columns take a share of the
-sum and shrink the output by L/Lp.
+real keys, where the JAX kernels' padded columns take a share of the sum and
+shrink the output by L/Lp.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses the plain
 version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
@@ -26,7 +33,7 @@ version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,7 +43,10 @@ LOG2E = 1.4426950408889634
 CLAMP_CAP, CLAMP_FLOOR = 64.0, -60.0
 MAX_HEAD_DIM = 128  # the kernels' register tile
 
-LAUNCHES: Dict[str, int] = {"flash_windowed": 0, "flash_global": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_windowed": 0, "flash_global": 0, "flash_whole": 0, "flash_rowblock": 0,
+}
+WHOLE_MAX_L = 512  # JAX's whole-problem (``_attn_kernel``) range
 
 
 def reset_launch_counts() -> None:
@@ -139,68 +149,142 @@ def flash_attention_qkv_packed(
 
 
 # ---------------------------------------------------------------------------
-# Global: q, k, v (B, nh, L, hd) with rel_h (B, nh, L, kh), rel_w (.., kw)
+# Head-split: q, k, v (B, nh, L, hd) with optional rel_h (B, nh, L, kh),
+# rel_w (B, nh, L, kw)
 # ---------------------------------------------------------------------------
 
 
-def flash_global_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: torch.Tensor,
-    rel_w: torch.Tensor, scale: float, *, out_inv_scale: Optional[float] = None,
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: Optional[torch.Tensor],
+    rel_w: Optional[torch.Tensor], scale: float, *, out_inv_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the global kernel (same math, same order)."""
+    """Plain PyTorch version of the head-split kernels, ``flash_global`` and
+    ``flash_attn`` (same math, same order); ``rel_h = rel_w = None`` drops
+    the bias."""
     L = q.shape[-2]
-    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
     dt = q.dtype
     qs = (q.float() * (scale * LOG2E)).to(dt)
-    rh = (rel_h.float() * LOG2E).to(rel_h.dtype).float()
-    rw = (rel_w.float() * LOG2E).to(rel_w.dtype).float()
-    n = torch.arange(L, device=q.device)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    s = s + (rw[..., n % kw] + rh[..., n // kw])
+    if rel_h is not None:
+        kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+        rh = (rel_h.float() * LOG2E).to(rel_h.dtype).float()
+        rw = (rel_w.float() * LOG2E).to(rel_w.dtype).float()
+        n = torch.arange(L, device=q.device)
+        s = s + (rw[..., n % kw] + rh[..., n // kw])
     return _softmax_pv(s, v, dt, out_inv_scale)
 
 
+def route(L: int, kv_size: Optional[Tuple[int, int]]) -> str:
+    """The kernel :func:`flash_attention_relpos` launches: JAX's dispatch
+    (``flash_attention.py:826-835``, ``:895-904``). ``kv_size`` is the rel
+    tiles' (kh, kw), or None without rel-pos."""
+    if kv_size is not None:
+        kh, kw = kv_size
+        if L > WHOLE_MAX_L and kh * kw == L and L % 128 == 0 and kw <= 128 and 128 % kw == 0:
+            return "flash_global"
+    return "flash_whole" if L <= WHOLE_MAX_L else "flash_rowblock"
+
+
 def flash_attention_relpos(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: torch.Tensor,
-    rel_w: torch.Tensor, scale: float, *, out_inv_scale: Optional[float] = None,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: Optional[torch.Tensor],
+    rel_w: Optional[torch.Tensor], scale: float, *, out_inv_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Global self-attention with decomposed rel-pos bias.
+    """Self-attention with an optional decomposed rel-pos bias.
 
     Args:
       q, k, v: (B, nh, L, hd).
-      rel_h: (B, nh, L, kh) and rel_w: (B, nh, L, kw) bias tiles, kh*kw == L.
+      rel_h: (B, nh, L, kh) and rel_w: (B, nh, L, kw) bias tiles, kh*kw == L;
+        both None for no bias.
       scale: softmax scale of q.
-      out_inv_scale: if given, the output is int8 at scale 1/out_inv_scale.
+      out_inv_scale: if given and the problem takes the bias3d global kernel,
+        the output is int8 at scale 1/out_inv_scale; the other routes ignore
+        it and return q's dtype, as in JAX.
 
     Returns (B, nh, L, hd), in q's dtype or int8.
     """
     B, nh, L, hd = q.shape
-    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    if (rel_h is None) != (rel_w is None):
+        raise ValueError("flash_attention_relpos: give both rel_h and rel_w, or neither")
+    kv_size = None if rel_h is None else (rel_h.shape[-1], rel_w.shape[-1])
     if (
         tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape)
-        or tuple(rel_h.shape) != (B, nh, L, kh) or tuple(rel_w.shape) != (B, nh, L, kw)
-        or kh * kw != L
+        or (kv_size is not None and (
+            tuple(rel_h.shape) != (B, nh, L, kv_size[0])
+            or tuple(rel_w.shape) != (B, nh, L, kv_size[1])
+            or kv_size[0] * kv_size[1] != L))
     ):
         raise ValueError(
-            f"flash_attention_relpos: q {tuple(q.shape)}, rel_h {tuple(rel_h.shape)}, "
-            f"rel_w {tuple(rel_w.shape)} do not fit a kh x kw == L grid"
+            f"flash_attention_relpos: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, rel tiles {kv_size} do not fit a kh x kw == L grid"
         )
+    name = route(L, kv_size)
+    if name != "flash_global":
+        out_inv_scale = None
     if q.device.type == "cpu":
-        return flash_global_plain(q, k, v, rel_h, rel_w, scale, out_inv_scale=out_inv_scale)
+        return flash_attention_plain(q, k, v, rel_h, rel_w, scale, out_inv_scale=out_inv_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_relpos: no kernel for {q.device}")
-    _check_cuda("flash_global", q.dtype, q, k, v, rel_h, rel_w)
+    rel = () if kv_size is None else (rel_h, rel_w)
+    _check_cuda(name, q.dtype, q, k, v, *rel)
     if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_global: head dim {hd} > {MAX_HEAD_DIM}")
+        raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
     quant = out_inv_scale is not None
     out = torch.empty(q.shape, dtype=torch.int8 if quant else q.dtype, device=q.device)
+    kh, kw = kv_size or (0, 0)
+    rh, rw = (None, None) if kv_size is None else (rel_h.data_ptr(), rel_w.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.launch(
-            "flash_global", _build.DTYPE_CODE[q.dtype], int(quant), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-            B * nh, L, hd, kh, kw, float(scale * LOG2E),
-            float(out_inv_scale) if quant else 0.0, stream,
-        )
-    LAUNCHES["flash_global"] += 1
+        if name == "flash_global":
+            _build.launch(
+                "flash_global", _build.DTYPE_CODE[q.dtype], int(quant), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L, hd, kh, kw,
+                float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
+            )
+        else:
+            _build.launch(
+                "flash_attn", _build.DTYPE_CODE[q.dtype], int(kv_size is not None),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L,
+                hd, kh, kw, float(scale * LOG2E), stream,
+            )
+    LAUNCHES[name] += 1
     return out
+
+
+def attention_reference(q, k, v, rel_h, rel_w, scale):
+    """Unclamped, max-subtracted softmax attention with the full (L, L) bias:
+    the JAX ``attention_reference`` (``flash_attention.py:982-992``), whose
+    autograd is the backward of :func:`flash_attention_relpos_trainable`."""
+    B, nh, L, hd = q.shape
+    s = torch.einsum("bnqc,bnkc->bnqk", q * scale, k).float()
+    if rel_h is not None:
+        bias = rel_h[..., :, None] + rel_w[..., None, :]
+        s = s + bias.reshape(B, nh, L, L).float()
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bnkc->bnqc", p, v)
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """Kernel forward; the backward recomputes :func:`attention_reference`
+    on the saved inputs and returns its exact vjp (JAX ``_trainable_flash``,
+    ``flash_attention.py:917-969``). There is no backward kernel, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        return flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in ctx.saved_tensors]
+            out = attention_reference(*leaves, ctx.scale)
+            grads = iter(torch.autograd.grad(out, [t for t in leaves if t is not None], g))
+        return (*(None if t is None else next(grads) for t in leaves), None)
+
+
+def flash_attention_relpos_trainable(q, k, v, rel_h, rel_w, scale) -> torch.Tensor:
+    """Differentiable :func:`flash_attention_relpos` (rel tiles optional):
+    the kernel forward, the eager-recompute backward."""
+    return _FlashTrainable.apply(q, k, v, rel_h, rel_w, float(scale))

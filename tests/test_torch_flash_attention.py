@@ -167,3 +167,132 @@ def test_all_below_floor_rows_average_real_keys():
     # shrunk mean; the shrink itself is larger than that.
     np.testing.assert_allclose(ref, mean * (196 / 224), atol=5e-3)
     assert np.abs(ref - mean).max() > 2e-2
+
+
+# ---------------------------------------------------------------------------
+# Head-split attention with or without rel-pos: JAX's generic dispatch, items
+# _attn_kernel (whole problems, L <= 512) and _attn_kernel_rowblock, against
+# the port's flash_attn plain version.
+# ---------------------------------------------------------------------------
+
+HEAD_SPLIT_SHAPES = [  # B, nh, L, hd, kh, kw (kh = kw = 0: no rel-pos)
+    (3, 2, 196, 80, 14, 14),  # ViT-H windowed, whole problems
+    (1, 2, 800, 64, 25, 32),  # padded long sequence, row blocks
+    (1, 2, 1024, 64, 32, 32),  # row blocks (JAX bias3d=False)
+    (2, 2, 196, 64, 0, 0),  # rel-less, whole problems
+    (1, 2, 1024, 64, 0, 0),  # rel-less, row blocks
+]
+
+
+def _head_split(seed, B, nh, L, hd, kh, kw):
+    q, k, v, rel_h, rel_w = _global(seed, B, nh, L, hd, max(kh, 1), max(kw, 1))
+    return (q, k, v, rel_h, rel_w) if kh else (q, k, v, None, None)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", HEAD_SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_head_split_plain_matches_jax(dtype, shape):
+    jdt, tdt, atol = DTYPES[dtype]
+    hd = shape[3]
+    args = _head_split(6, *shape)
+    ref = jfa.flash_attention_relpos(
+        *(None if a is None else _j(a, jdt) for a in args), hd**-0.5, interpret=True,
+        bias3d=False,
+    )
+    out = tfa.flash_attention_plain(*(None if a is None else _t(a, tdt) for a in args), hd**-0.5)
+    assert out.dtype == tdt and tuple(out.shape) == shape[:4]
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=atol, rtol=0)
+    if tfa.route(shape[2], shape[4:] if shape[4] else None) != "flash_global":
+        wrapped = tfa.flash_attention_relpos(
+            *(None if a is None else _t(a, tdt) for a in args), hd**-0.5)
+        assert torch.equal(wrapped, out)
+
+
+ROUTE_CASES = [  # L, (kh, kw) or None
+    (64, (8, 8)), (196, (14, 14)), (512, (16, 32)), (196, None), (512, None),
+    (800, (25, 32)), (1024, (32, 32)), (2500, (50, 50)), (4096, (64, 64)),
+    (4096, (16, 256)), (1024, None), (4096, None),
+]
+
+
+@pytest.mark.parametrize("L,kv", ROUTE_CASES)
+def test_route_matches_jax_dispatch(L, kv, monkeypatch):
+    """The port sends each problem to the kernel JAX's dispatch reaches:
+    ``_fused_attention_bias3d`` (flash_global), ``_fused_attention`` with
+    bw > 1 (flash_whole) or bw == 1 (flash_rowblock). The JAX kernels are
+    replaced by recorders here, so no interpret-mode kernel runs."""
+    seen = []
+
+    def fused(qa, ka, v, *, L, bw, block_q, interpret, exp2=False, clamp=False):
+        seen.append("flash_whole" if bw > 1 else "flash_rowblock")
+        return jnp.zeros((qa.shape[0], qa.shape[1], v.shape[2]), qa.dtype)
+
+    def bias3d(qs, ks, v, rel_h, rel_w, out_inv_scale, **kw):
+        seen.append("flash_global")
+        return jnp.zeros(qs.shape, qs.dtype)
+
+    monkeypatch.setattr(jfa, "_fused_attention", fused)
+    monkeypatch.setattr(jfa, "_fused_attention_bias3d", bias3d)
+    B, nh, hd = 1, 2, 16
+    q = jnp.zeros((B, nh, L, hd), jnp.float32)
+    rel = (None, None) if kv is None else (jnp.zeros((B, nh, L, kv[0])),
+                                            jnp.zeros((B, nh, L, kv[1])))
+    jfa.flash_attention_relpos(q, q, q, *rel, 0.25)
+    assert seen == [tfa.route(L, kv)]
+
+
+@pytest.mark.parametrize("rel", [True, False])
+def test_trainable_grads_match_jax(rel):
+    """flash_attention_relpos_trainable: gradients within 1e-5 of JAX's
+    trainable function (interpret-mode kernel forward, eager-recompute vjp),
+    and exactly the port's own attention_reference autograd."""
+    from sam_quantization_tpu.ops.flash_attention import flash_attention_relpos_trainable as jtr
+
+    shape = (2, 2, 196, 64, 14, 14) if rel else (2, 2, 196, 64, 0, 0)
+    args = _head_split(17, *shape)
+    w = np.random.default_rng(9).standard_normal(shape[:4]).astype(np.float32)
+    n = 5 if rel else 3
+    import jax
+
+    jgrads = jax.grad(
+        lambda *a: jnp.sum(jtr(*a, *([None, None] if not rel else []), 0.125, interpret=True)
+                           * w),
+        argnums=tuple(range(n)))(*(_j(a, jnp.float32) for a in args[:n]))
+    tin = [_t(a, torch.float32).requires_grad_() for a in args[:n]]
+    rest = tin[3:] if rel else [None, None]
+    out = tfa.flash_attention_relpos_trainable(*tin[:3], *rest, 0.125)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), tin)
+    eager = torch.autograd.grad((tfa.attention_reference(*tin[:3], *rest, 0.125)
+                                 * torch.from_numpy(w)).sum(), tin)
+    for g, jg, e in zip(grads, jgrads, eager):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-5, rtol=0)
+        assert torch.equal(g, e)
+    ref = jfa.attention_reference(*(None if a is None else _j(a, jnp.float32) for a in args),
+                                  0.125)
+    np.testing.assert_allclose(
+        tfa.attention_reference(*(None if a is None else _t(a, torch.float32) for a in args),
+                                0.125).numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_head_split_all_below_floor_rows_average_real_keys():
+    """The by-design divergence on the head-split routes: a rel-less row whose
+    logits all lie below the clamp floor is the plain mean of the L = 196
+    values in the port, and that mean shrunk by L/Lp = 196/256 in JAX, whose
+    whole-problem kernel pads L to Lp = round_up(L, 128)."""
+    B, nh, L, hd = 1, 1, 196, 64
+    r = np.random.default_rng(5)
+    q = -np.abs(r.standard_normal((B, nh, L, hd))).astype(np.float32) * 8.0
+    k = np.abs(r.standard_normal((B, nh, L, hd))).astype(np.float32) * 8.0
+    # |v| >= 1 keeps the products 2^-124 * v normal (CPU matmuls flush
+    # subnormal products to zero).
+    v = (np.sign(r.standard_normal((B, nh, L, hd)))
+         * (1 + np.abs(r.standard_normal((B, nh, L, hd))))).astype(np.float32)
+    out = tfa.flash_attention_relpos(*(_t(a, torch.float32) for a in (q, k, v)), None, None,
+                                     hd**-0.5)
+    mean = np.broadcast_to(v[0, 0].mean(0), (L, hd))
+    np.testing.assert_allclose(out[0, 0].numpy(), mean, atol=1e-6)
+    ref = jfa.flash_attention_relpos(*(jnp.asarray(a) for a in (q, k, v)), None, None,
+                                     hd**-0.5, interpret=True)
+    ref = np.asarray(ref)[0, 0]
+    np.testing.assert_allclose(ref, mean * (196 / 256), atol=5e-3)
+    assert np.abs(ref - mean).max() > 2e-2

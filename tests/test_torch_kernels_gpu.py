@@ -6,9 +6,10 @@ JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
 
 Attention tolerances: float32 atol 1e-4; bfloat16 |d| <= 2e-2 + 1e-2 |ref|
-(one bf16 step of an output, or of a p before the p.v product); int8
-epilogue |d| <= 1 on at most 0.5% of the elements. The packed-weight and
-W-A8 kernels' tolerances are stated above their tests.
+(one bf16 step of an output, or of a p before the p.v product), and for the
+head-split kernel one bf16 step of the output, |d| <= 2**-7 |ref| +
+HS_BF16_C max|ref|; int8 epilogue |d| <= 1 on at most 0.5% of the elements.
+The packed-weight and W-A8 kernels' tolerances are stated above their tests.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from sam_quantization_tpu_torch.ops import fused_mlp as tfm
 from sam_quantization_tpu_torch.ops import quant_matmul as tqm
 
 DTYPES = {"f32": (torch.float32, 1e-4, 0.0), "bf16": (torch.bfloat16, 2e-2, 1e-2)}
+HS_BF16_C = 2.0**-10  # chip_smoke.py's, which says how it was set
 
 
 @pytest.fixture
@@ -69,7 +71,7 @@ def test_windowed_kernel_matches_plain(cuda, dtype, quant, nh, hd, ws):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("nh,hd,g", [(4, 80, 32), (4, 16, 8)])
+@pytest.mark.parametrize("nh,hd,g", [(4, 80, 32), (4, 16, 32)])
 def test_global_kernel_matches_plain(cuda, dtype, quant, nh, hd, g):
     tdt = DTYPES[dtype][0]
     L = g * g
@@ -77,13 +79,75 @@ def test_global_kernel_matches_plain(cuda, dtype, quant, nh, hd, g):
     rh, rw = (_randn(s, 1, nh, L, g).to(cuda, tdt) for s in (5, 6))
     ois = None
     if quant:
-        ois = 127.0 / float(tfa.flash_global_plain(q, k, v, rh, rw, hd**-0.5).abs().max())
+        ois = 127.0 / float(tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5).abs().max())
     before = tfa.LAUNCHES["flash_global"]
     out = tfa.flash_attention_relpos(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["flash_global"] == before + 1
-    _check(out, tfa.flash_global_plain(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois),
+    _check(out, tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois),
            dtype, quant)
+
+
+# L, (kh, kw) or None, and the kernel JAX's dispatch would reach
+# (tests/test_torch_flash_attention.py::test_route_matches_jax_dispatch holds
+# the port's route against JAX's on the CPU).
+HEAD_SPLIT_CASES = [
+    (64, (8, 8), "flash_whole"), (64, None, "flash_whole"),
+    (196, (14, 14), "flash_whole"), (196, None, "flash_whole"),
+    (512, (16, 32), "flash_whole"), (512, None, "flash_whole"),
+    (800, (25, 32), "flash_rowblock"), (800, None, "flash_rowblock"),
+    (2500, (50, 50), "flash_rowblock"), (2500, None, "flash_rowblock"),
+    (4096, (16, 256), "flash_rowblock"), (4096, None, "flash_rowblock"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("L,kv,name", HEAD_SPLIT_CASES)
+def test_head_split_kernel_matches_plain(cuda, dtype, L, kv, name):
+    tdt = DTYPES[dtype][0]
+    nh, hd = 2, 80
+    q, k, v = (_randn(s, 1, nh, L, hd).to(cuda, tdt) for s in (7, 8, 9))
+    rel = (None, None)
+    if kv is not None:
+        rel = tuple(_randn(s, 1, nh, L, n).to(cuda, tdt) for s, n in zip((10, 11), kv))
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention_relpos(q, k, v, *rel, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.route(L, kv) == name
+    assert {n: c - before[n] for n, c in tfa.LAUNCHES.items()} == {
+        n: int(n == name) for n in tfa.LAUNCHES}
+    assert out.dtype == tdt
+    ref = tfa.flash_attention_plain(q, k, v, *rel, hd**-0.5)
+    if dtype == "f32":
+        _check(out, ref, dtype, False)
+    else:
+        d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+        reading = float(((d - 2.0**-7 * r) / r.max()).max())
+        assert reading <= HS_BF16_C, (reading, float(d.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rel", [True, False])
+def test_trainable_grads_equal_eager_on_card(cuda, rel):
+    """The autograd Function's gradients are the eager function's, bit for
+    bit: its backward is attention_reference's autograd on the same inputs."""
+    B, nh, L, hd, g = 1, 4, 196, 80, 14
+    tin = [_randn(s, B, nh, L, hd).to(cuda).requires_grad_() for s in (12, 13, 14)]
+    if rel:
+        tin += [(_randn(s, B, nh, L, g) * 0.3).to(cuda).requires_grad_() for s in (15, 16)]
+    rest = tin[3:] if rel else [None, None]
+    w = _randn(17, B, nh, L, hd).to(cuda)
+    before = tfa.LAUNCHES["flash_whole"]
+    out = tfa.flash_attention_relpos_trainable(*tin[:3], *rest, hd**-0.5)
+    grads = torch.autograd.grad((out * w).sum(), tin)
+    eager = torch.autograd.grad((tfa.attention_reference(*tin[:3], *rest, hd**-0.5) * w).sum(), tin)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_whole"] == before + 1
+    for a, b in zip(grads, eager):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    with torch.no_grad():
+        _check(out, tfa.attention_reference(*tin[:3], *rest, hd**-0.5), "f32", False)
 
 
 @pytest.mark.gpu

@@ -285,20 +285,38 @@ def test_entry_points_default_to_cuda(entry):
     assert build(device="cpu").device.type == "cpu"
 
 
-def test_kernel_path_refuses_config_without_rel_pos():
-    """The attention kernels take the rel-pos bias: a config without it
-    raises on the kernel path instead of running the eager branch."""
+def test_kernel_path_refuses_config_without_rel_pos(monkeypatch):
+    """A config without rel-pos is not refused on the kernel path: it runs
+    JAX's kernel branch (head-split q/k/v, no rel tiles, to
+    ``flash_attention_relpos``) for windowed and global blocks alike. Held
+    against JAX's ``attn_impl="flash"`` encoder with its kernels in
+    interpret mode, vit_tiny from PRNGKey(8), atol 1e-4; the eager branch
+    agrees with the kernel branch to the same tolerance."""
+    import sam_quantization_tpu.ops.flash_attention as jfa
+
+    jcfg = JCONFIGS["vit_tiny"]
+    jcfg = dataclasses.replace(
+        jcfg, image_encoder=dataclasses.replace(jcfg.image_encoder, use_rel_pos=False))
     cfg = TCONFIGS["vit_tiny"]
     cfg = dataclasses.replace(
         cfg, image_encoder=dataclasses.replace(cfg.image_encoder, use_rel_pos=False))
-    model = tsam.init(cfg, seed=0, device="cpu")
-    x = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 128, 128, 3))
-                         .astype(np.float32))
+    jmodel = jsam.init(jax.random.PRNGKey(8), jcfg)
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    sd = tbuild.from_jax_params(to_np(jmodel.image_encoder), to_np(jmodel.prompt_encoder),
+                                to_np(jmodel.mask_decoder), cfg)
+    model = tbuild.load_state_dict(tsam.Sam(cfg, device="cpu"), sd)
+    x = np.random.default_rng(8).standard_normal((1, 128, 128, 3)).astype(np.float32)
+    orig = jfa._fused_attention
+    monkeypatch.setattr(jfa, "_fused_attention",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    ref = jie.apply(jmodel.image_encoder, jnp.asarray(x), jcfg.image_encoder,
+                    attn_impl="flash")
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="rel-pos"):
-            tsam.encode_image(model, x, "kernel")
-        out = tsam.encode_image(model, x, "eager")
+        out = tsam.encode_image(model, torch.from_numpy(x), "kernel")
+        eager = tsam.encode_image(model, torch.from_numpy(x), "eager")
     assert tuple(out.shape) == (1, 8, 8, 32) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4)
+    np.testing.assert_allclose(_np(eager), _np(out), atol=1e-4)
 
 
 def test_predictor_runs_encoder_in_weight_dtype(models):
@@ -335,7 +353,9 @@ def test_port_imports_no_jax():
     assert not offenders, offenders
     assert len(files) > 10
     for module in ("nn/packed.py", "ops/quant_matmul.py", "ops/fused_mlp.py",
-                   "quant/artifacts.py", "quant/sequential.py", "cli/infer.py"):
+                   "quant/artifacts.py", "quant/sequential.py", "cli/infer.py",
+                   "train/trainer.py", "train/checkpoint.py", "cli/train.py",
+                   "data/synthetic.py", "utils/experiment.py"):
         assert REPO / "sam_quantization_tpu_torch" / module in files, module
-    for src in ("flash_windowed.cu", "quant_matmul.cu", "fused_mlp.cu"):
+    for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu"):
         assert os.path.exists(REPO / "sam_quantization_tpu_torch" / "csrc" / src), src
