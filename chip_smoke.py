@@ -10,15 +10,18 @@ Run from the repository root on a machine with one CUDA card. It
 3. kernel phase: holds each kernel against its plain PyTorch version at the
    ViT-H shapes of the main paths (float32, bfloat16, and the int8 epilogue;
    the head-split kernel at the training shape, rel-less, and at long L with
-   and without a rel grid, each also showing that its bound rejects a wrong
-   output), and times the kernel, the plain version, and one
+   and without a rel grid, and the five probe kernels at the probes' shapes,
+   each also showing that its bound rejects a wrong output), and times the
+   kernel, the plain version, and one
    PyTorch library call of the same function, a yardstick the port never
    calls: ``scaled_dot_product_attention`` with the bias materialised as
    ``attn_mask`` for attention, ``torch.matmul`` on the weight dequantized
    beforehand for the dequant-matmuls, dense lin1 -> tanh GELU -> lin2
    for the fused MLP, and ``torch._int_mm`` on the weight unpacked to int8
    beforehand (one group, no scales) for the W-A8 kernels, which are held
-   against their plain version on the same int8 input;
+   against their plain version on the same int8 input, two ``torch.bmm``
+   for the dot-only probes, and ``scaled_dot_product_attention`` with scale
+   ln 2 (the bias times ln 2 as ``attn_mask``) for the softmax probes;
 4. dense main path: builds ViT-H from seeded random weights (rel-pos tables
    filled, so the bias contributes), encodes a 1024x1024 image with the
    kernel path and the plain (eager) path in float32 and bfloat16 and
@@ -45,7 +48,18 @@ Run from the repository root on a machine with one CUDA card. It
 9. rel-less ViT-H encode (``use_rel_pos=False``): 28 ``flash_whole`` and 4
    ``flash_rowblock`` launches, held against the eager path (float32 and
    bfloat16);
-10. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
+10. cached-int8 ViT-H (``bench.py``'s default mode): RTN symmetric 4-bit
+    (group 128), static activation scales calibrated on one seeded image
+    (margin 1.1), ``cache_int8`` with ``default_serve_skip(1280)``: held
+    against its dequantized dense model (float32 and bfloat16), served like
+    the others with exact launch counts (all 32 attention launches with the
+    int8 epilogue feeding an int8-pre proj; 128 int8 products), and one
+    ``set_image`` profiled by part (int8 products, quantize passes,
+    epilogues, attention);
+11. the two stage probes (``tools/packed_probe``, ``tools/global_stage_probe``)
+    run once at ViT-H: the only path of the five probe kernels (P1-P5), whose
+    launch counts are read around it;
+12. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
     ``flash_train`` against eager on the same weights and click, then
     training steps with 11 clicks and AdamW (exactly 28 ``flash_whole``
     launches and no other kernel per step, finite losses, parameters that
@@ -116,6 +130,41 @@ TRAIN_WATCH = ("image_encoder.blocks.0.attn.qkv.weight", "image_encoder.blocks.0
 # The JSON row of each kernel is its bfloat16 kernel-phase case, except
 # flash_whole's, which is the float32 training shape its launches come from.
 JSON_DTYPE = {"flash_whole": "float32"}
+# Cached-int8 ViT-H against the dense model of its dequantized 4-bit weights on
+# the eager path: adds the per-channel int8 requantization of the weights and
+# the int8 rounding of every linear's input at one static scale per layer,
+# coarser than W4A8's per-token one for tokens below the layer's amax. Limits
+# set from the first H100 run on these seeded weights: float32 measured
+# 2.98e-2, so 4e-2; bf16 3.32e-2 (the bf16 1.45e-2 and the int8 errors adding
+# in quadrature), so BF16_TOL.
+INT8_F32_TOL = 4e-2
+INT8_BF16_TOL = BF16_TOL
+# Its kernel branch against the eager branch of the same cached-int8 model:
+# both take the same int8 weights, static scales and exact integer products,
+# and differ by the attention's rounding and, in bf16, by where proj's input
+# is quantized (the kernels' int8-out epilogue against a bf16 attention
+# output). An input within rounding of an int8 midpoint flips by one step,
+# and over 32 blocks the flips cascade until the two branches carry
+# independent-looking int8 noise. First H100 run on these seeded weights:
+# float32 3.27e-2, bf16 4.02e-2, so 4e-2 and 5e-2.
+INT8_KERNEL_TOL = {"float32": 4e-2, "bfloat16": 5e-2}
+# The same block by block on the same input (block 0 windowed, block 7
+# global), read as the rel. L2 of the block's residual update: one block's
+# flips with no cascade, where a fault in the int8-out epilogue or the
+# int8-pre proj would stand out. First H100 run: float32 1.07e-3 and 1.65e-3,
+# so 2.5e-3; bf16 2.35e-2 and 1.91e-2 (the eager branch also rounds p and
+# the attention output to bf16), so 3e-2.
+INT8_BLOCKS = (0, 7)
+INT8_BLOCK_TOL = {"float32": 2.5e-3, "bfloat16": 3e-2}
+LN2 = math.log(2.0)
+PROBE_ITERS = 3  # --iters of the probe drivers' run
+# Calls of each probe kernel in that run: timing.timed_ms makes one warm-up
+# call and three repeats of --iters calls for each case; P1-P3 are one case
+# each of packed_probe, P4 and P5 two cases each (the row-max and the clamp-40
+# softmax) of global_stage_probe.
+PROBE_CASES = {"probe_no_softmax": 1, "probe_dots_floor": 1, "probe_presplit": 1,
+               "probe_pair": 2, "probe_pair_bias": 2}
+PROBE_LAUNCHES = {name: n * (1 + 3 * PROBE_ITERS) for name, n in PROBE_CASES.items()}
 FAILURES = []
 
 
@@ -133,23 +182,26 @@ def gpu_line() -> str:
     return out.stdout.strip()
 
 
-def print_device_profile(what: str, fn, qm=None) -> None:
+def print_device_profile(what: str, fn, ranges=()) -> dict:
     """Run ``fn`` once under torch.profiler; print device time by kernel, the
-    kernel groups, and the share of the wall time the device was busy. With
-    ``qm`` (the quant_matmul module), the per-token quantize pass runs inside
-    a profiler range for this run only, and its device time is printed."""
+    kernel groups, and the share of the wall time the device was busy. Each
+    ``(module, function name, range name)`` of ``ranges`` runs inside a
+    profiler range for this run only, and its device time is printed.
+    Returns the device ms of each kernel group and range."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    if qm is not None:
-        real = qm.quantize_activations_int8
+    saved = []
+    for mod, attr, name in ranges:
+        real = getattr(mod, attr)
 
-        def traced(x):
-            with record_function(QUANT_RANGE):
-                return real(x)
+        def traced(*a, real=real, name=name, **kw):
+            with record_function(name):
+                return real(*a, **kw)
 
-        qm.quantize_activations_int8 = traced
+        saved.append((mod, attr, real))
+        setattr(mod, attr, traced)
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -158,14 +210,15 @@ def print_device_profile(what: str, fn, qm=None) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
     finally:
-        if qm is not None:
-            qm.quantize_activations_int8 = real
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
     events = prof.key_averages()
-    # Ranges (the quantize pass's, the optimizer's step) span kernels that
+    names = {name for _, _, name in ranges}
+    # Ranges (the traced functions', the optimizer's step) span kernels that
     # are counted on their own.
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in events
-         if e.device_type == DeviceType.CUDA and e.key != QUANT_RANGE
+         if e.device_type == DeviceType.CUDA and e.key not in names
          and not e.key.startswith("Optimizer.")), reverse=True)
     busy = sum(r[0] for r in rows)
     groups = {"attention kernels": 0.0, "quant kernels": 0.0, "matmul": 0.0, "memcpy": 0.0,
@@ -179,13 +232,15 @@ def print_device_profile(what: str, fn, qm=None) -> None:
     print(f"profile {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), " + ", ".join(
               f"{g} {ms:.2f} ms" for g, ms in groups.items()))
-    if qm is not None:
-        spans = [e for e in events if e.key == QUANT_RANGE and e.device_type == DeviceType.CPU]
-        ms = sum(e.device_time_total for e in spans) / 1e3
-        print(f"  quantize pass: {ms:.2f} ms device time over {sum(e.count for e in spans)} "
+    spent = dict(groups)
+    for _, _, name in ranges:
+        spans = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
+        ms = spent[name] = sum(e.device_time_total for e in spans) / 1e3
+        print(f"  {name}: {ms:.2f} ms device time over {sum(e.count for e in spans)} "
               f"calls ({100 * ms / busy:.1f}% of busy), in the groups above")
     for ms, count, key in rows[:10]:
         print(f"  {ms:9.3f} ms {count:5d}x  {key[:100]}")
+    return spent
 
 
 def main() -> int:
@@ -200,13 +255,18 @@ def main() -> int:
     from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
     from sam_quantization_tpu_torch.models import build_sam, configs
     from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.models.image_encoder import BLOCK_LINEARS
+    from sam_quantization_tpu_torch.nn import functional as nn_fn
     from sam_quantization_tpu_torch.nn import packed as packed_lib
     from sam_quantization_tpu_torch.ops import _build
     from sam_quantization_tpu_torch.ops import flash_attention as fa
     from sam_quantization_tpu_torch.ops import fused_mlp as fm
+    from sam_quantization_tpu_torch.ops import probes as ps
     from sam_quantization_tpu_torch.ops import quant_matmul as qm
     from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import act_scales as act_lib
     from sam_quantization_tpu_torch.quant import sequential as seq
+    from sam_quantization_tpu_torch.tools import global_stage_probe, packed_probe
     from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
     from sam_quantization_tpu_torch.train import trainer as trainer_lib
 
@@ -244,11 +304,13 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     def reset_counts():
-        for mod in (fa, qm, fm):
+        for mod in (fa, qm, fm, ps):
             mod.reset_launch_counts()
 
     def counts():
-        return {**fa.LAUNCHES, **qm.LAUNCHES, **fm.LAUNCHES}
+        """Kernel launches, int8-out epilogues and int8 products (cuBLAS)."""
+        return {**fa.LAUNCHES, **qm.LAUNCHES, **fm.LAUNCHES, **ps.LAUNCHES, **qm.INT8_MATMULS,
+                **{f"{k} int8-out": c for k, c in fa.INT8_OUT.items()}}
 
     zero = {name: 0 for name in counts()}
 
@@ -411,6 +473,109 @@ def main() -> int:
             report.setdefault((name, tag), r)
             del q, k, v, rel, mask, ref, out
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------- stage-probe kernels
+    # bfloat16 at the probes' ViT-H shapes: P1 on the packed qkv of 25
+    # windows (16 heads, L 196, hd 80, rel 14 + 14), read in place; P2/P3 on
+    # the same heads split and zero-padded to (25, 16, 256, 128); P4/P5 on
+    # the 16 global heads (L 4096) padded to 128 lanes, q prescaled by
+    # hd**-0.5 * log2(e), P5 with raw 64 + 64 rel tiles. Each is held to the
+    # head-split bound; the plain version with the last key tile (of the
+    # real keys) left out of p.v must fail it. The first case of each counter
+    # is its JSON row.
+    gen.manual_seed(5)
+    bf = torch.bfloat16
+    qkv = randn(NW, Lw, 3 * C, dtype=bf)
+    rel = randn(NW, nh, Lw, 2 * ws, std=0.05, dtype=bf)
+    pq, pk, pv = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+    def split_pad(a, L, Lp, heads, B):
+        a = a.reshape(B, L, heads, hd).transpose(1, 2)
+        return TF.pad(a, (0, 128 - hd, 0, Lp - L)).reshape(B * heads, Lp, 128).contiguous()
+
+    ws_heads = [split_pad(a, Lw, 256, nh, NW) for a in (pq, pk, pv)]
+    gq, gk, gv = (randn(1, Lg, C, dtype=bf) for _ in range(3))
+    gq = (gq.float() * (scale * fa.LOG2E)).to(bf)
+    g_heads = [split_pad(a, Lg, Lg, nh, 1) for a in (gq, gk, gv)]
+    grh, grw = randn(nh, Lg, g, std=0.05, dtype=bf), randn(nh, Lg, g, std=0.05, dtype=bf)
+    n_g = torch.arange(Lg, device=dev)
+    g_mask = ((grw.float()[..., n_g % g] + grh.float()[..., n_g // g]) * LN2).to(bf)
+
+    def sdpa(qkv_heads, mask=None):
+        """SDPA on (B, heads, L, 128): softmax(s ln 2) = the exp2 softmax of s."""
+        q4, k4, v4 = qkv_heads
+        return lambda: TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=LN2)
+
+    def bmm2(q3, k3, v3):
+        return lambda: torch.bmm(torch.bmm(q3, k3.transpose(1, 2)), v3)
+
+    heads_w = [t.reshape(NW, nh, 256, 128) for t in ws_heads]
+    heads_g = [t.reshape(1, nh, Lg, 128) for t in g_heads]
+    probe_cases = [
+        # name, what, kernel, plain (on v'), v, real keys, bytes, flops, library
+        ("probe_no_softmax", "ViT-H windows",
+         lambda v: ps.probe_no_softmax(pq, pk, v, rel, scale, nh=nh, hd=hd),
+         lambda v: ps.probe_no_softmax_plain(pq, pk, v, rel, scale, nh=nh, hd=hd), pv, Lw,
+         (3 * NW * Lw * C + NW * nh * Lw * 2 * ws + NW * Lw * C) * 2,
+         2 * NW * nh * Lw * Lw * (2 * hd + 2 * ws),
+         bmm2(*(split_pad(a, Lw, Lw, nh, NW)[..., :hd] for a in (pq, pk, pv)))),
+        ("probe_dots_floor", "presplit (400, 256, 128)",
+         lambda v: ps.probe_dots_floor(*ws_heads[:2], v),
+         lambda v: ps.probe_dots_floor_plain(*ws_heads[:2], v), ws_heads[2], Lw,
+         4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, bmm2(*ws_heads)),
+        ("probe_presplit", "exp2, presplit (400, 256, 128)",
+         lambda v: ps.probe_presplit(*ws_heads[:2], v, True),
+         lambda v: ps.probe_presplit_plain(*ws_heads[:2], v, True), ws_heads[2], Lw,
+         4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, sdpa(heads_w)),
+        ("probe_presplit", "exp, presplit (400, 256, 128)",
+         lambda v: ps.probe_presplit(*ws_heads[:2], v, False),
+         lambda v: ps.probe_presplit_plain(*ws_heads[:2], v, False), ws_heads[2], Lw,
+         4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, sdpa(heads_w)),
+        ("probe_pair", "row max, global (16, 4096, 128)",
+         lambda v: ps.probe_pair(*g_heads[:2], v, False),
+         lambda v: ps.probe_pair_plain(*g_heads[:2], v, False), g_heads[2], Lg,
+         4 * nh * Lg * 128 * 2, 4 * nh * Lg * Lg * 128, sdpa(heads_g)),
+        ("probe_pair", "clamp 40, global (16, 4096, 128)",
+         lambda v: ps.probe_pair(*g_heads[:2], v, True),
+         lambda v: ps.probe_pair_plain(*g_heads[:2], v, True), g_heads[2], Lg,
+         4 * nh * Lg * 128 * 2, 4 * nh * Lg * Lg * 128, sdpa(heads_g)),
+        ("probe_pair_bias", "row max, global + rel 64 x 64",
+         lambda v: ps.probe_pair_bias(*g_heads[:2], v, grh, grw, False),
+         lambda v: ps.probe_pair_bias_plain(*g_heads[:2], v, grh, grw, False), g_heads[2], Lg,
+         (4 * nh * Lg * 128 + 2 * nh * Lg * g) * 2, 4 * nh * Lg * Lg * 128,
+         sdpa(heads_g, g_mask[None])),
+        ("probe_pair_bias", "clamp 40, global + rel 64 x 64",
+         lambda v: ps.probe_pair_bias(*g_heads[:2], v, grh, grw, True),
+         lambda v: ps.probe_pair_bias_plain(*g_heads[:2], v, grh, grw, True), g_heads[2], Lg,
+         (4 * nh * Lg * 128 + 2 * nh * Lg * g) * 2, 4 * nh * Lg * Lg * 128,
+         sdpa(heads_g, g_mask[None])),
+    ]
+    for name, what, kernel, plain, v, L_real, nbytes, flops, library in probe_cases:
+        ref = plain(v)
+        before = counts()
+        out = kernel(v)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in counts().items() if c != before[n]}
+        err, reading, ok = head_split_ok(out, ref, bf)
+        v_skip = v.clone()
+        v_skip[..., L_real - (L_real % 64 or 64):L_real, :] = 0
+        _, wrong, wrong_ok = head_split_ok(plain(v_skip), ref, bf)
+        check(ok and not wrong_ok and out.dtype == bf and launched == {name: 1},
+              f"{name} {what}: max|d| {err:.3e} vs plain, reading {reading:.3e} "
+              f"(<= {HS_BF16_C}; last tile skipped reads {wrong:.3e}), launches {launched}")
+        long = L_real == Lg
+        iters = 5 if long else 20
+        r = dict(err=err, ms=cuda_ms(lambda: kernel(v), iters), plain_ms=cuda_ms(lambda: plain(v), 3),
+                 library_ms=cuda_ms(library, iters), bytes=nbytes, flops=flops)
+        bound(r, "bfloat16")
+        print(f"{name} {what}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"max|d| {r['err']:.3e}")
+        report.setdefault((name, "bfloat16"), r)
+        del v_skip, ref, out
+    del probe_cases, qkv, rel, pq, pk, pv, ws_heads, heads_w, g_heads, heads_g, gq, gk, gv
+    del grh, grw, g_mask
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------ packed-weight kernels
     # ViT-H, B = 1: qkv/proj on 25 windows x 196 tokens, the MLP on 64 x 64
@@ -691,7 +856,8 @@ def main() -> int:
                                       f"rel L2 {rel_err:.3e} (<= {tol})")
         predictor, a8_served = serve_all("W4A8", a8_launches)
         launches["quant_matmul_a8_sym"] = a8_served["quant_matmul_a8_sym"]
-        print_device_profile("W4A8 set_image", lambda: predictor.set_image(images[0]), qm)
+        print_device_profile("W4A8 set_image", lambda: predictor.set_image(images[0]),
+                             ranges=[(qm, "quantize_activations_int8", QUANT_RANGE)])
         del predictor, model
         torch.cuda.empty_cache()
 
@@ -769,6 +935,110 @@ def main() -> int:
                   and rel_err <= tol, f"rel-less encode {tag} kernel vs float32 eager: "
                                       f"rel L2 {rel_err:.3e} (<= {tol})")
         del encoder, embs, ref, e
+        torch.cuda.empty_cache()
+
+        # Cached int8 (bench.py's default mode, cli.infer --serve-int8): RTN
+        # symmetric 4-bit, groups of 128, static activation scales calibrated
+        # on the bf16 dense model with one seeded image and margin 1.1 (as
+        # bench.py calibrates), cache_int8 with default_serve_skip(1280) = ():
+        # every block linear is an IntLinear, and each proj takes its
+        # attention kernel's int8 output (int8-pre) in bfloat16.
+        model = vit_h()
+        calib = copy.deepcopy(model.image_encoder).to(torch.bfloat16)
+        gen.manual_seed(6)
+        t = time.perf_counter()
+        act = act_lib.calibrate_act_scales(
+            calib, [randn(1, 1024, 1024, 3, dtype=torch.bfloat16)], margin=1.1)
+        print(f"cached int8: {len(act)} static scales calibrated in "
+              f"{time.perf_counter() - t:.1f} s (amax x 1.1 from {min(act.values()):.3f} "
+              f"to {max(act.values()):.3f})")
+        del calib
+        seq.rtn_quantize_encoder(model.image_encoder,
+                                 seq.GPTQConfig(bits=4, groupsize=128, sym=True))
+        ref = packed_lib.dense_copy(model.image_encoder)(x, "eager").float()
+        packed_lib.cache_int8(model.image_encoder, act_scales=act,
+                              skip=packed_lib.default_serve_skip(C))
+        kinds = {type(getattr(getattr(b, o), n)).__name__
+                 for b in model.image_encoder.blocks for o, n in BLOCK_LINEARS}
+        check(kinds == {"IntLinear"}, f"cached int8: block linears are {kinds}")
+        int8_launches = {**flash_launches, "int8_matmul": 96, "int8_matmul_pre": 32,
+                         "flash_windowed int8-out": 28, "flash_global int8-out": 4}
+        for dtype, tol, want in (
+                (torch.float32, INT8_F32_TOL, {**flash_launches, "int8_matmul": 128}),
+                (torch.bfloat16, INT8_BF16_TOL, int8_launches)):
+            tag = str(dtype).split(".")[1]
+            model.image_encoder.to(dtype)
+            blocks = model.image_encoder.blocks
+            block_in = {}  # the inputs of one windowed and one global block
+            hooks = [blocks[i].register_forward_pre_hook(
+                lambda m, a, i=i: block_in.__setitem__(i, a[0].clone())) for i in INT8_BLOCKS]
+            reset_counts()
+            e = sam_lib.encode_image(model, x.to(dtype), "kernel").float()
+            torch.cuda.synchronize()
+            check(counts() == want, f"cached int8 encode {tag}: launches {counts()}")
+            for hook in hooks:
+                hook.remove()
+            rel_err = float((e - ref).norm() / ref.norm())
+            check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all())
+                  and rel_err <= tol, f"cached int8 encode {tag} vs dequantized dense float32 "
+                                      f"eager: rel L2 {rel_err:.3e} (<= {tol})")
+            # The same int8 model on its eager branch: the same int8 weights
+            # and static scales, so only the attention and proj's input
+            # quantization differ.
+            reset_counts()
+            eager = sam_lib.encode_image(model, x.to(dtype), "eager").float()
+            torch.cuda.synchronize()
+            check(counts() == {**zero, "int8_matmul": 128},
+                  f"cached int8 encode {tag} eager: launches {counts()}")
+            rel_err = float((e - eager).norm() / eager.norm())
+            tol = INT8_KERNEL_TOL[tag]
+            check(rel_err <= tol, f"cached int8 encode {tag} kernel vs the same model's eager "
+                                  f"branch: rel L2 {rel_err:.3e} (<= {tol})")
+            # One block at a time on the same input, kernel against eager:
+            # the residual update of one block's flips, with no cascade.
+            for i in INT8_BLOCKS:
+                h, kind = block_in[i], "flash_windowed" if i == 0 else "flash_global"
+                reset_counts()
+                upd = blocks[i](h, "kernel").float() - h.float()
+                torch.cuda.synchronize()
+                pre = int(dtype == torch.bfloat16)
+                want_blk = {**zero, kind: 1, f"{kind} int8-out": pre,
+                            "int8_matmul": 4 - pre, "int8_matmul_pre": pre}
+                check(counts() == want_blk, f"cached int8 block {i} {tag} kernel: launches "
+                                            f"{ {k: n for k, n in counts().items() if n} }")
+                ref_upd = blocks[i](h, "eager").float() - h.float()
+                rel_err = float((upd - ref_upd).norm() / ref_upd.norm())
+                tol = INT8_BLOCK_TOL[tag]
+                check(rel_err <= tol, f"cached int8 block {i} ({kind}) {tag} kernel vs eager: "
+                                      f"rel L2 of its update {rel_err:.3e} (<= {tol})")
+            del eager, block_in, h, upd, ref_upd
+        predictor, _ = serve_all("cached int8", int8_launches)
+        parts = print_device_profile(
+            "cached int8 set_image", lambda: predictor.set_image(images[0]),
+            ranges=[(nn_fn, "quant_linear", "int8 linears"),
+                    (qm, "quantize_static", "int8 quantize passes"),
+                    (qm, "_int_mm", "int8 products")])
+        products, quantize = parts["int8 products"], parts["int8 quantize passes"]
+        print(f"cached int8 set_image by part: int8 products {products:.2f} ms, quantize passes "
+              f"{quantize:.2f} ms, epilogue passes (scale, cast, bias, copies) "
+              f"{parts['int8 linears'] - products - quantize:.2f} ms, attention kernels "
+              f"{parts['attention kernels']:.2f} ms  [{card}]")
+        del predictor, model, ref, e
+        torch.cuda.empty_cache()
+
+        # The stage probes at ViT-H: the path of the five probe kernels.
+        reset_counts()
+        t = time.perf_counter()
+        for driver in (packed_probe, global_stage_probe):
+            rc = driver.main(["--model", "vit_h", "--iters", str(PROBE_ITERS)])
+            check(rc == 0, f"{driver.__name__} --model vit_h --iters {PROBE_ITERS}: exit {rc}")
+        got = counts()
+        print(f"probe drivers: {time.perf_counter() - t:.1f} s")
+        probe_got = {name: got[name] for name in ps.LAUNCHES}
+        check(probe_got == PROBE_LAUNCHES,
+              f"probe drivers: probe launches {probe_got} (want {PROBE_LAUNCHES})")
+        for name in ps.LAUNCHES:
+            launches[name] = got[name]
         torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- training
@@ -895,20 +1165,25 @@ def main() -> int:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     csrc, jax_ops = "sam_quantization_tpu_torch/csrc/", "sam_quantization_tpu/ops/"
-    sources = {"flash_windowed": ("flash_windowed.cu", "flash_attention.py:242"),
-               "flash_global": ("flash_global.cu", "flash_attention.py:552"),
-               "flash_whole": ("flash_attn.cu", "flash_attention.py:213"),
-               "flash_rowblock": ("flash_attn.cu", "flash_attention.py:680"),
-               "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:223"),
-               "quant_matmul3": ("quant_matmul.cu", "quant_matmul.py:244"),
-               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:28"),
-               "quant_matmul_a8_sym": ("quant_matmul_a8.cu", "quant_matmul.py:369"),
-               "quant_matmul_a8": ("quant_matmul_a8.cu", "quant_matmul.py:279")}
+    sources = {"flash_windowed": ("flash_windowed.cu", jax_ops + "flash_attention.py:242"),
+               "flash_global": ("flash_global.cu", jax_ops + "flash_attention.py:552"),
+               "flash_whole": ("flash_attn.cu", jax_ops + "flash_attention.py:213"),
+               "flash_rowblock": ("flash_attn.cu", jax_ops + "flash_attention.py:680"),
+               "quant_matmul": ("quant_matmul.cu", jax_ops + "quant_matmul.py:223"),
+               "quant_matmul3": ("quant_matmul.cu", jax_ops + "quant_matmul.py:244"),
+               "fused_mlp": ("fused_mlp.cu", jax_ops + "fused_mlp.py:28"),
+               "quant_matmul_a8_sym": ("quant_matmul_a8.cu", jax_ops + "quant_matmul.py:369"),
+               "quant_matmul_a8": ("quant_matmul_a8.cu", jax_ops + "quant_matmul.py:279"),
+               "probe_no_softmax": ("probe_packed.cu", "tools/packed_probe.py:71"),
+               "probe_dots_floor": ("probe_heads.cu", "tools/packed_probe.py:97"),
+               "probe_presplit": ("probe_heads.cu", "tools/packed_probe.py:111"),
+               "probe_pair": ("probe_heads.cu", "tools/global_stage_probe.py:183"),
+               "probe_pair_bias": ("probe_heads.cu", "tools/global_stage_probe.py:316")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[(name, JSON_DTYPE.get(name, "bfloat16"))]
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + src, "replaces": jax_ops + replaces,
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -1,14 +1,18 @@
 """Quantized-inference CLI: load a packed encoder artifact, time the encoder.
 
-Counterpart of ``sam_quantization_tpu/cli/infer.py`` (the ``--load`` and
-``--benchmark`` parts). Serve an artifact written by the JAX package's
-``cli/quantize``::
+Counterpart of ``sam_quantization_tpu/cli/infer.py`` (the ``--load``,
+``--serve-int8`` and ``--benchmark`` parts). Serve an artifact written by
+the JAX package's ``cli/quantize``::
 
     python -m sam_quantization_tpu_torch.cli.infer vit_h --load DIR --benchmark
 
 An artifact whose layers store ``act_bits: 8`` (written from
 ``with_act_bits(params, 8)``) serves through the W-A8 kernels; weight-only
-ones through the dequant-matmul kernels. The encoder is timed in bfloat16
+ones through the dequant-matmul kernels. ``--serve-int8`` serves a
+symmetric ``gptq``/``rtn`` artifact in the cached-int8 mode: its layers
+become ``IntLinear`` (``cache_int8`` with ``default_serve_skip``), with the
+static activation scales of its ``quant_config.json`` (``cli/quantize
+--sym --act-scales``) where it has them. The encoder is timed in bfloat16
 on a zero image, like the JAX CLI's
 benchmark, with ``torch.cuda.synchronize()`` around the timed loop; the
 result is one JSON line with ``encoder_s_per_image`` and
@@ -28,6 +32,11 @@ def main(argv=None):
     p.add_argument("model", choices=["vit_b", "vit_l", "vit_h", "vit_tiny"])
     p.add_argument("--checkpoint", default=None, help="FP .pth checkpoint")
     p.add_argument("--load", default=None, help="quantized artifact dir")
+    p.add_argument(
+        "--serve-int8", action="store_true",
+        help="serve a symmetric gptq/rtn artifact from cached int8 weights with the "
+        "artifact's static activation scales and the per-op dense routing",
+    )
     p.add_argument("--benchmark", action="store_true")
     p.add_argument("--bench-iters", type=int, default=100)
     p.add_argument("--bench-warmup", type=int, default=25)
@@ -52,6 +61,20 @@ def main(argv=None):
         enc, qcfg = artifacts.load_quantized(args.load)
         build_sam.load_jax_encoder(model, enc)
         print(f"loaded quantized encoder: {qcfg.get('method')}", file=sys.stderr)
+        if args.serve_int8:
+            if qcfg.get("method") not in ("gptq", "rtn") or not qcfg.get("sym"):
+                print("--serve-int8 needs a symmetric gptq/rtn artifact "
+                      "(quantize with --sym); ignoring", file=sys.stderr)
+            else:
+                from sam_quantization_tpu_torch.nn.packed import cache_int8, default_serve_skip
+
+                scales = qcfg.get("act_scales")
+                cache_int8(model.image_encoder, act_scales=scales,
+                           skip=default_serve_skip(model.config.image_encoder.embed_dim))
+                print("serving mode: cached int8 weights"
+                      + (", static act scales" if scales else
+                         ", dynamic act scales (artifact has none — quantize with --act-scales)"),
+                      file=sys.stderr)
 
     out = {}
     if args.benchmark:

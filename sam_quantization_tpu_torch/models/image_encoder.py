@@ -31,6 +31,12 @@ for ``act_bits == 8``), and under ``attn_impl="kernel"`` an MLP whose two
 linears pass ``fused_mlp_supported`` runs the fused quantized-MLP kernel
 (the JAX ``_use_fused_mlp``, which the eager branch, like JAX's ``"xla"``,
 turns off). Other MLPs, int8-activation ones among them, call their layers.
+
+Cached-int8 blocks (``nn.packed.cache_int8``) hold ``IntLinear`` layers.
+When proj is one with a static activation scale and the activations are
+bfloat16, both kernel branches pass ``out_inv_scale = 1 / proj.in_scale`` to
+the attention kernel, whose int8 epilogue then writes proj's int8 input
+(int8-pre proj); the eager branch quantizes proj's input from bfloat16.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from torch import nn
 from sam_quantization_tpu_torch.models.configs import ImageEncoderConfig
 from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, MLPBlock
+from sam_quantization_tpu_torch.nn.packed import IntLinear
 from sam_quantization_tpu_torch.ops import flash_attention, fused_mlp
 
 ATTN_IMPLS = ("kernel", "flash_train", "eager")
@@ -137,6 +144,10 @@ def add_decomposed_rel_pos(attn, q, rel_pos_h, rel_pos_w, q_size, k_size):
 
 
 class Attention(nn.Module):
+    # Called with the eager branch's pre-softmax logits (after the rel-pos
+    # bias) when set; calibration's clamp-window canary sets it.
+    logit_observer = None
+
     def __init__(self, cfg: ImageEncoderConfig, input_size: Tuple[int, int], *,
                  gen=None, device="cpu"):
         super().__init__()
@@ -166,8 +177,19 @@ class Attention(nn.Module):
         rel_w = torch.einsum("bhwnc,wkc->bnhwk", qg, Rw)
         rel = torch.cat([rel_h, rel_w], -1).reshape(NW, nh, kh * kw, kh + kw)
         return flash_attention.flash_attention_qkv_packed(
-            qkv.contiguous(), rel.contiguous(), hd**-0.5, nh=nh, hd=hd, kh=kh, kw=kw
+            qkv.contiguous(), rel.contiguous(), hd**-0.5, nh=nh, hd=hd, kh=kh, kw=kw,
+            out_inv_scale=self._proj_inv_scale(qkv.dtype),
         )
+
+    def _proj_inv_scale(self, dtype) -> Optional[float]:
+        """``1 / proj.in_scale``, divided in float32, when the attention kernel
+        should emit proj's int8 input: proj is an ``IntLinear`` with a static
+        scale and the activations are bfloat16 (the int8-pre product returns
+        bfloat16, so a float32 pipeline keeps its own quantize pass)."""
+        proj = self.proj
+        if isinstance(proj, IntLinear) and proj.in_scale is not None and dtype == torch.bfloat16:
+            return float(1.0 / torch.tensor(proj.in_scale_value, dtype=torch.float32))
+        return None
 
     def forward(self, x: torch.Tensor, windowed: bool, attn_impl: str = "kernel"):
         """(B, H, W, C) tokens -> (B, H, W, C); ``windowed`` selects the
@@ -197,9 +219,12 @@ class Attention(nn.Module):
                 )
                 rel_h = rel_h.reshape(B, nh, L, H).contiguous()
                 rel_w = rel_w.reshape(B, nh, L, W).contiguous()
-            attend = (flash_attention.flash_attention_relpos_trainable if train
-                      else flash_attention.flash_attention_relpos)
-            out = attend(q.contiguous(), k.contiguous(), v.contiguous(), rel_h, rel_w, hd**-0.5)
+            qkv_rel = (q.contiguous(), k.contiguous(), v.contiguous(), rel_h, rel_w, hd**-0.5)
+            if train:
+                out = flash_attention.flash_attention_relpos_trainable(*qkv_rel)
+            else:  # routes other than the bias3d kernel ignore out_inv_scale
+                out = flash_attention.flash_attention_relpos(
+                    *qkv_rel, out_inv_scale=self._proj_inv_scale(x.dtype))
         else:
             k2 = k.reshape(B * nh, L, hd)
             v2 = v.reshape(B * nh, L, hd)
@@ -209,6 +234,8 @@ class Attention(nn.Module):
                 attn = add_decomposed_rel_pos(
                     attn, q2, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W)
                 )
+            if self.logit_observer is not None:
+                self.logit_observer(attn)
             attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
             out = torch.matmul(attn.float(), v2.float()).to(x.dtype)
         out = out.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)

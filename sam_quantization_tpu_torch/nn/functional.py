@@ -1,7 +1,7 @@
 """NN primitives on tensors, NHWC like the JAX package.
 
 Counterpart of ``sam_quantization_tpu/nn/functional.py`` (dense parts and
-the weight-only packed linear, :func:`quant_linear`).
+the quantized linear, :func:`quant_linear`).
 Parameters keep the upstream ``segment_anything`` torch layout: linear
 weights are ``(out, in)``, convolutions ``OIHW``, transposed convolutions
 ``(I, O, kh, kw)``. Activations stay NHWC at every function, so each result
@@ -36,13 +36,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
 
 
 def quant_linear(x: torch.Tensor, p) -> torch.Tensor:
-    """Packed linear (:class:`~sam_quantization_tpu_torch.nn.packed.PackedLinear`):
-    the dequant-matmul kernel on x's rows, then the float32 bias cast to the
-    output dtype (the JAX ``quant_linear``)."""
+    """Quantized linear: a :class:`~sam_quantization_tpu_torch.nn.packed.PackedLinear`
+    runs the dequant-matmul on x's rows, an
+    :class:`~sam_quantization_tpu_torch.nn.packed.IntLinear` the cached int8
+    product; then the float32 bias cast to the output dtype (the JAX
+    ``quant_linear``)."""
+    from sam_quantization_tpu_torch.nn.packed import IntLinear
     from sam_quantization_tpu_torch.ops import quant_matmul
 
     lead = x.shape[:-1]
-    y = quant_matmul.quant_matmul(x.reshape(-1, x.shape[-1]), p)
+    mm = quant_matmul.int8_matmul if isinstance(p, IntLinear) else quant_matmul.quant_matmul
+    y = mm(x.reshape(-1, x.shape[-1]), p)
     y = y.reshape(*lead, p.out_features)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)

@@ -24,14 +24,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_windowed", "flash_global", "flash_attn", "quant_matmul", "fused_mlp",
-           "quant_matmul_a8")
+           "quant_matmul_a8", "probe_packed", "probe_heads")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' `dtype` argument
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures, one per library: (symbol, argtypes).
 SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
     # dtype, out_int8, qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, stream
@@ -67,6 +67,16 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
     # groupsize, pack_block, stream
     "quant_matmul_a8": (
         "samq_quant_matmul_a8",
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    ),
+    # q, k, v, rel, out, NW, L, nh, hd, R, row_stride, win_stride, scale, stream
+    "probe_packed": (
+        "samq_probe_no_softmax",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _F, _P),
+    ),
+    # mode, exp2, has_bias, q, k, v, rh, rw, out, BH, L, D, kh, kw, stream
+    "probe_heads": (
+        "samq_probe_heads",
         (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
 }

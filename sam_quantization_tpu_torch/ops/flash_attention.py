@@ -28,7 +28,8 @@ real keys, where the JAX kernels' padded columns take a share of the sum and
 shrink the output by L/Lp.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses the plain
-version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+version only for a CPU tensor. ``LAUNCHES`` counts kernel launches, and
+``INT8_OUT`` those of them that ran the int8 epilogue.
 """
 
 from __future__ import annotations
@@ -46,12 +47,14 @@ MAX_HEAD_DIM = 128  # the kernels' register tile
 LAUNCHES: Dict[str, int] = {
     "flash_windowed": 0, "flash_global": 0, "flash_whole": 0, "flash_rowblock": 0,
 }
+INT8_OUT: Dict[str, int] = {"flash_windowed": 0, "flash_global": 0}
 WHOLE_MAX_L = 512  # JAX's whole-problem (``_attn_kernel``) range
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, INT8_OUT):
+        for name in counts:
+            counts[name] = 0
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, dtype, out_inv_scale):
@@ -105,20 +108,23 @@ def flash_windowed_plain(
 
 
 def flash_attention_qkv_packed(
-    qkv: torch.Tensor, rel: torch.Tensor, scale: float, *, nh: int, hd: int,
+    qkv: torch.Tensor, rel: Optional[torch.Tensor], scale: float, *, nh: int, hd: int,
     kh: int, kw: int, out_inv_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Windowed attention on the packed qkv projection output.
 
     Args:
       qkv: (NW, L, 3*nh*hd), the qkv linear's output with heads not split.
-      rel: (NW, nh, L, kh + kw), the rel_h | rel_w tiles of each query.
+      rel: (NW, nh, L, kh + kw), the rel_h | rel_w tiles of each query, or
+        None for zero tiles (no bias, through the same kernel, as in JAX).
       scale: softmax scale of q.
       out_inv_scale: if given, the output is int8 at scale 1/out_inv_scale.
 
     Returns (NW, L, nh*hd), in qkv's dtype or int8.
     """
     NW, L, C3 = qkv.shape
+    if rel is None:
+        rel = qkv.new_zeros((NW, nh, L, kh + kw))
     if C3 != 3 * nh * hd or kh * kw != L or tuple(rel.shape) != (NW, nh, L, kh + kw):
         raise ValueError(
             f"flash_attention_qkv_packed: qkv {tuple(qkv.shape)}, rel {tuple(rel.shape)} "
@@ -145,6 +151,7 @@ def flash_attention_qkv_packed(
             float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
         )
     LAUNCHES["flash_windowed"] += 1
+    INT8_OUT["flash_windowed"] += int(quant)
     return out
 
 
@@ -174,11 +181,12 @@ def flash_attention_plain(
     return _softmax_pv(s, v, dt, out_inv_scale)
 
 
-def route(L: int, kv_size: Optional[Tuple[int, int]]) -> str:
+def route(L: int, kv_size: Optional[Tuple[int, int]], bias3d: Optional[bool] = None) -> str:
     """The kernel :func:`flash_attention_relpos` launches: JAX's dispatch
     (``flash_attention.py:826-835``, ``:895-904``). ``kv_size`` is the rel
-    tiles' (kh, kw), or None without rel-pos."""
-    if kv_size is not None:
+    tiles' (kh, kw), or None without rel-pos; ``bias3d=False`` keeps a
+    problem off the bias3d global kernel, as JAX's ``bias3d=False`` does."""
+    if kv_size is not None and bias3d is not False:
         kh, kw = kv_size
         if L > WHOLE_MAX_L and kh * kw == L and L % 128 == 0 and kw <= 128 and 128 % kw == 0:
             return "flash_global"
@@ -188,6 +196,7 @@ def route(L: int, kv_size: Optional[Tuple[int, int]]) -> str:
 def flash_attention_relpos(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: Optional[torch.Tensor],
     rel_w: Optional[torch.Tensor], scale: float, *, out_inv_scale: Optional[float] = None,
+    bias3d: Optional[bool] = None,
 ) -> torch.Tensor:
     """Self-attention with an optional decomposed rel-pos bias.
 
@@ -199,6 +208,8 @@ def flash_attention_relpos(
       out_inv_scale: if given and the problem takes the bias3d global kernel,
         the output is int8 at scale 1/out_inv_scale; the other routes ignore
         it and return q's dtype, as in JAX.
+      bias3d: False sends a problem the bias3d global kernel would take to
+        the head-split kernel with its rel tiles (JAX's augmented kernel).
 
     Returns (B, nh, L, hd), in q's dtype or int8.
     """
@@ -217,7 +228,7 @@ def flash_attention_relpos(
             f"flash_attention_relpos: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}, rel tiles {kv_size} do not fit a kh x kw == L grid"
         )
-    name = route(L, kv_size)
+    name = route(L, kv_size, bias3d)
     if name != "flash_global":
         out_inv_scale = None
     if q.device.type == "cpu":
@@ -247,6 +258,8 @@ def flash_attention_relpos(
                 hd, kh, kw, float(scale * LOG2E), stream,
             )
     LAUNCHES[name] += 1
+    if quant:  # only flash_global has the epilogue
+        INT8_OUT[name] += 1
     return out
 
 

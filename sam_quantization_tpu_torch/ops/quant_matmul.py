@@ -1,10 +1,11 @@
 """Dequant-matmul on packed low-bit weights: CUDA kernels and their plain
 PyTorch versions.
 
-Counterpart of ``sam_quantization_tpu/ops/quant_matmul.py`` (the
-``PackedLinear`` parts; ``int8_matmul`` of the cached-int8 mode is not
-ported yet). :func:`quant_matmul` computes ``x (M, K) @ dequant(p) (K, N)``
-in x's dtype and picks the path by the layer's fields, as JAX does.
+Counterpart of ``sam_quantization_tpu/ops/quant_matmul.py``.
+:func:`quant_matmul` computes ``x (M, K) @ dequant(p) (K, N)`` in x's dtype
+for a ``PackedLinear`` and picks the path by the layer's fields, as JAX
+does; :func:`int8_matmul` is the cached-int8 mode's product on an
+``IntLinear``.
 
 Weight-only layers (``act_bits == 0``): the packed words are unpacked with
 shift and mask, dequantized as ``(q - z_g) * s_g`` in float32, rounded to
@@ -42,6 +43,12 @@ rules with no counterpart here. The W-A8 kernels also need a group to be a
 whole number of their 32-deep k steps: ``groupsize % 32 == 0``, or one
 group over all of K.
 
+Cached-int8 layers (``IntLinear``) multiply int8 activations by the stored
+int8 weights with ``torch._int_mm`` on either device: JAX leaves this
+product to XLA's ``dot_general`` (no Pallas kernel), and the port leaves it
+to PyTorch's int8 GEMM. ``INT8_MATMULS`` counts those calls, the ones on an
+int8 input (int8-pre) apart.
+
 The wrappers launch a kernel for a CUDA tensor and use the plain version
 only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 """
@@ -52,19 +59,24 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from sam_quantization_tpu_torch.nn.packed import PackedLinear, dequantize, unpack_to_int
+from sam_quantization_tpu_torch.nn.packed import (
+    IntLinear, PackedLinear, dequantize, unpack_to_int,
+)
 from sam_quantization_tpu_torch.ops import _build
 
 LAUNCHES: Dict[str, int] = {
     "quant_matmul": 0, "quant_matmul3": 0, "quant_matmul_a8_sym": 0, "quant_matmul_a8": 0,
 }
+# int8_matmul calls: on activations it quantizes, and on int8 input (int8-pre)
+INT8_MATMULS: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_pre": 0}
 A8_TILE_K = 128  # K rows per tile of the W-A8 kernels (KT in csrc/quant_common.cuh)
 A8_STEP_K = 32  # k of one int8 mma.m16n8k32
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, INT8_MATMULS):
+        for name in counts:
+            counts[name] = 0
 
 
 def check_packed_on(name: str, device: torch.device, *packed: PackedLinear) -> None:
@@ -132,14 +144,22 @@ def quant_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def true_divide(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` rounded as one IEEE division on every device. PyTorch's CUDA
+    kernels divide by a Python scalar as a multiply by its reciprocal, which
+    may land one ulp away from the CPU's (and JAX's) quotient."""
+    return a / torch.full((), d, dtype=a.dtype, device=a.device)
+
+
 def quantize_activations_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8 quantization: ``(xq int8 (M, K),
     scale float32 (M, 1))``, bit for bit the JAX function: float32 first,
     the amax clamped at 1e-8, a multiply by the reciprocal (a divide would
-    round some half-way points the other way), round half to even."""
+    round some half-way points the other way), round half to even, on
+    either device (:func:`true_divide`)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    scale = true_divide(torch.clamp_min(amax, 1e-8), 127.0)
     xq = torch.clamp(torch.round(xf * (1.0 / scale)), -127, 127).to(torch.int8)
     return xq, scale
 
@@ -267,4 +287,85 @@ def quant_matmul_a8_sym_native(x: torch.Tensor, p: PackedLinear) -> torch.Tensor
     else:
         acc = torch.matmul(xd.reshape(-1, G, K // G).transpose(0, 1), w.reshape(G, K // G, N))
         y = torch.einsum("gmn,gn->mn", acc.to(torch.float32), p.scales)
+    return (y * xs).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cached int8 weights (IntLinear)
+# ---------------------------------------------------------------------------
+
+
+def _int_mm(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``xq (M, K) @ w8 (K, N)``. cuBLASLt's int8 product wants
+    more than 16 rows and a column-major ``w8`` (it refuses some row-major
+    shapes), so on the card a shorter ``xq`` is padded with zero rows and a
+    row-major ``w8`` (the ``"kn"`` layout) is copied to column-major."""
+    M = xq.shape[0]
+    if xq.is_cuda:
+        if M <= 16:
+            xq = torch.cat([xq, xq.new_zeros((17 - M, xq.shape[1]))])
+        if w8.stride(0) != 1:
+            w8 = w8.t().contiguous().t()
+    return torch._int_mm(xq.contiguous(), w8)[:M]
+
+
+def quantize_static(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
+    """int8 ``clip(round(x * (1 / in_scale)), +-127)`` at a fixed scale, in
+    float32 (the reciprocal multiply of the JAX package), round half to even."""
+    return torch.clamp(torch.round(x.float() * (1.0 / in_scale)), -127, 127).to(torch.int8)
+
+
+def int8_matmul(x: torch.Tensor, p: IntLinear) -> torch.Tensor:
+    """``x (M, K)`` times the cached int8 weights of ``p`` -> ``(M, N)`` (the
+    JAX ``int8_matmul``, quant_matmul.py:121-179, branch for branch):
+
+    * int8 ``x`` (int8-pre): taken as already quantized at ``p.in_scale``
+      (the attention kernels' int8-out epilogue); ``acc * (scales[0] *
+      in_scale)``, returned in bfloat16;
+    * ``p.in_scale`` set (static): ``clip(round(x * (1 / in_scale)), +-127)``,
+      then ``acc * (scales[0] * in_scale)`` in x's dtype;
+    * otherwise per-token dynamic quantization
+      (:func:`quantize_activations_int8`), ``acc * scales[0]``, or for
+      grouped ``"kn"`` weights one int32 product per group, each scaled and
+      added in group order (a fused multiply-add), then times the token
+      scale.
+    """
+    M, K = x.shape
+    if K != p.in_features:
+        raise ValueError(f"int8_matmul: x has K={K}, the layer {p.in_features}")
+    if x.device != p.w8.device:
+        raise ValueError(f"int8_matmul: weights on {p.w8.device}, x on {x.device}")
+    w8 = p.w8.t() if p.layout == "nk" else p.w8  # (K, N)
+    G = p.num_groups
+    if x.dtype == torch.int8:
+        if p.in_scale is None:
+            raise ValueError("int8_matmul: an int8 input needs the layer's in_scale")
+        if G != 1:
+            raise ValueError("int8_matmul: the int8-pre path takes one scale group")
+        INT8_MATMULS["int8_matmul_pre"] += 1
+        acc = _int_mm(x, w8).float()
+        return (acc * (p.scales[0] * p.in_scale)[None, :]).to(torch.bfloat16)
+    INT8_MATMULS["int8_matmul"] += 1
+    if p.in_scale is not None:
+        xq, xs = quantize_static(x, p.in_scale), p.in_scale
+    else:
+        xq, xs = quantize_activations_int8(x)
+    if G == 1:
+        acc = _int_mm(xq, w8).float()
+        if p.in_scale is not None:
+            return (acc * (p.scales[0] * xs)[None, :]).to(x.dtype)
+        y = acc * p.scales[0][None, :]
+    else:
+        if p.layout != "kn":
+            raise ValueError("int8_matmul: grouped weights need the kn layout")
+        # y = fma(acc_g, s_g, y) in group order, as XLA's CPU dot contracts
+        # JAX's (G, M, N) einsum: the product of two float32 values is exact
+        # in float64, so the float64 multiply-add rounded to float32 is the
+        # fused one (but for a tie of the double rounding) on either device.
+        g = K // G
+        y = torch.zeros((M, p.out_features), dtype=torch.float64, device=x.device)
+        for i in range(G):
+            acc = _int_mm(xq[:, i * g:(i + 1) * g], w8[i * g:(i + 1) * g]).float()
+            y = (acc.double() * p.scales[i].double() + y).float().double()
+        y = y.float()
     return (y * xs).to(x.dtype)

@@ -8,8 +8,10 @@ JAX, so it also runs where only PyTorch is installed:
 Attention tolerances: float32 atol 1e-4; bfloat16 |d| <= 2e-2 + 1e-2 |ref|
 (one bf16 step of an output, or of a p before the p.v product), and for the
 head-split kernel one bf16 step of the output, |d| <= 2**-7 |ref| +
-HS_BF16_C max|ref|; int8 epilogue |d| <= 1 on at most 0.5% of the elements.
-The packed-weight and W-A8 kernels' tolerances are stated above their tests.
+HS_BF16_C max|ref| (also the stage probes' kernels); int8 epilogue |d| <= 1
+on at most 0.5% of the elements. The packed-weight and W-A8 kernels'
+tolerances are stated above their tests; int8_matmul on the card equals the
+CPU bit for bit.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from sam_quantization_tpu_torch.nn import packed as tpacked
 from sam_quantization_tpu_torch.ops import flash_attention as tfa
 from sam_quantization_tpu_torch.ops import fused_mlp as tfm
+from sam_quantization_tpu_torch.ops import probes as tpr
 from sam_quantization_tpu_torch.ops import quant_matmul as tqm
 
 DTYPES = {"f32": (torch.float32, 1e-4, 0.0), "bf16": (torch.bfloat16, 2e-2, 1e-2)}
@@ -311,3 +314,121 @@ def test_a8_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="groupsize 16"):
         tqm.quant_matmul(torch.zeros(4, 128, device=cuda), _packed_a8(52, 128, 128, 4, 16, True,
                                                                        cuda))
+
+
+# ---------------------------------------------------------------------------
+# The stage probes' kernels (P1-P5), bfloat16 as the probes run them, with
+# the head-split bound: |d| <= 2**-7 |ref| + HS_BF16_C max|ref| (both sides
+# multiply the same bf16 values and sum in float32 in another order, so a
+# rounded p, s or output may flip by one bf16 step).
+# ---------------------------------------------------------------------------
+
+
+def _check_hs(out, ref):
+    d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+    reading = float(((d - 2.0**-7 * r) / r.max()).max())
+    assert reading <= HS_BF16_C, (reading, float(d.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,hd,ws", [(3, 80, 14), (4, 16, 5)])
+def test_probe_no_softmax_kernel_matches_plain(cuda, nh, hd, ws):
+    NW, L, C = 3, ws * ws, nh * hd
+    qkv = _randn(60, NW, L, 3 * C).to(cuda, torch.bfloat16)
+    rel = (_randn(61, NW, nh, L, 2 * ws) * 0.3).to(cuda, torch.bfloat16)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]  # read in place
+    before = tpr.LAUNCHES["probe_no_softmax"]
+    out = tpr.probe_no_softmax(q, k, v, rel, hd**-0.5, nh=nh, hd=hd)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_no_softmax"] == before + 1 and out.dtype == torch.bfloat16
+    _check_hs(out, tpr.probe_no_softmax_plain(q, k, v, rel, hd**-0.5, nh=nh, hd=hd))
+
+
+PROBE_HEADS = [  # name, call on (q, k, v, rh, rw)
+    ("probe_dots_floor", lambda q, k, v, rh, rw: tpr.probe_dots_floor(q, k, v),
+     lambda q, k, v, rh, rw: tpr.probe_dots_floor_plain(q, k, v)),
+    ("probe_presplit", lambda q, k, v, rh, rw: tpr.probe_presplit(q, k, v, True),
+     lambda q, k, v, rh, rw: tpr.probe_presplit_plain(q, k, v, True)),
+    ("probe_presplit", lambda q, k, v, rh, rw: tpr.probe_presplit(q, k, v, False),
+     lambda q, k, v, rh, rw: tpr.probe_presplit_plain(q, k, v, False)),
+    ("probe_pair", lambda q, k, v, rh, rw: tpr.probe_pair(q, k, v, False),
+     lambda q, k, v, rh, rw: tpr.probe_pair_plain(q, k, v, False)),
+    ("probe_pair", lambda q, k, v, rh, rw: tpr.probe_pair(q, k, v, True),
+     lambda q, k, v, rh, rw: tpr.probe_pair_plain(q, k, v, True)),
+    ("probe_pair_bias", lambda q, k, v, rh, rw: tpr.probe_pair_bias(q, k, v, rh, rw, False),
+     lambda q, k, v, rh, rw: tpr.probe_pair_bias_plain(q, k, v, rh, rw, False)),
+    ("probe_pair_bias", lambda q, k, v, rh, rw: tpr.probe_pair_bias(q, k, v, rh, rw, True),
+     lambda q, k, v, rh, rw: tpr.probe_pair_bias_plain(q, k, v, rh, rw, True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(PROBE_HEADS)))
+@pytest.mark.parametrize("BH,L,D,kh,kw", [(4, 256, 128, 16, 16), (3, 200, 80, 10, 20)])
+def test_probe_heads_kernel_matches_plain(cuda, case, BH, L, D, kh, kw):
+    """q scaled by D**-0.5 * log2(e) as the probes scale it; L 200 leaves a
+    ragged last key tile, D 80 unpadded heads."""
+    name, kernel, plain = PROBE_HEADS[case]
+    q = (_randn(62, BH, L, D) * (D**-0.5 * 1.4426950408889634)).to(cuda, torch.bfloat16)
+    k, v = (_randn(s, BH, L, D).to(cuda, torch.bfloat16) for s in (63, 64))
+    rh, rw = ((_randn(s, BH, L, n) * 0.5).to(cuda, torch.bfloat16) for s, n in ((65, kh), (66, kw)))
+    before = tpr.LAUNCHES[name]
+    out = kernel(q, k, v, rh, rw)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES[name] == before + 1 and out.dtype == torch.bfloat16
+    _check_hs(out, plain(q, k, v, rh, rw))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 64, 32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tpr.probe_pair(q, q, q, clamp=True)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        tpr.probe_dots_floor(qb.transpose(1, 2), qb.transpose(1, 2), qb.transpose(1, 2))
+    with pytest.raises(ValueError, match="kh x kw"):
+        tpr.probe_pair_bias(qb, qb, qb, qb[..., :7], qb[..., :8], clamp=False)
+    qkv = torch.zeros(2, 25, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    rel = torch.zeros(2, 4, 25, 10, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="strides"):
+        tpr.probe_no_softmax(qkv[..., :64], qkv[..., 64:128].contiguous(), qkv[..., 128:],
+                             rel, 0.25, nh=4, hd=16)
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul (torch._int_mm with the JAX package's epilogue): on the card it
+# equals the CPU bit for bit on every branch, the integer sums being exact
+# and every float step elementwise in the same order.
+# ---------------------------------------------------------------------------
+
+
+def _int_layer(seed, K, N, g, static, per_channel, transpose, device):
+    r = np.random.default_rng(seed)
+    w = torch.from_numpy((r.standard_normal((K, N)) * K**-0.5).astype(np.float32))
+    mod = torch.nn.Module()
+    mod.lin = tpacked.quantize_rtn(w, 4, g, True, bias=_randn(seed + 1, N) * 0.01)
+    tpacked.cache_int8(mod, act_scales={"lin": 3.0} if static else None, skip=(),
+                       per_channel=per_channel, transpose=transpose)
+    return mod.lin.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("branch", ["static_nk", "static_kn", "dynamic_nk", "grouped", "pre"])
+@pytest.mark.parametrize("M", [100, 5])
+def test_int8_matmul_on_card_equals_cpu(cuda, dtype, branch, M):
+    tdt = DTYPES[dtype][0]
+    K, N = 256, 192
+    kw = dict(static=branch in ("static_nk", "static_kn", "pre"),
+              per_channel=branch != "grouped", transpose=branch != "static_kn")
+    lin_cpu = _int_layer(70, K, N, 64, device="cpu", **kw)
+    lin_gpu = _int_layer(70, K, N, 64, device=cuda, **kw)
+    assert (lin_gpu.num_groups > 1) == (branch == "grouped")
+    x = _randn(72, M, K) * 2
+    x = torch.clamp(torch.round(x * 20), -127, 127).to(torch.int8) if branch == "pre" else x.to(tdt)
+    out = tqm.int8_matmul(x.to(cuda), lin_gpu)
+    ref = tqm.int8_matmul(x, lin_cpu)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == (M, N)
+    assert torch.equal(out.cpu(), ref), float((out.cpu().float() - ref.float()).abs().max())

@@ -355,7 +355,9 @@ def test_port_imports_no_jax():
     for module in ("nn/packed.py", "ops/quant_matmul.py", "ops/fused_mlp.py",
                    "quant/artifacts.py", "quant/sequential.py", "cli/infer.py",
                    "train/trainer.py", "train/checkpoint.py", "cli/train.py",
-                   "data/synthetic.py", "utils/experiment.py"):
+                   "data/synthetic.py", "utils/experiment.py", "quant/act_scales.py",
+                   "ops/probes.py", "tools/packed_probe.py", "tools/global_stage_probe.py"):
         assert REPO / "sam_quantization_tpu_torch" / module in files, module
-    for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu"):
+    for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu",
+                "probe_packed.cu", "probe_heads.cu"):
         assert os.path.exists(REPO / "sam_quantization_tpu_torch" / "csrc" / src), src

@@ -1,0 +1,342 @@
+"""Port parity: the stage probes' kernels (P1-P5 of PERF.md's kernel table)
+and the two flash-attention repairs their drivers need, on the CPU.
+
+P1-P3 are the real ``tools/packed_probe.py`` kernel functions, imported by
+path and run under ``pl.pallas_call(..., interpret=True)``. P4 and P5 are
+nested in ``tools/global_stage_probe.py``'s ``main`` and cannot be imported:
+their bodies are transcribed below, with the lines they come from. Inputs are
+drawn with numpy from a seed and handed to both packages.
+
+Tolerances, bfloat16: both sides multiply the same bf16 values and sum in
+float32 in another order, so a rounding of p (or s) to bf16, or of an
+output, may flip by one step: |d| <= 2**-7 |ref| + C max|ref| with
+C = 2**-10. Float32 (the JAX kernels take it too): |d| <= 1e-5 max|ref|.
+"""
+
+import functools
+import importlib.util
+import io
+import pathlib
+from contextlib import redirect_stdout
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from sam_quantization_tpu.ops import flash_attention as jfa
+from sam_quantization_tpu_torch.ops import flash_attention as tfa
+from sam_quantization_tpu_torch.ops import probes
+from sam_quantization_tpu_torch.tools import global_stage_probe, packed_probe
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+C_BF16 = 2.0**-10
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _load_tpu_probe():
+    """tools/packed_probe.py as a module; its import sets JAX's compilation
+    cache settings, which are put back."""
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    spec = importlib.util.spec_from_file_location("tpu_packed_probe", REPO / "tools" / "packed_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return mod
+
+
+TPU_PROBE = _load_tpu_probe()
+
+
+def _close(out, ref, dtype):
+    out = out.float().numpy() if isinstance(out, torch.Tensor) else np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    peak = np.abs(ref).max()
+    bound = (2.0**-7 * np.abs(ref) + C_BF16 * peak) if dtype == "bf16" else 1e-5 * peak
+    d = np.abs(out - ref)
+    assert (d <= bound).all(), (d.max(), float(((d - bound) / peak).max()))
+
+
+def _pair(seed, BH, L, hd, dtype, D=128):
+    """q prescaled by hd**-0.5 * log2(e), k and v; all padded to D lanes, as
+    the global-stage probe builds them."""
+    r = np.random.default_rng(seed)
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = (r.standard_normal((BH, L, hd)).astype(np.float32) for _ in range(3))
+    q = np.asarray(jnp.asarray(q, jdt) * (hd**-0.5 * jfa.LOG2E), np.float32)
+    q, k, v = (np.pad(a, ((0, 0), (0, 0), (0, D - hd))) for a in (q, k, v))
+    return [jnp.asarray(a, jdt) for a in (q, k, v)], [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+
+
+# ---------------------------------------------------------------------------
+# P1-P3: tools/packed_probe.py's kernels
+# ---------------------------------------------------------------------------
+
+NW, NH, HD, WS = 2, 2, 16, 4  # L = 16 rows, padded to Lp = 128 for the TPU kernels
+L, LP = WS * WS, 128
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_no_softmax_plain_matches_tpu_kernel(dtype):
+    """P1 on inputs zero-padded to Lp rows (the TPU kernel reads Lp rows; on
+    zero rows its answer for the L real rows is the L-row answer)."""
+    jdt, tdt = DTYPES[dtype]
+    r = np.random.default_rng(0)
+    CH, R = NH * HD, 2 * WS
+    q, k, v = (r.standard_normal((NW, L, CH)).astype(np.float32) for _ in range(3))
+    rel = (r.standard_normal((NW, NH, L, R)) * 0.3).astype(np.float32)
+    padded = [np.pad(a, ((0, 0), (0, LP - L), (0, 0))) for a in (q, k, v)]
+    padded.append(np.pad(rel, ((0, 0), (0, 0), (0, LP - L), (0, 0))))
+    rows = pl.BlockSpec((1, LP, CH), lambda i: (i, 0, 0))
+    ref = pl.pallas_call(
+        functools.partial(TPU_PROBE._kernel_no_softmax, nh=NH, hd=HD, scale=HD**-0.5),
+        grid=(NW,), in_specs=[rows, rows, rows, pl.BlockSpec((1, NH, LP, R), lambda i: (i, 0, 0, 0))],
+        out_specs=rows, out_shape=jax.ShapeDtypeStruct((NW, LP, CH), jdt), interpret=True,
+    )(*(jnp.asarray(a, jdt) for a in padded))
+    t = [torch.from_numpy(a).to(tdt) for a in (q, k, v, rel)]
+    out = probes.probe_no_softmax(*t, HD**-0.5, nh=NH, hd=HD)
+    assert out.dtype == tdt and tuple(out.shape) == (NW, L, CH)
+    _close(out, np.asarray(ref, np.float32)[:, :L], dtype)
+    # heads read in place from the packed qkv layout give the same answer
+    qkv = torch.cat(t[:3], -1)
+    sliced = probes.probe_no_softmax(qkv[..., :CH], qkv[..., CH:2 * CH], qkv[..., 2 * CH:], t[3],
+                                     HD**-0.5, nh=NH, hd=HD)
+    assert torch.equal(sliced, out)
+
+
+def _presplit_operands(seed, dtype):
+    """Heads split and zero-padded to (NW, nh, Lp, 128), as the probe's
+    ``presplit_prep`` lays them out."""
+    r = np.random.default_rng(seed)
+    jdt, tdt = DTYPES[dtype]
+    ops = [np.pad(r.standard_normal((NW, NH, L, HD)).astype(np.float32) * 0.5,
+                  ((0, 0), (0, 0), (0, LP - L), (0, 128 - HD))) for _ in range(3)]
+    return [jnp.asarray(a, jdt) for a in ops], [torch.from_numpy(a).to(tdt) for a in ops]
+
+
+def _call_heads(kernel, ops, jdt):
+    spec = pl.BlockSpec((1, NH, LP, 128), lambda i: (i, 0, 0, 0))
+    return pl.pallas_call(kernel, grid=(NW,), in_specs=[spec] * 3, out_specs=spec,
+                          out_shape=jax.ShapeDtypeStruct((NW, NH, LP, 128), jdt),
+                          interpret=True)(*ops)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dots_floor_plain_matches_tpu_kernel(dtype):
+    jops, tops = _presplit_operands(1, dtype)
+    ref = _call_heads(TPU_PROBE._kernel_dots_floor, jops, DTYPES[dtype][0])
+    out = probes.probe_dots_floor(*tops)
+    assert out.dtype == DTYPES[dtype][1]
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("exp2", [True, False])
+def test_presplit_plain_matches_tpu_kernel(dtype, exp2):
+    """The padded keys (s = 0) take part in the softmax on both sides."""
+    jops, tops = _presplit_operands(2, dtype)
+    ref = _call_heads(functools.partial(TPU_PROBE._kernel_presplit, exp2=exp2), jops,
+                      DTYPES[dtype][0])
+    out = probes.probe_presplit(*tops, exp2=exp2)
+    _close(out, ref, dtype)
+    with_pad_keys = probes.probe_presplit(*(t[:, :, :L] for t in tops), exp2=exp2)
+    assert not torch.allclose(with_pad_keys.float(), out[:, :, :L].float(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# P4-P5: tools/global_stage_probe.py's nested kernels, transcribed
+# ---------------------------------------------------------------------------
+
+
+def _k_pair(q_ref, k_ref, v_ref, o_ref, *, halves, clamp):
+    """tools/global_stage_probe.py:183-207, the body unchanged."""
+    BQ = q_ref.shape[1]
+    h = BQ // halves
+    outs = []
+    for i in range(halves):
+        s = jax.lax.dot_general(
+            q_ref[0, i * h : (i + 1) * h], k_ref[0],
+            dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        )
+        if clamp:
+            p = jnp.exp2(jnp.minimum(s, 40.0) - 40.0)
+        else:
+            m = jnp.max(s, axis=-1, keepdims=True)
+            p = jnp.exp2(s - m)
+        r = 1.0 / jnp.sum(p, axis=-1, keepdims=True)
+        o = jnp.dot(p.astype(v_ref.dtype), v_ref[0],
+                    preferred_element_type=jnp.float32)
+        outs.append((o * r).astype(o_ref.dtype))
+    for i in range(halves):
+        o_ref[0, i * h : (i + 1) * h] = outs[i]
+
+
+def _k_pair_bias(q_ref, k_ref, v_ref, rh_ref, rw_ref, o_ref, *,
+                 halves, clamp, kh, kw):
+    """tools/global_stage_probe.py:316-352, the body unchanged."""
+    BQ = q_ref.shape[1]
+    hh = BQ // halves
+    outs = []
+    per = 128 // kw
+    for i in range(halves):
+        s = jax.lax.dot_general(
+            q_ref[0, i * hh : (i + 1) * hh], k_ref[0],
+            dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        )
+        Lk = s.shape[1]
+        rhh = rh_ref[0, i * hh : (i + 1) * hh].astype(jnp.float32)
+        rww = rw_ref[0, i * hh : (i + 1) * hh].astype(jnp.float32)
+        rw128 = jnp.concatenate([rww[:, :kw]] * per, axis=-1)
+        hsel = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) // kw
+        pieces = []
+        for j in range(Lk // 128):
+            bias = rw128
+            for t in range(per):
+                bias = bias + jnp.where(
+                    hsel == t, rhh[:, j * per + t][:, None], 0.0
+                )
+            pieces.append(s[:, j * 128 : (j + 1) * 128] + bias)
+        s = jnp.concatenate(pieces, axis=-1)
+        if clamp:
+            p = jnp.exp2(jnp.minimum(s, 40.0) - 40.0)
+        else:
+            m = jnp.max(s, axis=-1, keepdims=True)
+            p = jnp.exp2(s - m)
+        r = 1.0 / jnp.sum(p, axis=-1, keepdims=True)
+        o = jnp.dot(p.astype(v_ref.dtype), v_ref[0],
+                    preferred_element_type=jnp.float32)
+        outs.append((o * r).astype(o_ref.dtype))
+    for i in range(halves):
+        o_ref[0, i * hh : (i + 1) * hh] = outs[i]
+
+
+PAIR_BH, PAIR_L, PAIR_HD, BLOCK_Q = 2, 256, 16, 128
+
+
+def _pair_call(kernel, ops, jdt, extra_specs=()):
+    """The probe's ``make_pair`` / ``make_pair_bias`` launch, in interpret mode."""
+    rows = pl.BlockSpec((1, BLOCK_Q, 128), lambda b, i: (b, i, 0))
+    whole = pl.BlockSpec((1, PAIR_L, 128), lambda b, i: (b, 0, 0))
+    return pl.pallas_call(
+        kernel, grid=(PAIR_BH, PAIR_L // BLOCK_Q),
+        in_specs=[rows, whole, whole, *extra_specs], out_specs=rows,
+        out_shape=jax.ShapeDtypeStruct((PAIR_BH, PAIR_L, 128), jdt), interpret=True,
+    )(*ops)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("halves", [1, 2])
+def test_pair_plain_matches_tpu_kernel(dtype, clamp, halves):
+    jops, tops = _pair(3, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    ref = _pair_call(functools.partial(_k_pair, halves=halves, clamp=clamp), jops,
+                     DTYPES[dtype][0])
+    _close(probes.probe_pair(*tops, clamp=clamp), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("halves", [1, 2])
+def test_pair_bias_plain_matches_tpu_kernel(dtype, clamp, halves):
+    """L = 256 on a 16 x 16 grid (the TPU kernel needs L % 128 == 0 and
+    128 % kw == 0); raw rel tiles with the probe's 0.05 scale, here 2.0 so
+    that the bias moves the softmax."""
+    kh = kw = 16
+    jdt, tdt = DTYPES[dtype]
+    jops, tops = _pair(4, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    r = np.random.default_rng(5)
+    rh, rw = ((r.standard_normal((PAIR_BH, PAIR_L, n)) * 2.0).astype(np.float32) for n in (kh, kw))
+    tile = lambda n: pl.BlockSpec((1, BLOCK_Q, n), lambda b, i: (b, i, 0))  # noqa: E731
+    ref = _pair_call(functools.partial(_k_pair_bias, halves=halves, clamp=clamp, kh=kh, kw=kw),
+                     [*jops, jnp.asarray(rh, jdt), jnp.asarray(rw, jdt)], jdt,
+                     (tile(kh), tile(kw)))
+    t_rh, t_rw = torch.from_numpy(rh).to(tdt), torch.from_numpy(rw).to(tdt)
+    out = probes.probe_pair_bias(*tops, t_rh, t_rw, clamp=clamp)
+    _close(out, ref, dtype)
+    assert not torch.allclose(out.float(), probes.probe_pair(*tops, clamp=clamp).float(), atol=1e-2)
+
+
+def test_pair_clamp_has_no_floor():
+    """P4's static shift has no floor: a row whose logits all lie far below
+    40 sums to 0 and gives NaN, on both sides."""
+    jops, tops = _pair(6, 1, PAIR_L, PAIR_HD, "f32")
+    jops[0], tops[0] = jops[0] * 0 - 1.0, tops[0] * 0 - 1.0  # s = -sum(k), far below 40
+    jops[1], tops[1] = jops[1] * 0 + 20.0, tops[1] * 0 + 20.0
+    ref = np.asarray(_pair_call(functools.partial(_k_pair, halves=1, clamp=True), jops,
+                                jnp.float32))
+    out = probes.probe_pair(*tops, clamp=True)
+    assert np.isnan(ref).all() and torch.isnan(out).all()
+    assert torch.isfinite(probes.probe_pair(*tops, clamp=False)).all()
+
+
+# ---------------------------------------------------------------------------
+# The repairs: rel=None and bias3d=False, against JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_qkv_packed_without_rel_matches_jax(dtype):
+    """``rel=None`` is zero rel tiles through the same kernel, as in JAX;
+    float32 atol 1e-4, bf16 atol 2e-2 (test_torch_flash_attention.py's)."""
+    jdt, tdt = DTYPES[dtype]
+    nw, nh, ws, hd = 2, 2, 14, 80
+    r = np.random.default_rng(7)
+    qkv = (r.standard_normal((nw, ws * ws, 3 * nh * hd)) * 0.5).astype(np.float32)
+    kw = dict(nh=nh, hd=hd, kh=ws, kw=ws)
+    ref = jfa.flash_attention_qkv_packed(jnp.asarray(qkv, jdt), None, hd**-0.5, interpret=True, **kw)
+    t = torch.from_numpy(qkv).to(tdt)
+    out = tfa.flash_attention_qkv_packed(t, None, hd**-0.5, **kw)
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=1e-4 if dtype == "f32" else 2e-2, rtol=0)
+    zeros = torch.zeros((nw, nh, ws * ws, 2 * ws), dtype=tdt)
+    assert torch.equal(out, tfa.flash_attention_qkv_packed(t, zeros, hd**-0.5, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_bias3d_false_takes_the_head_split_kernel_like_jax(dtype):
+    """A global-shape problem (L 1024 on 32 x 32) goes to the bias3d kernel by
+    default and, with ``bias3d=False``, to the head-split kernel with its rel
+    tiles (JAX's augmented kernel), which ignores ``out_inv_scale``. Against
+    JAX's ``bias3d=False`` in interpret mode: float32 atol 1e-4, bf16 2e-2."""
+    jdt, tdt = DTYPES[dtype]
+    B, nh, G, hd = 1, 1, 32, 64
+    r = np.random.default_rng(8)
+    q, k = ((r.standard_normal((B, nh, G * G, hd)) * 0.5).astype(np.float32) for _ in range(2))
+    v = r.standard_normal((B, nh, G * G, hd)).astype(np.float32)
+    rh, rw = ((r.standard_normal((B, nh, G * G, G)) * 0.3).astype(np.float32) for _ in range(2))
+    args = (q, k, v, rh, rw)
+    assert tfa.route(G * G, (G, G)) == "flash_global"
+    assert tfa.route(G * G, (G, G), bias3d=False) == "flash_rowblock"
+    ref = jfa.flash_attention_relpos(*(jnp.asarray(a, jdt) for a in args), 0.125,
+                                     interpret=True, bias3d=False)
+    t = [torch.from_numpy(a).to(tdt) for a in args]
+    out = tfa.flash_attention_relpos(*t, 0.125, bias3d=False, out_inv_scale=10.0)
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=1e-4 if dtype == "f32" else 2e-2, rtol=0)
+    assert torch.equal(out, tfa.flash_attention_plain(*t, 0.125))
+
+
+# ---------------------------------------------------------------------------
+# The drivers, end to end
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("driver,rows", [(packed_probe, 7), (global_stage_probe, 16)])
+def test_probe_driver_runs_on_cpu(driver, rows):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = driver.main(["--platform", "cpu", "--model", "vit_tiny", "--iters", "1"])
+    timed = [ln for ln in buf.getvalue().splitlines() if " ms" in ln]
+    assert rc == 0 and len(timed) == rows, buf.getvalue()
+    assert "cpu (host clock)" in buf.getvalue()
