@@ -13,23 +13,30 @@
 // exponentials (about 69 us at the SFU rate) come close to that bound too.
 //
 // Design: the TPU kernel held all of K and V in VMEM (640 KB each at this
-// shape); a Hopper block has at most 227 KB of shared memory, so one block
-// per (64-row q block, head) streams K, V in 64-key tiles instead. The
-// softmax shift is static, so the stream needs no running max and no rescale:
-// sum p.v and sum p accumulate in float32 and divide once at the end. Unlike
-// the TPU dispatch it needs neither kw | 128 nor L > 512: every global block
-// takes it. This first version runs the products on the CUDA cores in
-// float32; wgmma on TMA-fed tiles is the step toward the operation bound.
-#include "flash_common.cuh"
+// shape); a Hopper block has at most 227 KB of shared memory, so each block
+// streams K, V in 64-key tiles instead. The softmax shift is static, so the
+// stream needs no running max and no rescale: sum p.v and sum p accumulate
+// in float32 and divide once at the end. Unlike the TPU dispatch it needs
+// neither kw | 128 nor L > 512: every global block takes it.
+// - bfloat16 (flash_tc.cuh): two warpgroups of 64 query rows a block, both
+//   products on wgmma (q.k m64n64k16 from shared memory, p.v m64n16k16 with
+//   p in registers), K/V by cp.async into a two-stage ring. With the
+//   products on the tensor cores, the per-logit work on the CUDA cores
+//   (bias, clamp, exp2, row sums, bf16 packing: about 16 instructions for
+//   each of the 268 M logits) and the wait on each product bound it, not
+//   the tensor cores; the 64 x 64 rel grid reads rel_w by column pairs and
+//   rel_h once per tile, with no index table (with the table alone it took
+//   1.9x as long).
+// - float32: one block per 64 query rows, both products on the CUDA cores
+//   (flash_common.cuh's attend_rows), bound by operations at 67 TFLOP/s.
+#include "flash_tc.cuh"
 
 namespace samq {
 
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_global_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ rel_h,
-                        const T* __restrict__ rel_w, OutT* __restrict__ out, int L, int hd,
-                        int kh, int kw, float q_scale, float ois) {
+template <typename T>
+__device__ __forceinline__ Problem<T> global_problem(const T* q, const T* k, const T* v,
+                                                     const T* rel_h, const T* rel_w, int L,
+                                                     int hd, int kh, int kw, float q_scale) {
   const long bh = blockIdx.y;
   const long off = bh * L * hd;
   Problem<T> P;
@@ -46,7 +53,32 @@ __global__ void __launch_bounds__(NTHREADS)
   P.kh = kh;
   P.kw = kw;
   P.q_scale = q_scale;
-  attend_rows<T, OutT>(P, blockIdx.x * BQ, out + off, hd, ois);
+  return P;
+}
+
+// float32: the CUDA-core body.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_global_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ rel_h,
+                        const T* __restrict__ rel_w, OutT* __restrict__ out, int L, int hd,
+                        int kh, int kw, float q_scale, float ois) {
+  const Problem<T> P = global_problem(q, k, v, rel_h, rel_w, L, hd, kh, kw, q_scale);
+  attend_rows<T, OutT>(P, blockIdx.x * BQ, out + (long)blockIdx.y * L * hd, hd, ois);
+}
+
+// bfloat16: the tensor-core body, hd padded to HDP in shared memory only.
+template <int HDP, typename OutT>
+__global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
+    flash_global_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ rel_h,
+                           const __nv_bfloat16* __restrict__ rel_w, OutT* __restrict__ out,
+                           int L, int hd, int kh, int kw, float q_scale, float ois, bool vec) {
+  const Problem<__nv_bfloat16> P = global_problem(q, k, v, rel_h, rel_w, L, hd, kh, kw, q_scale);
+  tc::attend_rows_tc<HDP, false, OutT>(P, blockIdx.x * tc::BQ, out + (long)blockIdx.y * L * hd,
+                                       hd, ois, vec);
 }
 
 template <typename T, typename OutT>
@@ -58,6 +90,25 @@ static int run(const void* q, const void* k, const void* v, const void* rh, cons
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(rh), static_cast<const T*>(rw), static_cast<OutT*>(out), L,
                 hd, kh, kw, q_scale, ois);
+}
+
+template <typename OutT>
+static int run_tc(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                  void* out, int BH, int L, int hd, int kh, int kw, float q_scale, float ois,
+                  cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const bool vec = hd % 8 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(k) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+  return tc::dispatch_hdp(hd, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const dim3 grid((L + tc::BQ - 1) / tc::BQ, BH);
+    return launch(flash_global_tc_kernel<HDP, OutT>, grid, tc::smem_bytes(HDP, kh, kw),
+                  stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(rh),
+                  static_cast<const bf16*>(rw), static_cast<OutT*>(out), L, hd, kh, kw, q_scale,
+                  ois, vec);
+  });
 }
 
 }  // namespace samq
@@ -77,9 +128,9 @@ extern "C" int samq_flash_global(int dtype, int out_int8, const void* q, const v
                ? run<float, int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s)
                : run<float, float>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s);
   if (dtype == 1)
-    return out_int8 ? run<__nv_bfloat16, int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
-                                                 q_scale, ois, s)
-                    : run<__nv_bfloat16, __nv_bfloat16>(q, k, v, rel_h, rel_w, out, BH, L, hd,
-                                                        kh, kw, q_scale, ois, s);
+    return out_int8
+               ? run_tc<int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s)
+               : run_tc<__nv_bfloat16>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale,
+                                       ois, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,21 +18,26 @@
 // directly from shared memory, and the TPU's padding of L to Lp does not
 // exist (keys n >= L are skipped).
 //
-// Design: one block per (q-row block of 64, head, window) reads its q rows
-// once and the head's k/v once (the window's 4 row blocks share them through
-// L2), writes each output once, and streams k/v through shared memory in
-// 64-key tiles (flash_common.cuh). This first
-// version runs the two products on the CUDA cores in float32; moving them to
-// wgmma with TMA-fed tiles is the next step toward the byte bound.
-#include "flash_common.cuh"
+// Design: each block reads its q rows once and the head's k/v once (the
+// window's row blocks share them through L2), writes each output once, and
+// streams k/v through shared memory in 64-key tiles.
+// - bfloat16 (flash_tc.cuh): one block per (128 query rows, head, window),
+//   two warpgroups of 64 rows, both products on wgmma, K/V by cp.async into
+//   a two-stage ring straight from the (NW, L, 3C) rows (16-byte head
+//   slices). L 196 is 3 * 64 + 4: the last tile runs a 16-key body, and the
+//   second block's second warpgroup holds 4 real rows, so about a quarter
+//   of the product work is padding. At ViT-H 800 blocks run two to an SM
+//   (three rounds on 132 SMs and a short fourth); the per-block set-up and
+//   the wait on each product, not the bytes, bound it.
+// - float32: one block per 64 query rows (flash_common.cuh's attend_rows),
+//   both products on the CUDA cores.
+#include "flash_tc.cuh"
 
 namespace samq {
 
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel,
-                          OutT* __restrict__ out, int L, int nh, int hd, int kh, int kw,
-                          float q_scale, float ois) {
+template <typename T>
+__device__ __forceinline__ Problem<T> windowed_problem(const T* qkv, const T* rel, int L, int nh,
+                                                       int hd, int kh, int kw, float q_scale) {
   const int h = blockIdx.y;
   const long w = blockIdx.z;
   const long C = (long)nh * hd;
@@ -51,7 +56,32 @@ __global__ void __launch_bounds__(NTHREADS)
   P.kh = kh;
   P.kw = kw;
   P.q_scale = q_scale;
-  attend_rows<T, OutT>(P, blockIdx.x * BQ, out + w * L * C + (long)h * hd, C, ois);
+  return P;
+}
+
+// float32: the CUDA-core body.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel,
+                          OutT* __restrict__ out, int L, int nh, int hd, int kh, int kw,
+                          float q_scale, float ois) {
+  const Problem<T> P = windowed_problem(qkv, rel, L, nh, hd, kh, kw, q_scale);
+  const long C = (long)nh * hd;
+  OutT* o = out + (long)blockIdx.z * L * C + (long)blockIdx.y * hd;
+  attend_rows<T, OutT>(P, blockIdx.x * BQ, o, C, ois);
+}
+
+// bfloat16: the tensor-core body, hd padded to HDP in shared memory only.
+template <int HDP, typename OutT>
+__global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
+    flash_windowed_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const __nv_bfloat16* __restrict__ rel, OutT* __restrict__ out,
+                             int L, int nh, int hd, int kh, int kw, float q_scale, float ois,
+                             bool vec) {
+  const Problem<__nv_bfloat16> P = windowed_problem(qkv, rel, L, nh, hd, kh, kw, q_scale);
+  const long C = (long)nh * hd;
+  OutT* o = out + (long)blockIdx.z * L * C + (long)blockIdx.y * hd;
+  tc::attend_rows_tc<HDP, true, OutT>(P, blockIdx.x * tc::BQ, o, C, ois, vec);
 }
 
 template <typename T, typename OutT>
@@ -61,6 +91,21 @@ static int run(const void* qkv, const void* rel, void* out, int NW, int L, int n
   return launch(flash_windowed_kernel<T, OutT>, grid, smem_bytes(hd, kh, kw), stream,
                 static_cast<const T*>(qkv), static_cast<const T*>(rel), static_cast<OutT*>(out),
                 L, nh, hd, kh, kw, q_scale, ois);
+}
+
+template <typename OutT>
+static int run_tc(const void* qkv, const void* rel, void* out, int NW, int L, int nh, int hd,
+                  int kh, int kw, float q_scale, float ois, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  // Rows of 3 nh hd values, head slices at hd: all 16-byte aligned iff hd % 8 == 0.
+  const bool vec = hd % 8 == 0 && (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
+  return tc::dispatch_hdp(hd, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const dim3 grid((L + tc::BQ - 1) / tc::BQ, nh, NW);
+    return launch(flash_windowed_tc_kernel<HDP, OutT>, grid, tc::smem_bytes(HDP, kh, kw),
+                  stream, static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel),
+                  static_cast<OutT*>(out), L, nh, hd, kh, kw, q_scale, ois, vec);
+  });
 }
 
 }  // namespace samq
@@ -79,8 +124,7 @@ extern "C" int samq_flash_windowed(int dtype, int out_int8, const void* qkv, con
                     : run<float, float>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s);
   if (dtype == 1)
     return out_int8
-               ? run<__nv_bfloat16, int8_t>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s)
-               : run<__nv_bfloat16, __nv_bfloat16>(qkv, rel, out, NW, L, nh, hd, kh, kw,
-                                                   q_scale, ois, s);
+               ? run_tc<int8_t>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s)
+               : run_tc<__nv_bfloat16>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s);
   return (int)cudaErrorInvalidValue;
 }

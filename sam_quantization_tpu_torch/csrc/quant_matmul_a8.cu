@@ -39,8 +39,13 @@
 // documented, so s_g[n], z_g[n] and the row's rowsum apply per register).
 // The asymmetric rowsum comes from the A fragments the warp already holds
 // (dp4a of each register with 0x01010101, then two shuffles across the four
-// lanes of a row). Group boundaries must fall on the 32-row k steps of the
-// mma: groupsize % 32 == 0, or one group over all of K.
+// lanes of a row).
+// A group that ends inside a 32-deep k step (groupsize % 32 != 0; the
+// packing makes every groupsize a multiple of 4, and each A register holds
+// 4 consecutive k) takes the FINE instantiation: the step runs once per
+// segment it holds, with the A registers outside the segment zeroed, and
+// each segment reads its own scale (and zero) from device memory when it
+// is folded. The segments and their float32 order are the same as above.
 #include "quant_common.cuh"
 
 namespace samq_quant {
@@ -162,7 +167,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BITS, bool SYM, typename T>
+template <int BITS, bool SYM, bool FINE, typename T>
 __global__ void __launch_bounds__(A8_THREADS, 1)
     qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                   const int32_t* __restrict__ qw, const float* __restrict__ scales,
@@ -233,19 +238,9 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
         b[j][0] = lds32(c);
         b[j][1] = lds32(c + 16);
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_s8(iacc[i][j], a[i], b[j]);
-      if constexpr (!SYM) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          rsp[i][0] = __dp4a((int)a[i][2], 0x01010101, __dp4a((int)a[i][0], 0x01010101, rsp[i][0]));
-          rsp[i][1] = __dp4a((int)a[i][3], 0x01010101, __dp4a((int)a[i][1], 0x01010101, rsp[i][1]));
-        }
-      }
-      // End of a segment: the last k step of the tile, of K, or of a group.
-      if (ks == KSTEPS - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0) {
+      // Fold the segment's int32 sums into acc, (d - zr * rowsum) * s (or
+      // d * s), with s and zr of tile column c from sz(c, s, zr).
+      auto fold = [&](auto&& sz) {
         int rs[2][2];
         if constexpr (!SYM) {
 #pragma unroll
@@ -263,8 +258,8 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int cidx = ks * A8_BN + wn + 8 * j + 2 * tig + e;
-            const float s = st[cidx];
+            float s, zr = 0.f;
+            sz(wn + 8 * j + 2 * tig + e, s, zr);
 #pragma unroll
             for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -275,13 +270,66 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
                 if constexpr (SYM) {
                   term = __fmul_rn(d, s);
                 } else {
-                  const float zrs = __fmul_rn(zt[cidx], __int2float_rn(rs[i][h]));
+                  const float zrs = __fmul_rn(zr, __int2float_rn(rs[i][h]));
                   term = __fmul_rn(__fsub_rn(d, zrs), s);
                 }
                 acc[i][j][r] = __fadd_rn(acc[i][j][r], term);
                 iacc[i][j][r] = 0;
               }
           }
+      };
+      // The products of the A registers a2 (one k range per register,
+      // zeros outside the segment) with the B tile, and their rowsums.
+      auto step = [&](const unsigned (&a2)[2][4]) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_s8(iacc[i][j], a2[i], b[j]);
+        if constexpr (!SYM) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int ones = 0x01010101;
+            rsp[i][0] = __dp4a((int)a2[i][2], ones, __dp4a((int)a2[i][0], ones, rsp[i][0]));
+            rsp[i][1] = __dp4a((int)a2[i][3], ones, __dp4a((int)a2[i][1], ones, rsp[i][1]));
+          }
+        }
+      };
+      if constexpr (!FINE) {
+        step(a);
+        // End of a segment: the last k step of the tile, of K, or of a group.
+        if (ks == KSTEPS - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0)
+          fold([&](int c, float& s, float& zr) {
+            s = st[ks * A8_BN + c];
+            if constexpr (!SYM) zr = zt[ks * A8_BN + c];
+          });
+      } else {
+        // Segments [lo, hi) of the step, cut at the group boundaries; the
+        // step's registers hold k + 4 * tig (a0, a1) and k + 16 + 4 * tig (a2, a3).
+        const int klo = k + 4 * tig, khi = klo + 16;
+        for (int lo = k; lo < k + KSTEP && lo < K;) {
+          const int g = lo / groupsize, hi = min((g + 1) * groupsize, k + KSTEP);
+          const bool inl = lo <= klo && klo < hi, inh = lo <= khi && khi < hi;
+          unsigned am[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            am[i][0] = inl ? a[i][0] : 0u;
+            am[i][1] = inl ? a[i][1] : 0u;
+            am[i][2] = inh ? a[i][2] : 0u;
+            am[i][3] = inh ? a[i][3] : 0u;
+          }
+          step(am);
+          if (hi % groupsize == 0 || hi >= K || (ks == KSTEPS - 1 && hi == k + KSTEP))
+            fold([&](int c, float& s, float& zr) {
+              const int n = n0 + c;
+              const long gi = (long)g * N + n;
+              s = n < N ? __ldg(scales + gi) : 0.f;
+              if constexpr (!SYM) {
+                constexpr float sub = Int8WeightTile<BITS, SYM>::SUB;
+                zr = n < N ? __fsub_rn(__ldg(zeros + gi), sub) : 0.f;
+              }
+            });
+          lo = hi;
+        }
       }
     }
   }
@@ -304,25 +352,31 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
     }
 }
 
-template <int BITS, bool SYM>
+template <int BITS, bool SYM, bool FINE>
 static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* qw,
                   const float* s, const float* z, void* out, int M, int K, int N, int pb, int g,
                   cudaStream_t stream) {
   const dim3 grid((M + A8_BM - 1) / A8_BM, (N + A8_BN - 1) / A8_BN);
   const bool vec = vec_ok(xq, K, 16);
   if (dtype == 1)
-    return launch(qmm_a8_kernel<BITS, SYM, __nv_bfloat16>, grid, A8_THREADS, A8_SMEM, stream, xq,
-                  xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, vec);
-  return launch(qmm_a8_kernel<BITS, SYM, float>, grid, A8_THREADS, A8_SMEM, stream, xq, xs, qw,
-                s, z, static_cast<float*>(out), M, K, N, pb, g, vec);
+    return launch(qmm_a8_kernel<BITS, SYM, FINE, __nv_bfloat16>, grid, A8_THREADS, A8_SMEM,
+                  stream, xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, vec);
+  return launch(qmm_a8_kernel<BITS, SYM, FINE, float>, grid, A8_THREADS, A8_SMEM, stream, xq, xs,
+                qw, s, z, static_cast<float*>(out), M, K, N, pb, g, vec);
 }
 
 template <int BITS>
 static int run_a8_bits(int dtype, int sym, const int8_t* xq, const float* xs, const int32_t* qw,
                        const float* s, const float* z, void* out, int M, int K, int N, int pb,
                        int g, cudaStream_t stream) {
-  if (sym) return run_a8<BITS, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
-  return run_a8<BITS, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  // FINE: a group ends inside a 32-deep k step.
+  const bool fine = g % KSTEP != 0 && g != K;
+  if (sym) {
+    if (fine) return run_a8<BITS, true, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+    return run_a8<BITS, true, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  }
+  if (fine) return run_a8<BITS, false, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  return run_a8<BITS, false, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
 }
 
 }  // namespace samq_quant
@@ -338,7 +392,7 @@ extern "C" int samq_quant_matmul_a8(int dtype, int bits, int sym, const void* xq
   using namespace samq_quant;
   if ((dtype != 0 && dtype != 1) || M < 1 || (bits != 2 && bits != 4 && bits != 8) ||
       N > 65535 * A8_BN || !packing_ok(bits, K, N, pack_block, groupsize) ||
-      (groupsize != K && groupsize % KSTEP != 0) || (!sym && zeros == nullptr))
+      (!sym && zeros == nullptr))
     return (int)cudaErrorInvalidValue;
   const int8_t* x8 = static_cast<const int8_t*>(xq);
   const float* xsf = static_cast<const float*>(xs);

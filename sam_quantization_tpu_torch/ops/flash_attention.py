@@ -22,6 +22,10 @@ log2(e) so the softmax is a raw ``exp2``, a static clamp shift
 past the p.v product, and (windowed and bias3d global only) an optional int8
 epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 
+In bfloat16 the windowed and bias3d global kernels run both products on
+Hopper's tensor cores (wgmma, ``csrc/flash_tc.cuh``); their float32
+instantiations and ``csrc/flash_attn.cu`` run them on the CUDA cores.
+
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
 real keys, where the JAX kernels' padded columns take a share of the sum and

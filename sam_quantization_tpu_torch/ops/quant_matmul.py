@@ -39,9 +39,9 @@ so here every symmetric 2/4/8-bit layer runs its kernel.
 The kernels take every shape: ragged M and N are masked in the kernel, and
 scales are indexed by ``k // groupsize`` directly. ``kernel_supported`` and
 the M padding and scale broadcasting of the Pallas wrappers are TPU tiling
-rules with no counterpart here. The W-A8 kernels also need a group to be a
-whole number of their 32-deep k steps: ``groupsize % 32 == 0``, or one
-group over all of K.
+rules with no counterpart here. A group that ends inside one of the W-A8
+kernels' 32-deep k steps (``groupsize % 32 != 0``) splits that step at the
+boundary (``csrc/quant_matmul_a8.cu``).
 
 Cached-int8 layers (``IntLinear``) multiply int8 activations by the stored
 int8 weights with ``torch._int_mm`` on either device: JAX leaves this
@@ -69,8 +69,7 @@ LAUNCHES: Dict[str, int] = {
 }
 # int8_matmul calls: on activations it quantizes, and on int8 input (int8-pre)
 INT8_MATMULS: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_pre": 0}
-A8_TILE_K = 128  # K rows per tile of the W-A8 kernels (KT in csrc/quant_common.cuh)
-A8_STEP_K = 32  # k of one int8 mma.m16n8k32
+A8_TILE_K = 128  # K rows per tile of the packed-weight kernels (KT in csrc/quant_common.cuh)
 
 
 def reset_launch_counts() -> None:
@@ -80,8 +79,12 @@ def reset_launch_counts() -> None:
 
 
 def check_packed_on(name: str, device: torch.device, *packed: PackedLinear) -> None:
-    """The packed buffers must be contiguous and on ``device``."""
+    """The packed buffers must be contiguous and on ``device``, and each pack
+    block a divisor of the kernels' 128-row K tile."""
     for p in packed:
+        if A8_TILE_K % p.pack_block:
+            raise ValueError(f"{name}: pack_block {p.pack_block} does not divide the "
+                             f"kernels' {A8_TILE_K}-row K tile")
         for t in (p.qweight, p.qweight_hi, p.scales, p.zeros):
             if t is None:
                 continue
@@ -228,9 +231,6 @@ def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.
         raise ValueError(f"{name}: xq and xs must be contiguous")
     if xs.device != xq.device:
         raise ValueError(f"{name}: xs on {xs.device}, xq on {xq.device}")
-    if p.groupsize % A8_STEP_K and p.groupsize != K:
-        raise ValueError(f"{name}: groupsize {p.groupsize} is not a multiple of "
-                         f"{A8_STEP_K} (the kernel's k step) nor all of K={K}")
     check_packed_on(name, xq.device, p)
     N = p.out_features
     out = torch.empty((M, N), dtype=dtype, device=xq.device)

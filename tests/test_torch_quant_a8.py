@@ -190,6 +190,24 @@ def test_a8_xla_paths_match_jax(bits, groupsize):
         _close(tqm.quant_matmul(tx, ts), jqm.quant_matmul_a8_pallas(jx, js), "f32")
 
 
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,K,groupsize", [(4, 64, 16), (8, 96, 4), (2, 288, 144)])
+def test_a8_groups_below_the_k_step_match_jax_kernel(sym, bits, K, groupsize):
+    """Layers whose groups end inside the W-A8 kernels' 32-deep k steps (a
+    4-bit layer at groupsize 16, 4 at 8 bits, and 144, a group across the
+    128-row K tiles), x (5, K), N 128: ``quant_matmul`` takes the W-A8
+    kernel's route (its plain version on the CPU), held against JAX's Pallas
+    kernels in interpret mode, float32, |d| <= 1e-5 max|ref| (``_close``)."""
+    jp, tp = _layer(16 + sym + bits, K, 128, bits, groupsize, sym)
+    jx, tx = _x(17, 5, K)
+    ref = _interpret(jqm.quant_matmul_a8_pallas, jx, jp)
+    out = tqm.quant_matmul(tx, tp)
+    assert out.shape == (5, 128) and tp.groupsize == groupsize
+    _close(out, ref, "f32")
+    kernel = tqm.quant_matmul_a8_sym if sym else tqm.quant_matmul_a8
+    assert torch.equal(out, kernel(tx, tp))
+
+
 # ---------------------------------------------------------------------------
 # (d) the dispatch table, (e) with_act_bits
 # ---------------------------------------------------------------------------
@@ -204,6 +222,8 @@ def test_a8_xla_paths_match_jax(bits, groupsize):
     (8, False, 0, 8, "quant_matmul_a8"),
     (3, True, 32, 8, "quant_matmul_a8_sym_native"),
     (3, False, 32, 8, "quant_matmul_a8_xla"),
+    (4, True, 16, 8, "quant_matmul_a8_sym"),  # groups end inside the kernels' k steps
+    (4, False, 16, 8, "quant_matmul_a8"),
     (4, True, 32, 0, "quant_matmul_plain"),   # weight-only: the W4A16 path
     (3, False, 0, 0, "quant_matmul_plain"),
 ])
