@@ -11,9 +11,12 @@ Run from the repository root on a machine with one CUDA card. It
    ViT-H shapes of the main paths (float32, bfloat16, and the int8 epilogue;
    the head-split kernel at the training shape, rel-less, and at long L with
    and without a rel grid, and the five probe kernels at the probes' shapes,
-   each also showing that its bound rejects a wrong output; the bfloat16
-   serving attention kernels also show their tensor-core instructions, the
-   HGMMA count that ``cuobjdump -sass`` finds in each instantiation), and times the
+   each also showing that its bound rejects a wrong output, the packed-weight
+   kernels' being their plain version with x's last K tile left out, also at
+   pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
+   serving attention kernels and packed-weight kernels also show their
+   tensor-core instructions, the HGMMA count that ``cuobjdump -sass`` finds in
+   each instantiation, and the W-A8 kernels their IMMA count), and times the
    kernel, the plain version, and one
    PyTorch library call of the same function, a yardstick the port never
    calls: ``scaled_dot_product_attention`` with the bias materialised as
@@ -187,10 +190,13 @@ def gpu_line() -> str:
     return out.stdout.strip()
 
 
-def tensor_core_counts(library: pathlib.Path, nvcc: str) -> dict:
-    """{(head dim tile, out type): (HGMMA, HMMA)} of each bfloat16 attention
-    instantiation (``*_tc_kernel<HDP, OutT>``) in a built library's SASS, as
-    ``cuobjdump -sass`` lists it."""
+def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
+    """{key: (HGMMA, HMMA, IMMA)} of each instantiation whose mangled name
+    matches ``pattern`` in a built library's SASS, as ``cuobjdump -sass``
+    lists it; the key is the pattern's groups: (head dim tile, out type) of
+    the bfloat16 attention kernels (``*_tc_kernel<HDP, OutT>``), (bits,
+    epilogue) of the packed-weight body (``qmm_tc_kernel<BITS, EPI>``),
+    (bits, sym, fine, out type) of the W-A8 kernels."""
     import re
 
     cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
@@ -199,15 +205,16 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str) -> dict:
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"tc_kernelILi(\d+)E(13__nv_bfloat16|a)E", line)
-            key = None
-            if m:
-                key = (int(m.group(1)), "int8" if m.group(2) == "a" else "bf16")
-                counts[key] = [0, 0]
+            m = re.search(pattern, line)
+            key = m.groups() if m else None
+            if key:
+                counts[key] = [0, 0, 0]
         elif key and "HGMMA" in line:
             counts[key][0] += 1
         elif key and "HMMA" in line:
             counts[key][1] += 1
+        elif key and "IMMA" in line:
+            counts[key][2] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -320,10 +327,30 @@ def main() -> int:
     # each of its 16 instantiations (hd tiles 16..128, bf16 and int8 out) in
     # both libraries holds HGMMA (wgmma) instructions.
     for name in ("flash_windowed", "flash_global"):
-        tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc())
-        check(len(tc_counts) == 16 and all(h + m > 0 for h, m in tc_counts.values()),
+        tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
+                                       r"tc_kernelILi(\d+)E(13__nv_bfloat16|a)E")
+        check(len(tc_counts) == 16 and all(h + m > 0 for h, m, _ in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA/HMMA in SASS: " + ", ".join(
-                  f"hd{hdp} {out} {h}/{m}" for (hdp, out), (h, m) in sorted(tc_counts.items())))
+                  f"hd{hdp} {'int8' if out == 'a' else 'bf16'} {h}/{m}"
+                  for (hdp, out), (h, m, _) in sorted(tc_counts.items())))
+    # And the bfloat16 packed-weight kernels: every instantiation of their
+    # body (qmm_tc_kernel<BITS, EPI>) holds HGMMA, bits 2, 3, 4, 8 in
+    # quant_matmul (plain epilogue), bits 2, 4, 8 in fused_mlp (both).
+    for name, want in (("quant_matmul", {(b, "0") for b in ("2", "3", "4", "8")}),
+                       ("fused_mlp", {(b, e) for b in ("2", "4", "8") for e in ("0", "1")})):
+        tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
+                                       r"qmm_tc_kernelILi(\d+)ELi(\d+)E")
+        check(set(tc_counts) == want and all(h > 0 for h, _, _ in tc_counts.values()),
+              f"{name} bf16 instantiations, HGMMA in SASS: " + ", ".join(
+                  f"W{b} epilogue {e} {h}" for (b, e), (h, _, _) in sorted(tc_counts.items())))
+    # The W-A8 kernels' products are int8 mma.sync: IMMA in each of the 24
+    # instantiations (bits 2, 4, 8; sym; FINE; float32 and bf16 out).
+    tc_counts = tensor_core_counts(_build.library_path("quant_matmul_a8"), _build._nvcc(),
+                                   r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)E(13__nv_bfloat16|f)E")
+    check(len(tc_counts) == 24 and all(i > 0 for _, _, i in tc_counts.values()),
+          f"quant_matmul_a8 instantiations, IMMA in SASS: {len(tc_counts)} instantiations, "
+          f"{min((i for _, _, i in tc_counts.values()), default=0)}-"
+          f"{max((i for _, _, i in tc_counts.values()), default=0)} IMMA each")
 
     gen = torch.Generator(device=dev)
 
@@ -365,6 +392,13 @@ def main() -> int:
         t_ops = r["flops"] / PEAK_FLOPS[tag] * 1e3
         r["bound_ms"], r["bound_by"] = max(t_bytes, t_ops), (
             "bytes" if t_bytes >= t_ops else "operations")
+
+    def a8_ok(out, ref, dtype):
+        """W-A8 kernels on the same int8 input as their plain version: float32
+        |d| <= 1e-5 max|ref|, bfloat16 one output step more (see below)."""
+        d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+        step = 2.0**-7 * r if dtype == torch.bfloat16 else 0.0
+        return float(d.max()), bool((d <= step + 1e-5 * r.max()).all())
 
     def int8_ok(out, ref):
         """int8 epilogue: |d| <= 1 step, on at most 0.5% of the values."""
@@ -632,6 +666,9 @@ def main() -> int:
     # ------------------------------------------------------ packed-weight kernels
     # ViT-H, B = 1: qkv/proj on 25 windows x 196 tokens, the MLP on 64 x 64
     # global tokens; RTN 4-bit (3-bit for quant_matmul3) with groups of 128.
+    # Each case also reads a wrong output, the plain version with x's last K
+    # tile (the kernels' tile_rows of the first product) left out, and fails
+    # if the bound takes it.
     Mw, Mg, H = NW * Lw, Lg, 4 * C
     gen.manual_seed(2)
 
@@ -655,28 +692,38 @@ def main() -> int:
             x = randn(Mw, C, dtype=dtype)
             wd = packed_lib.dequantize(p).to(dtype)
             cases.append((name, shape, x, (lambda x=x, p=p: qm.quant_matmul(x, p)),
-                          (lambda x=x, p=p: qm.quant_matmul_plain(x, p)),
+                          (lambda x, p=p: qm.quant_matmul_plain(x, p)),
                           (lambda x=x, wd=wd: torch.matmul(x, wd)),
                           dict(bytes=Mw * (C + p.out_features) * item + words(p),
-                               flops=2 * Mw * C * p.out_features)))
+                               flops=2 * Mw * C * p.out_features), qm.tile_rows(p.pack_block)))
         x = randn(Mg, C, dtype=dtype)
         w1d, w2d = packed_lib.dequantize(lin1).to(dtype), packed_lib.dequantize(lin2).to(dtype)
         b1d = lin1.bias.to(dtype)
         cases.append(("fused_mlp", "mlp", x, (lambda x=x: fm.fused_mlp(x, lin1, lin2)),
-                      (lambda x=x: fm.fused_mlp_plain(x, lin1, lin2)),
+                      (lambda x: fm.fused_mlp_plain(x, lin1, lin2)),
                       (lambda x=x: torch.matmul(
                           TF.gelu(torch.addmm(b1d, x, w1d), approximate="tanh"), w2d)),
                       dict(bytes=2 * Mg * C * item + words(lin1) + H * 4 + words(lin2),
-                           flops=4 * Mg * C * H)))
-        for name, shape, x, kernel, plain, library, r in cases:
-            out, ref = kernel(), plain()
+                           flops=4 * Mg * C * H), qm.tile_rows(lin1.pack_block)))
+        for name, shape, x, kernel, plain, library, r, kt in cases:
+            before = counts()
+            out = kernel()
             torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in counts().items() if c != before[n]}
+            ref = plain(x)
             r["err"], ok = rel_ok(out, ref, dtype)
-            check(ok and out.dtype == dtype and tuple(out.shape) == tuple(ref.shape),
-                  f"{name} {shape} {tag}: max|d| {r['err']:.3e} vs plain")
+            cut = x.clone()
+            cut[:, x.shape[1] - kt:] = 0
+            wrong_err, wrong_ok = rel_ok(plain(cut), ref, dtype)
+            check(ok and not wrong_ok and out.dtype == dtype and launched == {name: 1}
+                  and tuple(out.shape) == tuple(ref.shape),
+                  f"{name} {shape} {tag}: max|d| {r['err']:.3e} vs plain (last K tile left out: "
+                  f"max|d| {wrong_err:.3e}, {'taken' if wrong_ok else 'rejected'}), "
+                  f"launches {launched}")
+            del cut
             slow = dtype == torch.float32 and name == "fused_mlp"
             r["ms"] = cuda_ms(kernel, 3 if slow else 20)
-            r["plain_ms"] = cuda_ms(plain, 3 if slow else 10)
+            r["plain_ms"] = cuda_ms(lambda: plain(x), 3 if slow else 10)
             r["library_ms"] = cuda_ms(library, 3 if slow else 20)
             bound(r, tag)
             print(f"{name} {shape} {tag} (M {x.shape[0]}): kernel {r['ms']:.4f} ms, "
@@ -687,6 +734,63 @@ def main() -> int:
         del cases, x, w1d, w2d
         torch.cuda.empty_cache()
     del qkv4, proj4, qkv3, lin1, lin2
+
+    # Pack blocks that are not powers of two (default_pack_block's 48 for
+    # groups of 48, 96 for groups of 96 at 3 bits), in each of the five
+    # packed kernels: K tiles of whole pack blocks (96 rows). M as above, K
+    # and H 1536 (multiples of 48, 96 and 512), N 1280; held to the same
+    # bounds (the W-A8 kernels to a8_ok, below, on the same int8 input), with
+    # the last K tile left out as the wrong output.
+    gen.manual_seed(7)
+    Ko = 1536
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        for name, bits, g_ in (("quant_matmul", 4, 48), ("quant_matmul3", 3, 96),
+                               ("fused_mlp", 4, 48), ("quant_matmul_a8_sym", 4, 48),
+                               ("quant_matmul_a8", 4, 48)):
+            sym = name == "quant_matmul_a8_sym"
+            if name == "fused_mlp":
+                x = randn(Mg, Ko, dtype=dtype)
+                l1 = packed_lib.quantize_rtn(randn(Ko, Ko, std=Ko**-0.5), bits, g_,
+                                             bias=randn(Ko, std=0.02))
+                l2 = packed_lib.quantize_rtn(randn(Ko, C, std=Ko**-0.5), bits, g_)
+                pbs = {l1.pack_block, l2.pack_block}
+                kernel, plain = (lambda: fm.fused_mlp(x, l1, l2)), (
+                    lambda x: fm.fused_mlp_plain(x, l1, l2))
+                ok_fn, kt = rel_ok, qm.tile_rows(l1.pack_block)
+            elif name.startswith("quant_matmul_a8"):
+                x = randn(Mw, Ko, dtype=dtype)
+                p = packed_lib.with_act_bits(packed_lib.quantize_rtn(
+                    randn(Ko, C, std=Ko**-0.5) + (0.0 if sym else 1.5 * Ko**-0.5), bits, g_,
+                    sym), 8)
+                pbs = {p.pack_block}
+                xq, xs = qm.quantize_activations_int8(x)
+                kernel = lambda: qm.a8_matmul(xq, xs, p, dtype, sym)  # noqa: E731
+                plain = lambda xq_: qm.a8_matmul_plain(xq_, xs, p, dtype, sym)  # noqa: E731
+                x, ok_fn, kt = xq, a8_ok, qm.tile_rows(p.pack_block)
+            else:
+                x = randn(Mw, Ko, dtype=dtype)
+                p = packed_lib.quantize_rtn(randn(Ko, C, std=Ko**-0.5), bits, g_)
+                pbs = {p.pack_block}
+                kernel, plain = (lambda: qm.quant_matmul(x, p)), (
+                    lambda x: qm.quant_matmul_plain(x, p))
+                ok_fn, kt = rel_ok, qm.tile_rows(p.pack_block)
+            before = counts()
+            out = kernel()
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in counts().items() if c != before[n]}
+            ref = plain(x)
+            err, ok = ok_fn(out, ref, dtype)
+            cut = x.clone()
+            cut[:, Ko - kt:] = 0
+            wrong_err, wrong_ok = ok_fn(plain(cut), ref, dtype)
+            check(ok and not wrong_ok and launched == {name: 1} and pbs == {g_}
+                  and out.dtype == dtype and kt == 96,
+                  f"{name} W{bits} pack block {sorted(pbs)} (K tile {kt}) {tag}: max|d| "
+                  f"{err:.3e} vs plain (last K tile left out: max|d| {wrong_err:.3e}, "
+                  f"{'taken' if wrong_ok else 'rejected'}), launches {launched}")
+            del x, out, ref, cut
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ W-A8 kernels
     # ViT-H, B = 1, RTN groups of 128 with int8 activations: qkv/proj on the
@@ -701,11 +805,6 @@ def main() -> int:
     a8_shapes = (("qkv", Mw, C, 3 * C), ("proj", Mw, C, C), ("lin1", Mg, C, H), ("lin2", Mg, H, C))
     a8_cases = [(sym, 4, *shape) for sym in (True, False) for shape in a8_shapes]
     a8_cases += [(True, 2, *a8_shapes[0]), (True, 8, *a8_shapes[0]), (False, 8, *a8_shapes[0])]
-
-    def a8_ok(out, ref, dtype):
-        d, r = (out.float() - ref.float()).abs(), ref.float().abs()
-        step = 2.0**-7 * r if dtype == torch.bfloat16 else 0.0
-        return float(d.max()), bool((d <= step + 1e-5 * r.max()).all())
 
     for sym, bits, shape, M, K, N in a8_cases:
         name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"

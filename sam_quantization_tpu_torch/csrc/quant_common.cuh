@@ -1,26 +1,27 @@
 // Shared pieces of the packed-weight kernels (quant_matmul.cu, fused_mlp.cu,
-// quant_matmul_a8.cu): loading and decoding packed words, filling
-// shared-memory tiles of dequantized weights and of activations (float32,
-// bfloat16 or int8), and the launch helper.
+// quant_matmul_a8.cu, qmm_tc.cuh): loading and decoding packed words,
+// filling shared-memory tiles of dequantized weights and of activations
+// (float32, bfloat16 or int8), and the launch helper.
 //
 // Layout (sam_quantization_tpu/nn/packed.py, kept word for word): K is split
-// into pack blocks of `pb` rows (a power of two <= 128); with PER values per
-// int32 word and rpp = pb / PER rows per plane, the word at (block * rpp + i,
-// n) holds rows block * pb + s * rpp + i, s = 0..PER-1, at bit s * bits.
-// 3-bit weights are a 2-bit plane (qweight, PER 16) and a 1-bit plane
-// (qweight_hi, PER 32) with the same pack block: q = low | (hi << 2).
-// Dequantization is (float(q) - zero) * scale in float32, with the scale row
-// k / groupsize, as the JAX package's _dequant_tile. groupsize is a multiple
-// of pb, so one scale and one zero serve a whole word.
+// into pack blocks of `pb` rows (a multiple of the values per word, at most
+// 128, not always a power of two: default_pack_block gives 48 for groups of
+// 48, 12 for groups of 12 at 8 bits, 96 for groups of 96 at 3 bits); with
+// PER values per int32 word and rpp = pb / PER rows per plane, the word at
+// (block * rpp + i, n) holds rows block * pb + s * rpp + i, s = 0..PER-1, at
+// bit s * bits. 3-bit weights are a 2-bit plane (qweight, PER 16) and a
+// 1-bit plane (qweight_hi, PER 32) with the same pack block: q = low |
+// (hi << 2). Dequantization is (float(q) - zero) * scale in float32, with
+// the scale row k / groupsize, as the JAX package's _dequant_tile.
+// groupsize is a multiple of pb, so one scale and one zero serve a whole
+// word.
 //
-// Work is organised by word, not by element: a thread loads one word, its
-// scale and zero (and the matching high-plane word at 3 bits) and writes
-// its PER values, so the unpack costs a few instructions per value. A
-// weight tile is KT = 128 rows, a whole number of pack blocks. WeightTile
-// splits the load of a tile's words into registers from their decode into
-// shared memory, so a kernel can issue the next tile's loads before it
-// multiplies the current one; the x tile is copied with cp.async for the
-// same reason.
+// K tiles are whole pack blocks: tile_rows(pb) rows, the most whole blocks
+// that fit in KT = 128 (pb 48 gives 96, pb 12 gives 120). Word addresses
+// divide by rpp (locate_row), so no power of two is assumed. Work is
+// organised by word, not by element: a thread loads one word, its scale and
+// zero (and the matching high-plane word at 3 bits) and writes its PER
+// values, so the unpack costs a few instructions per value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,9 +31,17 @@
 namespace samq_quant {
 
 constexpr int MAX_SMEM = 232448;  // bytes a block may opt into on sm_90
-constexpr int KT = 128;           // K rows per weight tile
+constexpr int KT = 128;           // most K rows of a weight tile
 
-constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
+// K rows of a weight tile: the most whole pack blocks that fit in KT, an
+// even number of them where pb is not a multiple of 8, so that every tile
+// starts on a 16-byte boundary of an x row (pb 68, 76, ..., 124 cannot and
+// take one block; their x tiles are copied value by value).
+__host__ __device__ __forceinline__ int tile_rows(int pb) {
+  int n = KT / pb;
+  if (n > 1 && (pb * n) % 8) --n;
+  return pb * n;
+}
 
 template <int BITS>
 struct Packing {
@@ -62,8 +71,12 @@ __device__ __forceinline__ void load_word(const int32_t* __restrict__ qw,
   if (kb < K && n < N) {
     word = __ldg(qw + (long)(kb / Packing<BITS>::PER + i) * N + n);
     // The high plane has half as many rows per plane: the 16 values of this
-    // word sit in one high-plane word, at bits 2 s + (i >= rpp / 2).
-    if constexpr (BITS == 3) hi = __ldg(qw_hi + (long)(kb / 32 + (i & ((rpp >> 1) - 1))) * N + n);
+    // word sit in one high-plane word, word row i mod (rpp / 2), at bits
+    // 2 s + (i >= rpp / 2).
+    if constexpr (BITS == 3) {
+      const int half = rpp >> 1;
+      hi = __ldg(qw_hi + (long)(kb / 32 + (i >= half ? i - half : i)) * N + n);
+    }
     const long gi = (long)(kb / groupsize) * N + n;
     sc = __ldg(scales + gi);
     zr = __ldg(zeros + gi);
@@ -100,90 +113,29 @@ __device__ __forceinline__ void store_word(T* out, int step, int i, int rpp, int
 }
 
 // Word row wr of a tile: its in-block word row i and the tile row of its
-// pack block (rpp = 2^rl word rows per pack block of pb rows).
-__device__ __forceinline__ void locate_row(int wr, int rpp, int rl, int pb, int& i, int& row0) {
-  i = wr & (rpp - 1);
-  row0 = (wr >> rl) * pb;
+// pack block (rpp word rows per pack block of pb rows).
+__device__ __forceinline__ void locate_row(int wr, int rpp, int pb, int& i, int& row0) {
+  const int blk = wr / rpp;
+  i = wr - blk * rpp;
+  row0 = blk * pb;
 }
 
-// A (KT, NC) bfloat16 tile of dequantized weights, rows k0.., columns n0..,
-// held as packed words in registers between load() and store(). A thread
-// takes the words of two neighbouring columns, so each pair of values is
-// converted and stored as one bfloat162. PB: the pack block when it is known
-// at compile time (the addresses then fold to constants), else 0. Only
-// fused_mlp.cu compiles one in: its decode sits between two barriers per
-// tile and a pack block of 128 made it about 2% faster on an H100 at ViT-H
-// (PERF.md), while quant_matmul.cu showed no gain beyond run-to-run spread.
-template <int BITS, int NC, int NTHREADS, int PB>
-struct WeightTile {
-  static constexpr int PER = Packing<BITS>::PER;
-  static constexpr int PAIRS = NC / 2;  // column pairs per word row
-  static constexpr int ITEMS = (KT / PER) * PAIRS / NTHREADS;
-  static_assert((KT / PER) * PAIRS % NTHREADS == 0, "whole pairs per thread");
-  static constexpr int RL = log2i(PB / PER);
-  int w0[ITEMS], w1[ITEMS], h0[ITEMS], h1[ITEMS];
-  float s0[ITEMS], s1[ITEMS], z0[ITEMS], z1[ITEMS];
-  int rpp_, rl_, pb_;
-
-  __device__ __forceinline__ int rpp() const { return PB ? PB / PER : rpp_; }
-  __device__ __forceinline__ int rl() const { return PB ? RL : rl_; }
-  __device__ __forceinline__ int pb() const { return PB ? PB : pb_; }
-
-  __device__ __forceinline__ void load(const int32_t* __restrict__ qw,
-                                       const int32_t* __restrict__ qw_hi,
-                                       const float* __restrict__ scales,
-                                       const float* __restrict__ zeros, int k0, int K, int n0,
-                                       int N, int pack_block, int groupsize) {
-    pb_ = pack_block;
-    rpp_ = pack_block / PER;
-    rl_ = __ffs(rpp_) - 1;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int p = threadIdx.x + it * NTHREADS, n = n0 + 2 * (p % PAIRS);
-      int i, row0;
-      locate_row(p / PAIRS, rpp(), rl(), pb(), i, row0);
-      load_word<BITS>(qw, qw_hi, scales, zeros, k0 + row0, i, rpp(), n, K, N, groupsize, w0[it],
-                      h0[it], s0[it], z0[it]);
-      load_word<BITS>(qw, qw_hi, scales, zeros, k0 + row0, i, rpp(), n + 1, K, N, groupsize,
-                      w1[it], h1[it], s1[it], z1[it]);
-    }
-  }
-
-  // dst[r * ld + c] = w[k0 + r, n0 + c], zero outside K and N (ld even).
-  __device__ __forceinline__ void store(__nv_bfloat16* dst, int ld) const {
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int p = threadIdx.x + it * NTHREADS;
-      int i, row0;
-      locate_row(p / PAIRS, rpp(), rl(), pb(), i, row0);
-      __nv_bfloat16* out = dst + (row0 + i) * ld + 2 * (p % PAIRS);
-      const int hs = BITS == 3 && i >= (rpp() >> 1);
-#pragma unroll
-      for (int s = 0; s < PER; ++s) {
-        const float v0 = dequant(grid_value<BITS>(w0[it], h0[it], s, hs), z0[it], s0[it]);
-        const float v1 = dequant(grid_value<BITS>(w1[it], h1[it], s, hs), z1[it], s1[it]);
-        *reinterpret_cast<__nv_bfloat162*>(out + s * rpp() * ld) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-};
-
-// The same tile loaded and stored word by word, for kernels that do not
-// overlap the load with other work.
+// dst[r * ld + c] = w[k0 + r, n0 + c] for the kt rows of a tile (kt =
+// tile_rows(pb)) and NC columns, word by word; zero outside K and N.
 template <typename T, int BITS, int NC, int NTHREADS>
 __device__ __forceinline__ void fill_weight_tile(T* dst, int ld, const int32_t* __restrict__ qw,
                                                  const int32_t* __restrict__ qw_hi,
                                                  const float* __restrict__ scales,
                                                  const float* __restrict__ zeros, int k0, int K,
-                                                 int n0, int N, int pb, int groupsize) {
+                                                 int n0, int N, int pb, int groupsize, int kt) {
   constexpr int PER = Packing<BITS>::PER;
-  const int rpp = pb / PER, rl = __ffs(rpp) - 1;
+  const int rpp = pb / PER;
 #pragma unroll 4
-  for (int w = threadIdx.x; w < (KT / PER) * NC; w += NTHREADS) {
+  for (int w = threadIdx.x; w < (kt / PER) * NC; w += NTHREADS) {
     int i, row0, word, hi;
     float sc, zr;
     const int c = w % NC;
-    locate_row(w / NC, rpp, rl, pb, i, row0);
+    locate_row(w / NC, rpp, pb, i, row0);
     load_word<BITS>(qw, qw_hi, scales, zeros, k0 + row0, i, rpp, n0 + c, K, N, groupsize, word,
                     hi, sc, zr);
     store_word<BITS>(dst + (row0 + i) * ld + c, rpp * ld, i, rpp, word, hi, sc, zr);
@@ -191,45 +143,46 @@ __device__ __forceinline__ void fill_weight_tile(T* dst, int ld, const int32_t* 
 }
 
 // Shared tile dst[r * ld + c] = x[m0 + r, k0 + c] for r < ROWS, c < COLS;
-// zero outside M and K. `vec`: 16-byte loads (K a multiple of 16 / sizeof(T)
-// and x 16-byte aligned; ld keeps dst rows 16-byte aligned).
+// zero outside M and K and from column kt (the tile's rows of K) on. `vec`:
+// 16-byte loads (K and kt multiples of 16 / sizeof(T), x 16-byte aligned; ld
+// keeps dst rows 16-byte aligned).
 template <typename T, int ROWS, int COLS, int NTHREADS>
 __device__ __forceinline__ void fill_x_tile(T* dst, int ld, const T* __restrict__ x, int m0,
-                                            int M, int k0, int K, bool vec) {
+                                            int M, int k0, int K, int kt, bool vec) {
   if (vec) {
     constexpr int V = 16 / sizeof(T), NV = COLS / V;
 #pragma unroll 4
     for (int i = threadIdx.x; i < ROWS * NV; i += NTHREADS) {
       const int r = i / NV, c = (i % NV) * V, m = m0 + r, k = k0 + c;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (m < M && k < K) v = __ldg(reinterpret_cast<const uint4*>(x + (long)m * K + k));
+      if (m < M && c < kt && k < K) v = __ldg(reinterpret_cast<const uint4*>(x + (long)m * K + k));
       *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
     }
   } else {
     for (int i = threadIdx.x; i < ROWS * COLS; i += NTHREADS) {
       const int r = i / COLS, c = i % COLS, m = m0 + r, k = k0 + c;
-      dst[r * ld + c] = (m < M && k < K) ? x[(long)m * K + k] : T{};  // T{}: zero bits
+      dst[r * ld + c] = (m < M && c < kt && k < K) ? x[(long)m * K + k] : T{};  // T{}: zero bits
     }
   }
 }
 
-// The same tile copied with cp.async (16 bytes a copy, zero-filled outside M
-// and K) when `vec`, else filled as above; cp_async_wait_all() then a
-// __syncthreads() make it visible.
+// The same tile copied with cp.async (16 bytes a copy, zero-filled where
+// fill_x_tile writes zeros) when `vec`, else filled as above;
+// cp_async_wait_all() then a __syncthreads() make it visible.
 template <typename T, int ROWS, int COLS, int NTHREADS>
 __device__ __forceinline__ void copy_x_tile_async(T* dst, int ld, const T* __restrict__ x,
-                                                  int m0, int M, int k0, int K, bool vec) {
+                                                  int m0, int M, int k0, int K, int kt, bool vec) {
   constexpr int V = 16 / sizeof(T), NV = COLS / V;
   static_assert(ROWS * NV % NTHREADS == 0, "whole copies per thread");
   if (!vec) {
-    fill_x_tile<T, ROWS, COLS, NTHREADS>(dst, ld, x, m0, M, k0, K, false);
+    fill_x_tile<T, ROWS, COLS, NTHREADS>(dst, ld, x, m0, M, k0, K, kt, false);
     return;
   }
 #pragma unroll
   for (int it = 0; it < ROWS * NV / NTHREADS; ++it) {
     const int idx = threadIdx.x + it * NTHREADS;
     const int r = idx / NV, c = (idx % NV) * V, m = m0 + r, k = k0 + c;
-    const bool in = m < M && k < K;
+    const bool in = m < M && c < kt && k < K;
     const T* src = in ? x + (long)m * K + k : x;
     const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ld + c));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
@@ -242,16 +195,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Whether x (row length K) can be staged with 16-byte loads of `per16` values.
-inline bool vec_ok(const void* x, int K, int per16) {
-  return K % per16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+// Whether x (row length K) can be staged with 16-byte loads of `per16`
+// values, in K tiles of kt rows.
+inline bool vec_ok(const void* x, int K, int kt, int per16) {
+  return K % per16 == 0 && kt % per16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 }
 
-// Whether the packing fields are ones the kernels take (every layout the
-// JAX package's pack_int_weights writes).
+// Whether the packing fields are ones the kernels take: every layout the
+// JAX package's pack_int_weights writes (a pack block that is a multiple of
+// the values per word, at most 128, and divides the groupsize and K).
 inline bool packing_ok(int bits, int K, int N, int pb, int groupsize) {
   const int per = bits == 3 ? 32 : (bits == 2 || bits == 4 || bits == 8 ? 32 / bits : 0);
-  return per > 0 && K >= 1 && N >= 1 && pb >= per && pb <= KT && (pb & (pb - 1)) == 0 &&
+  return per > 0 && K >= 1 && N >= 1 && pb >= per && pb <= KT && pb % per == 0 &&
          K % pb == 0 && groupsize >= pb && groupsize % pb == 0 && K % groupsize == 0;
 }
 

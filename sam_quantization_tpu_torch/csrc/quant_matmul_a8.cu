@@ -5,8 +5,9 @@
 //                                              - (z_g[n] - off) * rowsum_seg(xq)[m])
 // with mid = 2^(bits - 1), off = 128 at 8 bits and 0 below, and the output
 // in x's type (float32 or bfloat16). A segment is a scale group cut at the
-// 128-row K tiles: its integer dot is exact in int32, converted to float32
-// and scaled once, in the segment order, as the TPU kernels do.
+// K tiles (tile_rows(pb) rows, whole pack blocks): its integer dot is exact
+// in int32, converted to float32 and scaled once, in the segment order, as
+// the TPU kernels do.
 //
 // Replaces: sam_quantization_tpu/ops/quant_matmul.py::_qmm_a8_sym_kernel
 // (:369-406, launched by _qmm_a8_sym_call :414-447 through
@@ -26,12 +27,15 @@
 // operations.
 //
 // Design (a simple first version): one block of 8 warps owns a (128, 128)
-// output tile and walks K in tiles of 128 rows, a whole number of pack
-// blocks. Per tile the int8 x tile arrives by cp.async and the packed words
+// output tile and walks K in tiles of whole pack blocks (at most 128 rows,
+// zero-padded to whole 32-deep k steps). Per tile the int8 x tile arrives by
+// cp.async (value by value where a tile does not start on a 16-byte
+// boundary of an x row) and the packed words
 // are decoded, as w - mid or w - off (subtracted before the narrowing, so a
 // grid value of 255 never wraps), into an int8 [n][k] tile: a thread takes
 // four word rows of one column and writes each plane's four consecutive k
-// as one 32-bit word. Both tiles are double-buffered as in quant_matmul.cu.
+// as one 32-bit word (byte by byte where a pack block's planes are not
+// multiples of 4 rows). Both tiles are double-buffered as in quant_matmul.cu.
 // Each warp owns a 32 x 64 sub-tile and runs
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on the int8 tensor cores; its
 // int32 sums cover one segment and are folded into float32 accumulators in
@@ -41,8 +45,9 @@
 // (dp4a of each register with 0x01010101, then two shuffles across the four
 // lanes of a row).
 // A group that ends inside a 32-deep k step (groupsize % 32 != 0; the
-// packing makes every groupsize a multiple of 4, and each A register holds
-// 4 consecutive k) takes the FINE instantiation: the step runs once per
+// packing makes it a multiple of 4, and each A register holds 4 consecutive
+// k), or K tiles of other than 128 rows (pack blocks that do not divide
+// 128: tile_rows), take the FINE instantiation: the step runs once per
 // segment it holds, with the A registers outside the segment zeroed, and
 // each segment reads its own scale (and zero) from device memory when it
 // is folded. The segments and their float32 order are the same as above.
@@ -54,7 +59,7 @@ constexpr int A8_BM = 128, A8_BN = 128;
 constexpr int A8_THREADS = 256;     // 8 warps, 4 (M) x 2 (N), each a 32 x 64 sub-tile
 constexpr int A8_LD = KT + 16;      // int8 row pitch: 144 B = 36 words, fragment loads conflict-free
 constexpr int KSTEP = 32;           // k of one mma.m16n8k32
-constexpr int KSTEPS = KT / KSTEP;  // k steps per K tile
+constexpr int KSTEPS = KT / KSTEP;  // most k steps of a K tile
 constexpr size_t A8_BUF = (size_t)(A8_BM + A8_BN) * A8_LD + 2 * KSTEPS * A8_BN * sizeof(float);
 constexpr size_t A8_SMEM = 2 * A8_BUF;
 
@@ -63,15 +68,16 @@ constexpr int a8_sub() {
   return SYM ? 1 << (BITS - 1) : (BITS == 8 ? 128 : 0);
 }
 
-// The packed words of one (KT, A8_BN) weight tile, and the scales (and
+// The packed words of one (kt, A8_BN) weight tile, and the scales (and
 // zeros less off) of its k steps, held in registers between load() and
 // store(). An item is four consecutive word rows of one column; a warp's
 // lanes take up to four items down K and eight or sixteen columns across,
-// so the 32-bit stores of store() fall in distinct banks.
+// so the 32-bit stores of store() fall in distinct banks. Word rows from
+// kt / PER on (past the tile) load as zeros and are not stored.
 template <int BITS, bool SYM>
 struct Int8WeightTile {
   static constexpr int PER = Packing<BITS>::PER;
-  static constexpr int Q = KT / PER / 4;  // items down a tile's word rows
+  static constexpr int Q = KT / PER / 4;  // items down a full tile's word rows
   static constexpr int QL = Q < 4 ? Q : 4;
   static constexpr int CL = 32 / QL;
   static constexpr int ITEMS = Q * A8_BN / A8_THREADS;
@@ -90,8 +96,7 @@ struct Int8WeightTile {
   __device__ __forceinline__ void load(const int32_t* __restrict__ qw,
                                        const float* __restrict__ scales,
                                        const float* __restrict__ zeros, int k0, int K, int n0,
-                                       int N, int pb, int groupsize) {
-    const int rpp = pb / PER, rl = __ffs(rpp) - 1;
+                                       int N, int groupsize, int kt) {
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       int q, c;
@@ -99,17 +104,16 @@ struct Int8WeightTile {
       const int n = n0 + c;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        int i, row0;
-        locate_row(4 * q + j, rpp, rl, pb, i, row0);
-        const int kb = k0 + row0;
-        w[it][j] = (kb < K && n < N) ? __ldg(qw + (long)(kb / PER + i) * N + n) : 0;
+        // The tile holds whole pack blocks, so its word row r is k0 / PER + r.
+        const int r = 4 * q + j, gr = k0 / PER + r;
+        w[it][j] = (r < kt / PER && gr < K / PER && n < N) ? __ldg(qw + (long)gr * N + n) : 0;
       }
     }
 #pragma unroll
     for (int it = 0; it < SITEMS; ++it) {
       const int e = threadIdx.x + it * A8_THREADS;
-      const int k = k0 + (e / A8_BN) * KSTEP, n = n0 + e % A8_BN;
-      const bool in = k < K && n < N;
+      const int ks = e / A8_BN, k = k0 + ks * KSTEP, n = n0 + e % A8_BN;
+      const bool in = ks * KSTEP < kt && k < K && n < N;
       const long gi = (long)(k / groupsize) * N + n;
       sc[it] = in ? __ldg(scales + gi) : 0.f;
       if constexpr (!SYM) zr[it] = in ? __fsub_rn(__ldg(zeros + gi), (float)SUB) : 0.f;
@@ -117,16 +121,17 @@ struct Int8WeightTile {
   }
 
   // Ws[c * A8_LD + r] = w[k0 + r, n0 + c] - SUB as int8; Ss / Zs[ks * A8_BN + c].
-  __device__ __forceinline__ void store(int8_t* Ws, float* Ss, float* Zs, int pb) const {
-    const int rpp = pb / PER, rl = __ffs(rpp) - 1;
+  __device__ __forceinline__ void store(int8_t* Ws, float* Ss, float* Zs, int pb, int kt) const {
+    const int rpp = pb / PER;
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       int q, c;
       item(threadIdx.x + it * A8_THREADS, q, c);
+      if (4 * q >= kt / PER) continue;
       int8_t* col = Ws + c * A8_LD;
-      if (rpp >= 4) {  // the four word rows hold four consecutive k of each plane
+      if (rpp % 4 == 0) {  // the four word rows hold four consecutive k of each plane
         int i0, row0;
-        locate_row(4 * q, rpp, rl, pb, i0, row0);
+        locate_row(4 * q, rpp, pb, i0, row0);
 #pragma unroll
         for (int s = 0; s < PER; ++s) {
           unsigned v = 0;
@@ -138,8 +143,9 @@ struct Int8WeightTile {
       } else {  // pack blocks of fewer than 4 * PER rows: byte by byte
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
+          if (4 * q + j >= kt / PER) break;
           int i, row0;
-          locate_row(4 * q + j, rpp, rl, pb, i, row0);
+          locate_row(4 * q + j, rpp, pb, i, row0);
 #pragma unroll
           for (int s = 0; s < PER; ++s)
             col[row0 + s * rpp + i] = (int8_t)(grid_value<BITS>(w[it][j], 0, s, 0) - SUB);
@@ -182,7 +188,10 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
   const int gid = lane >> 2, tig = lane & 3;  // the mma fragments' row group and lane in it
   const int m0 = blockIdx.x * A8_BM, n0 = blockIdx.y * A8_BN;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int tiles = (K + KT - 1) / KT;
+  // The FINE build takes any K tile; the other one tiles of KT rows (pack
+  // blocks that divide KT), compile-time constants.
+  const int kt = FINE ? tile_rows(pb) : KT, ksteps = (kt + KSTEP - 1) / KSTEP;
+  const int tiles = (K + kt - 1) / kt;
 
   // acc: float32 sums of finished segments; iacc: int32 sums of the current
   // one; rsp: this lane's part of the rowsum of rows gid and gid + 8.
@@ -197,23 +206,31 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f, iacc[i][j][r] = 0;
   }
 
+  // Weight rows kt .. 32 * ksteps - 1 of both buffers are never stored: zeros.
+  if constexpr (FINE) {
+    for (int i = threadIdx.x; i < 2 * A8_BN * (ksteps * KSTEP - kt); i += A8_THREADS) {
+      const int b = i / (A8_BN * (ksteps * KSTEP - kt)), j = i % (A8_BN * (ksteps * KSTEP - kt));
+      Ws[b * A8_BN * A8_LD + (j % A8_BN) * A8_LD + kt + j / A8_BN] = 0;
+    }
+  }
+
   // Tile t sits in buffer t % 2; while tile t is multiplied, the x copy of
   // tile t + 1 and the word loads of tile t + 2 are in flight.
   Int8WeightTile<BITS, SYM> wt;
-  copy_x_tile_async<int8_t, A8_BM, KT, A8_THREADS>(Xs, A8_LD, xq, m0, M, 0, K, vec);
-  wt.load(qw, scales, zeros, 0, K, n0, N, pb, groupsize);
-  wt.store(Ws, Ss, Zs, pb);
-  if (tiles > 1) wt.load(qw, scales, zeros, KT, K, n0, N, pb, groupsize);
+  copy_x_tile_async<int8_t, A8_BM, KT, A8_THREADS>(Xs, A8_LD, xq, m0, M, 0, K, kt, vec);
+  wt.load(qw, scales, zeros, 0, K, n0, N, groupsize, kt);
+  wt.store(Ws, Ss, Zs, pb, kt);
+  if (tiles > 1) wt.load(qw, scales, zeros, kt, K, n0, N, groupsize, kt);
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
     cp_async_wait_all();
     __syncthreads();  // tile t is in place; step t - 1's products are done with buffer nxt
     if (t + 1 < tiles) {
       copy_x_tile_async<int8_t, A8_BM, KT, A8_THREADS>(Xs + nxt * A8_BM * A8_LD, A8_LD, xq, m0,
-                                                       M, (t + 1) * KT, K, vec);
+                                                       M, (t + 1) * kt, K, kt, vec);
       wt.store(Ws + nxt * A8_BN * A8_LD, Ss + nxt * KSTEPS * A8_BN, Zs + nxt * KSTEPS * A8_BN,
-               pb);
-      if (t + 2 < tiles) wt.load(qw, scales, zeros, (t + 2) * KT, K, n0, N, pb, groupsize);
+               pb, kt);
+      if (t + 2 < tiles) wt.load(qw, scales, zeros, (t + 2) * kt, K, n0, N, groupsize, kt);
     }
     const int8_t* xt = Xs + cur * A8_BM * A8_LD;
     const int8_t* wt_s = Ws + cur * A8_BN * A8_LD;
@@ -221,8 +238,8 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
     const float* zt = Zs + cur * KSTEPS * A8_BN;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int k = t * KT + ks * KSTEP, kk = ks * KSTEP;
-      if (k >= K) break;
+      const int k = t * kt + ks * KSTEP, kk = ks * KSTEP, tend = min(t * kt + kt, K);
+      if (ks >= ksteps || k >= K) break;
       unsigned a[2][4], b[8][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -297,17 +314,18 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
       if constexpr (!FINE) {
         step(a);
         // End of a segment: the last k step of the tile, of K, or of a group.
-        if (ks == KSTEPS - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0)
+        if (ks == ksteps - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0)
           fold([&](int c, float& s, float& zr) {
             s = st[ks * A8_BN + c];
             if constexpr (!SYM) zr = zt[ks * A8_BN + c];
           });
       } else {
-        // Segments [lo, hi) of the step, cut at the group boundaries; the
-        // step's registers hold k + 4 * tig (a0, a1) and k + 16 + 4 * tig (a2, a3).
+        // Segments [lo, hi) of the step, cut at the group boundaries and at
+        // the tile's end (tend: rows past it are zeros); the step's registers
+        // hold k + 4 * tig (a0, a1) and k + 16 + 4 * tig (a2, a3).
         const int klo = k + 4 * tig, khi = klo + 16;
-        for (int lo = k; lo < k + KSTEP && lo < K;) {
-          const int g = lo / groupsize, hi = min((g + 1) * groupsize, k + KSTEP);
+        for (int lo = k; lo < k + KSTEP && lo < tend;) {
+          const int g = lo / groupsize, hi = min(min((g + 1) * groupsize, k + KSTEP), tend);
           const bool inl = lo <= klo && klo < hi, inh = lo <= khi && khi < hi;
           unsigned am[2][4];
 #pragma unroll
@@ -318,7 +336,7 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
             am[i][3] = inh ? a[i][3] : 0u;
           }
           step(am);
-          if (hi % groupsize == 0 || hi >= K || (ks == KSTEPS - 1 && hi == k + KSTEP))
+          if (hi % groupsize == 0 || hi >= tend)
             fold([&](int c, float& s, float& zr) {
               const int n = n0 + c;
               const long gi = (long)g * N + n;
@@ -357,7 +375,7 @@ static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* q
                   const float* s, const float* z, void* out, int M, int K, int N, int pb, int g,
                   cudaStream_t stream) {
   const dim3 grid((M + A8_BM - 1) / A8_BM, (N + A8_BN - 1) / A8_BN);
-  const bool vec = vec_ok(xq, K, 16);
+  const bool vec = vec_ok(xq, K, tile_rows(pb), 16);
   if (dtype == 1)
     return launch(qmm_a8_kernel<BITS, SYM, FINE, __nv_bfloat16>, grid, A8_THREADS, A8_SMEM,
                   stream, xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, vec);
@@ -369,8 +387,9 @@ template <int BITS>
 static int run_a8_bits(int dtype, int sym, const int8_t* xq, const float* xs, const int32_t* qw,
                        const float* s, const float* z, void* out, int M, int K, int N, int pb,
                        int g, cudaStream_t stream) {
-  // FINE: a group ends inside a 32-deep k step.
-  const bool fine = g % KSTEP != 0 && g != K;
+  // FINE: a group ends inside a 32-deep k step, or the K tiles are not KT
+  // rows (pack blocks that do not divide KT).
+  const bool fine = (g != K && g % KSTEP != 0) || tile_rows(pb) != KT;
   if (sym) {
     if (fine) return run_a8<BITS, true, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
     return run_a8<BITS, true, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);

@@ -57,11 +57,11 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
         "samq_quant_matmul",
         (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
-    # dtype, bits, x, qw1, s1, z1, b1, qw2, s2, z2, out, M, K, H, N,
+    # dtype, bits, x, qw1, s1, z1, b1, qw2, s2, z2, out, hidden, M, K, H, N,
     # groupsize1, pack_block1, groupsize2, pack_block2, stream
     "fused_mlp": (
         "samq_fused_mlp",
-        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     # dtype (of out), bits, sym, xq, xs, qweight, scales, zeros, out, M, K, N,
     # groupsize, pack_block, stream

@@ -1,9 +1,12 @@
-"""Fused quantized MLP: dequant-lin1 -> tanh GELU -> dequant-lin2 in one kernel,
-and its plain PyTorch version.
+"""Fused quantized MLP: dequant-lin1 -> tanh GELU -> dequant-lin2 in one kernel
+call, and its plain PyTorch version.
 
 Counterpart of ``sam_quantization_tpu/ops/fused_mlp.py`` (replaces
-``_fused_mlp_kernel``). The (M, H) hidden activation never reaches device
-memory. The numerics are the TPU kernel's, in its order:
+``_fused_mlp_kernel``). In bfloat16 the C function runs two launches of the
+tensor-core body (``csrc/qmm_tc.cuh``), the first with the GELU epilogue
+into an (M, H) bfloat16 scratch tensor that the wrapper allocates; in
+float32 one launch keeps the hidden activation on chip. The numerics are
+the TPU kernel's, in its order:
 ``h = gelu_tanh(x @ W1 + b1)`` in float32, rounded to x's dtype, then
 ``h @ W2`` with float32 accumulation, rounded to x's dtype; ``b2`` is added
 outside the kernel in x's dtype. The GELU is always the tanh form, where
@@ -14,7 +17,8 @@ meet it (3-bit, int8 activations, other widths) runs the unfused sequence
 of layers, as JAX's ``fused_mlp`` does.
 
 The wrapper launches the kernel for a CUDA tensor and uses the plain version
-only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+only for a CPU tensor. ``LAUNCHES`` counts calls of the kernel's C function
+(one per wrapper call, whatever the launches inside it).
 """
 
 from __future__ import annotations
@@ -99,13 +103,17 @@ def fused_mlp(x: torch.Tensor, p1: PackedLinear, p2: PackedLinear) -> torch.Tens
         b1 = p1.bias if p1.bias is not None else torch.zeros(H, device=x.device)
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         if M:
+            # h (M, H) between the two bfloat16 launches; float32 needs none.
+            hidden = (torch.empty((M, H), dtype=x.dtype, device=x.device)
+                      if x.dtype == torch.bfloat16 else None)
             with torch.cuda.device(x.device):
                 stream = torch.cuda.current_stream().cuda_stream
                 _build.launch(
                     "fused_mlp", _build.DTYPE_CODE[x.dtype], p1.bits, x2.data_ptr(),
                     p1.qweight.data_ptr(), p1.scales.data_ptr(), p1.zeros.data_ptr(),
                     b1.data_ptr(), p2.qweight.data_ptr(), p2.scales.data_ptr(),
-                    p2.zeros.data_ptr(), out.data_ptr(), M, K, H, N, p1.groupsize,
+                    p2.zeros.data_ptr(), out.data_ptr(),
+                    None if hidden is None else hidden.data_ptr(), M, K, H, N, p1.groupsize,
                     p1.pack_block, p2.groupsize, p2.pack_block, stream,
                 )
             LAUNCHES["fused_mlp"] += 1

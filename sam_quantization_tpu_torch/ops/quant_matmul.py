@@ -19,7 +19,7 @@ x's dtype, and multiplied with float32 accumulation. Two kernels of
 Int8-activation layers (``act_bits == 8``, W-A8): x is quantized per token
 (:func:`quantize_activations_int8`, plain torch ops as XLA ops in JAX), and
 the integer product runs on the int8 tensor cores, one int32 sum per
-segment (a scale group cut at the kernel's 128-row K tiles), scaled in
+segment (a scale group cut at the kernels' K tiles, :func:`tile_rows`), scaled in
 float32 and summed in K order; the token scale multiplies last. Two kernels
 of ``csrc/quant_matmul_a8.cu`` carry it, for bits 2, 4, 8:
 
@@ -36,12 +36,15 @@ groups to XLA's native int8 dot, because Mosaic's in-kernel int8 dot misses
 the TPU's double-rate mode; that is a TPU finding with no Hopper meaning,
 so here every symmetric 2/4/8-bit layer runs its kernel.
 
-The kernels take every shape: ragged M and N are masked in the kernel, and
-scales are indexed by ``k // groupsize`` directly. ``kernel_supported`` and
-the M padding and scale broadcasting of the Pallas wrappers are TPU tiling
-rules with no counterpart here. A group that ends inside one of the W-A8
-kernels' 32-deep k steps (``groupsize % 32 != 0``) splits that step at the
-boundary (``csrc/quant_matmul_a8.cu``).
+The kernels take every shape and every layout ``pack_int_weights`` writes:
+ragged M and N are masked in the kernel, scales are indexed by ``k //
+groupsize`` directly, and K is walked in tiles of whole pack blocks
+(:func:`tile_rows`: 128 rows at pack block 128, 96 at 48, 120 at 12).
+``kernel_supported`` and the M padding and scale broadcasting of the Pallas
+wrappers are TPU tiling rules with no counterpart here. A group that ends
+inside one of the W-A8 kernels' 32-deep k steps (``groupsize % 32 != 0``)
+splits that step at the boundary, and so does a K tile of other than 128
+rows (``csrc/quant_matmul_a8.cu``, its FINE build).
 
 Cached-int8 layers (``IntLinear``) multiply int8 activations by the stored
 int8 weights with ``torch._int_mm`` on either device: JAX leaves this
@@ -69,7 +72,7 @@ LAUNCHES: Dict[str, int] = {
 }
 # int8_matmul calls: on activations it quantizes, and on int8 input (int8-pre)
 INT8_MATMULS: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_pre": 0}
-A8_TILE_K = 128  # K rows per tile of the packed-weight kernels (KT in csrc/quant_common.cuh)
+MAX_TILE_K = 128  # most K rows of a tile of the packed-weight kernels (KT in csrc/quant_common.cuh)
 
 
 def reset_launch_counts() -> None:
@@ -78,13 +81,20 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def tile_rows(pack_block: int) -> int:
+    """K rows of a tile of the packed-weight kernels (``tile_rows`` in
+    ``csrc/quant_common.cuh``): the most whole pack blocks that fit in 128
+    rows, an even number of them where the pack block is not a multiple of
+    8, so that a tile starts on a 16-byte boundary of an x row."""
+    n = MAX_TILE_K // pack_block
+    if n > 1 and pack_block * n % 8:
+        n -= 1
+    return pack_block * n
+
+
 def check_packed_on(name: str, device: torch.device, *packed: PackedLinear) -> None:
-    """The packed buffers must be contiguous and on ``device``, and each pack
-    block a divisor of the kernels' 128-row K tile."""
+    """The packed buffers must be contiguous and on ``device``."""
     for p in packed:
-        if A8_TILE_K % p.pack_block:
-            raise ValueError(f"{name}: pack_block {p.pack_block} does not divide the "
-                             f"kernels' {A8_TILE_K}-row K tile")
         for t in (p.qweight, p.qweight_hi, p.scales, p.zeros):
             if t is None:
                 continue
@@ -175,10 +185,11 @@ def a8_offset(bits: int, sym: bool) -> int:
     return 128 if bits == 8 else 0
 
 
-def a8_segments(K: int, groupsize: int) -> List[Tuple[int, int]]:
+def a8_segments(K: int, groupsize: int, pack_block: int) -> List[Tuple[int, int]]:
     """The ``[start, end)`` K ranges whose int32 sums the W-A8 kernels turn
-    into float32 one at a time: the scale groups cut at the 128-row K tiles."""
-    cuts = sorted({*range(0, K, groupsize), *range(0, K, A8_TILE_K), K})
+    into float32 one at a time: the scale groups cut at the K tiles of
+    ``tile_rows(pack_block)`` rows."""
+    cuts = sorted({*range(0, K, groupsize), *range(0, K, tile_rows(pack_block)), K})
     return list(zip(cuts[:-1], cuts[1:]))
 
 
@@ -193,7 +204,7 @@ def a8_matmul_plain(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
     w = (unpack_to_int(p) - sub).to(torch.float64)
     xd = xq.to(torch.float64)
     acc = torch.zeros((xq.shape[0], p.out_features), dtype=torch.float32, device=xq.device)
-    for a, b in a8_segments(p.in_features, p.groupsize):
+    for a, b in a8_segments(p.in_features, p.groupsize, p.pack_block):
         g = a // p.groupsize
         d = torch.matmul(xd[:, a:b], w[a:b]).to(torch.float32)
         if sym:
