@@ -16,8 +16,10 @@ Run from the repository root on a machine with one CUDA card. It
    pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
    serving attention kernels and packed-weight kernels also show their
    tensor-core instructions, the HGMMA count that ``cuobjdump -sass`` finds in
-   each instantiation, and the W-A8 kernels their IMMA count), and times the
-   kernel, the plain version, and one
+   each instantiation, and the W-A8 kernels their IGMMA (int8 wgmma, main
+   build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
+   bound rejects their plain version with x's last K tile left out too),
+   and times the kernel, the plain version, and one
    PyTorch library call of the same function, a yardstick the port never
    calls: ``scaled_dot_product_attention`` with the bias materialised as
    ``attn_mask`` for attention, ``torch.matmul`` on the weight dequantized
@@ -191,10 +193,11 @@ def gpu_line() -> str:
 
 
 def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
-    """{key: (HGMMA, HMMA, IMMA)} of each instantiation whose mangled name
-    matches ``pattern`` in a built library's SASS, as ``cuobjdump -sass``
-    lists it; the key is the pattern's groups: (head dim tile, out type) of
-    the bfloat16 attention kernels (``*_tc_kernel<HDP, OutT>``), (bits,
+    """{key: (HGMMA, HMMA, IMMA, IGMMA)} of each instantiation whose mangled
+    name matches ``pattern`` in a built library's SASS, as ``cuobjdump
+    -sass`` lists it: bf16 wgmma, bf16 mma.sync, int8 mma.sync and int8
+    wgmma. The key is the pattern's groups: (head dim tile, out type) of the
+    bfloat16 attention kernels (``*_tc_kernel<HDP, OutT>``), (bits,
     epilogue) of the packed-weight body (``qmm_tc_kernel<BITS, EPI>``),
     (bits, sym, fine, out type) of the W-A8 kernels."""
     import re
@@ -208,13 +211,15 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
             m = re.search(pattern, line)
             key = m.groups() if m else None
             if key:
-                counts[key] = [0, 0, 0]
+                counts[key] = [0, 0, 0, 0]
         elif key and "HGMMA" in line:
             counts[key][0] += 1
         elif key and "HMMA" in line:
             counts[key][1] += 1
         elif key and "IMMA" in line:
             counts[key][2] += 1
+        elif key and "IGMMA" in line:
+            counts[key][3] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -320,7 +325,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
 
     # Proof that the bfloat16 serving attention runs on the tensor cores:
@@ -329,10 +334,10 @@ def main() -> int:
     for name in ("flash_windowed", "flash_global"):
         tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
                                        r"tc_kernelILi(\d+)E(13__nv_bfloat16|a)E")
-        check(len(tc_counts) == 16 and all(h + m > 0 for h, m, _ in tc_counts.values()),
+        check(len(tc_counts) == 16 and all(h + m > 0 for h, m, _, _ in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA/HMMA in SASS: " + ", ".join(
                   f"hd{hdp} {'int8' if out == 'a' else 'bf16'} {h}/{m}"
-                  for (hdp, out), (h, m, _) in sorted(tc_counts.items())))
+                  for (hdp, out), (h, m, _, _) in sorted(tc_counts.items())))
     # And the bfloat16 packed-weight kernels: every instantiation of their
     # body (qmm_tc_kernel<BITS, EPI>) holds HGMMA, bits 2, 3, 4, 8 in
     # quant_matmul (plain epilogue), bits 2, 4, 8 in fused_mlp (both).
@@ -340,17 +345,22 @@ def main() -> int:
                        ("fused_mlp", {(b, e) for b in ("2", "4", "8") for e in ("0", "1")})):
         tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
                                        r"qmm_tc_kernelILi(\d+)ELi(\d+)E")
-        check(set(tc_counts) == want and all(h > 0 for h, _, _ in tc_counts.values()),
+        check(set(tc_counts) == want and all(h > 0 for h, _, _, _ in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA in SASS: " + ", ".join(
-                  f"W{b} epilogue {e} {h}" for (b, e), (h, _, _) in sorted(tc_counts.items())))
-    # The W-A8 kernels' products are int8 mma.sync: IMMA in each of the 24
-    # instantiations (bits 2, 4, 8; sym; FINE; float32 and bf16 out).
+                  f"W{b} epilogue {e} {h}" for (b, e), (h, _, _, _) in sorted(tc_counts.items())))
+    # The W-A8 kernels (bits 2, 4, 8; sym and asym; float32 and bf16 out):
+    # the 12 main-build instantiations run int8 wgmma (IGMMA), the 12 FINE
+    # ones int8 mma.sync (IMMA).
     tc_counts = tensor_core_counts(_build.library_path("quant_matmul_a8"), _build._nvcc(),
                                    r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)E(13__nv_bfloat16|f)E")
-    check(len(tc_counts) == 24 and all(i > 0 for _, _, i in tc_counts.values()),
-          f"quant_matmul_a8 instantiations, IMMA in SASS: {len(tc_counts)} instantiations, "
-          f"{min((i for _, _, i in tc_counts.values()), default=0)}-"
-          f"{max((i for _, _, i in tc_counts.values()), default=0)} IMMA each")
+    want = {(b, s, o) for b in ("2", "4", "8") for s in ("0", "1") for o in ("f", "13__nv_bfloat16")}
+    for fine, ins, i in (("0", "IGMMA", 3), ("1", "IMMA", 2)):
+        build = {(b, s, o): c for (b, s, f, o), c in tc_counts.items() if f == fine}
+        check(set(build) == want and all(c[i] > 0 for c in build.values()),
+              f"quant_matmul_a8 {'FINE' if fine == '1' else 'main'} build, {ins} in SASS: "
+              f"{len(build)} instantiations, "
+              f"{min((c[i] for c in build.values()), default=0)}-"
+              f"{max((c[i] for c in build.values()), default=0)} {ins} each")
 
     gen = torch.Generator(device=dev)
 
@@ -800,7 +810,8 @@ def main() -> int:
     # sit far from the middle. Each kernel and its plain version take the same
     # int8 input: the integer sums are exact on both sides and the float32
     # epilogue runs in the same order, so float32 |d| <= 1e-5 max|ref| and
-    # bfloat16 one output step, |d| <= 2**-7 |ref| + 1e-5 max|ref|.
+    # bfloat16 one output step, |d| <= 2**-7 |ref| + 1e-5 max|ref|; the plain
+    # version with x's last K tile left out must fail that bound.
     gen.manual_seed(3)
     a8_shapes = (("qkv", Mw, C, 3 * C), ("proj", Mw, C, C), ("lin1", Mg, C, H), ("lin2", Mg, H, C))
     a8_cases = [(sym, 4, *shape) for sym in (True, False) for shape in a8_shapes]
@@ -825,8 +836,13 @@ def main() -> int:
                      + 4 * p.scales.numel() * (1 if sym else 2) + M * N * item,
                      flops=2 * M * K * N)
             r["err"], ok = a8_ok(out, ref, dtype)
-            check(ok and out.dtype == dtype and tuple(out.shape) == (M, N),
-                  f"{name} W{bits} {shape} {tag}: max|d| {r['err']:.3e} vs plain")
+            cut = xq.clone()
+            cut[:, K - qm.tile_rows(p.pack_block):] = 0
+            wrong_err, wrong_ok = a8_ok(qm.a8_matmul_plain(cut, xs, p, dtype, sym), ref, dtype)
+            check(ok and not wrong_ok and out.dtype == dtype and tuple(out.shape) == (M, N),
+                  f"{name} W{bits} {shape} {tag}: max|d| {r['err']:.3e} vs plain (last K tile "
+                  f"left out: max|d| {wrong_err:.3e}, {'taken' if wrong_ok else 'rejected'})")
+            del cut
             r["ms"] = cuda_ms(lambda: qm.a8_matmul(xq, xs, p, dtype, sym), 20)
             r["plain_ms"] = cuda_ms(lambda: qm.a8_matmul_plain(xq, xs, p, dtype, sym), 3)
             r["library_ms"] = cuda_ms(lambda: torch._int_mm(xq, w8), 20)

@@ -271,8 +271,8 @@ struct Weights {
 // k atom of the layout above (the tensor map's 128-byte swizzle is the
 // layout's), rows past M and columns past K filled with zeros. One thread
 // arms the stage's mbarrier with the tile's bytes and issues both copies.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
 }
 __device__ __forceinline__ void tma_x(unsigned char* xst, uint64_t* bar, const CUtensorMap* map,
                                       int k0, int m0) {

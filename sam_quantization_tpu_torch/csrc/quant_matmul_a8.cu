@@ -24,49 +24,108 @@
 // g 128) the product is 48.2 G integer operations against ~46.5 MB moved
 // (xq 6.3 MB, bf16 out 37.6 MB, packed words and scales 2.6 MB): 24 us of
 // int8 tensor-core time against 14 us of memory, so it is bound by
-// operations.
+// operations. Three more costs grow with M x N, not with the operations:
+// every segment's int32 sums are folded into float32 (at g 128, 10 folds of
+// 4900 x 3840 values, 4 instructions each sym, 6 asym: ~25 us of issue on
+// 132 SMs), every row block decodes the weights again (M / 128 times, about
+// an instruction a value), and shared memory carries ~125 KB a K tile (the
+// operands re-read by each warpgroup, the copies in, the decode, the
+// scales), ~1000 cycles at 128 bytes a cycle against ~600 of products.
 //
-// Design (a simple first version): one block of 8 warps owns a (128, 128)
-// output tile and walks K in tiles of whole pack blocks (at most 128 rows,
-// zero-padded to whole 32-deep k steps). Per tile the int8 x tile arrives by
-// cp.async (value by value where a tile does not start on a 16-byte
-// boundary of an x row) and the packed words
-// are decoded, as w - mid or w - off (subtracted before the narrowing, so a
-// grid value of 255 never wraps), into an int8 [n][k] tile: a thread takes
-// four word rows of one column and writes each plane's four consecutive k
-// as one 32-bit word (byte by byte where a pack block's planes are not
-// multiples of 4 rows). Both tiles are double-buffered as in quant_matmul.cu.
-// Each warp owns a 32 x 64 sub-tile and runs
-// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on the int8 tensor cores; its
-// int32 sums cover one segment and are folded into float32 accumulators in
-// registers at the segment's end (the accumulator layout of m16n8k32 is
-// documented, so s_g[n], z_g[n] and the row's rowsum apply per register).
-// The asymmetric rowsum comes from the A fragments the warp already holds
-// (dp4a of each register with 0x01010101, then two shuffles across the four
-// lanes of a row).
-// A group that ends inside a 32-deep k step (groupsize % 32 != 0; the
-// packing makes it a multiple of 4, and each A register holds 4 consecutive
-// k), or K tiles of other than 128 rows (pack blocks that do not divide
-// 128: tile_rows), take the FINE instantiation: the step runs once per
-// segment it holds, with the A registers outside the segment zeroed, and
-// each segment reads its own scale (and zero) from device memory when it
-// is folded. The segments and their float32 order are the same as above.
-#include "quant_common.cuh"
+// Main build (FINE = false; a8tc below): warp-specialized, on Hopper's int8
+// warpgroup MMA. A block is three warpgroups and owns a (128, 128) output
+// tile: warpgroup 0 produces, warpgroups 1 and 2 consume rows 0-63 and
+// 64-127.
+// - Products: wgmma.m64n144k32.s32.s8.u8 with both operands K-major in
+//   shared memory (8-bit wgmma takes no transpose), in the 128-byte swizzle:
+//   x [m][k] by TMA (rows past M, columns past K zero-filled), the weights
+//   [n][k] as the producer decodes them. A K tile of 128 int8 is one swizzle
+//   row, a k step 32 bytes further into it, a tile a chain of four.
+// - Raw weights: B is u8 and holds the grid values 0..2^bits - 1 as they
+//   are, so the decode is mask, shift and byte permutes (four word rows of a
+//   column hold four consecutive k of every plane: a 4x4 byte transpose by
+//   prmt, stored at addresses that differ by XORs), and mid (sym) or off
+//   (asym, 8 bits) moves to the segment's int32 sum: d = xq.w - sub *
+//   rowsum, the same integer as xq.(w - sub).
+// - Row sums: 16 rows of ones under each weight tile make B 144 wide; the
+//   product's columns 128-143 hold each row's sum over the segment, in the
+//   accumulator layout, so each thread has the sums of its own two rows.
+// - Fold: a segment (a group of 32 or 64 rows, or the tile; other groups
+//   take FINE) is one chain into an int32 set (scale-d 0 on its first step,
+//   no clearing: ptxas serializes every wgmma if an accumulator is written
+//   while a chain is in flight), a wait, then float32 without a conversion
+//   instruction (the bits of 1.5 * 2^23 + d, less 1.5 * 2^23: exact for |d|
+//   < 2^22, and a segment's |d| is below 127 * 128 * 128), multiplied and
+//   added as the plain version does, never an FMA. The other consumer's
+//   chain can run while one folds.
+// - Ring: four stages of (x tile 16 KB, weight tile with its ones 18 KB, the
+//   tile's raw words and the scales of its k steps as cp.async leaves them).
+//   The producer copies tile u into stage u % 4 once its empty barrier says
+//   both consumers are done with tile u - 4 (x by TMA from one thread; the
+//   words and scales by cp.async, 16 bytes a copy where N % 4 == 0), decodes
+//   tile u - 2, and each producer thread arrives on that stage's full
+//   barrier (with the TMA's bytes, 129 arrivals).
+// - Epilogue: times the token scale, the cast, the tile staged in the ring
+//   and written in 16-byte rows, ragged M and N masked.
+// Tried on the card and dropped (NVIDIA H100 80GB HBM3, 700 W; ViT-H qkv,
+// sym, bf16, ms; timed as tools/a8_timing.py times, variant builds not
+// kept; the body above reads 0.1255-0.1295 there, the mma.sync body
+// 0.2961-0.2969 in the same call; masking before the byte transpose, four
+// transposes an item at 4 bits, read 2-3% slower than transposing first):
+// - one block of two warpgroups doing copies, decode, products and fold in
+//   turn, with two int32 sets so the next segment's chain ran during the
+//   fold: 0.2146, then 0.204 without the clearing of the sets, then 0.175
+//   with the copies' address arithmetic out of the loop; copies, decode and
+//   fold stayed in series at 8 warps an SM (clock() phases put the products
+//   at a small part of each K tile);
+// - this split with a separate wgmma.m64n8k32 against an 8-row tile of ones
+//   for the row sums: 0.1437 (the n144 form saves its A reads);
+// - the words and scales by TMA (four 32-column boxes in the 128-byte
+//   swizzle) and the consumers' chains in strict turns (named barriers):
+//   0.140-0.144 (one thread issuing six copies a tile held the producer);
+//   the turns alone: 0.138-0.140;
+// - two producer warpgroups (512 threads) with setmaxnreg: ptxas kept 128
+//   registers a thread, spilled ~190 bytes and serialized the wgmma: 0.153;
+// - persistent blocks (one an SM walking the output tiles, the epilogue
+//   stored from registers in column pairs): 0.150.
+//
+// FINE build (FINE = true): the first version's body on the Ampere-era
+// mma.sync.m16n8k32.s8, for the layouts the main build does not take:
+// groups that end inside a 32-deep k step (groupsize % 32 != 0; the packing
+// makes it a multiple of 4, and each A register holds 4 consecutive k) and
+// groups other than 32, 64, whole tiles or all of K; K tiles of other than
+// 128 rows (pack blocks that do not divide 128: tile_rows); pack blocks of
+// fewer than four word rows a plane (2-bit groups of 32); x that TMA cannot
+// address (K % 16 != 0, or xq not 16-byte aligned). One block of 8 warps
+// owns a (128, 128) output tile and walks K in tiles of whole pack blocks,
+// zero-padded to whole 32-deep k steps; x by cp.async, the words decoded as
+// w - mid or w - off into an int8 [n][k] tile, both double-buffered. Each
+// warp owns a 32 x 64 sub-tile; a step runs once per segment it holds, with
+// the A registers outside the segment zeroed, and each segment reads its
+// own scale (and zero) from device memory when it is folded; the
+// asymmetric rowsum is dp4a of the A registers. The segments and their
+// float32 order are the same as above. No ViT-H serving layer runs it.
+#include "qmm_tc.cuh"
 
 namespace samq_quant {
 
-constexpr int A8_BM = 128, A8_BN = 128;
-constexpr int A8_THREADS = 256;     // 8 warps, 4 (M) x 2 (N), each a 32 x 64 sub-tile
-constexpr int A8_LD = KT + 16;      // int8 row pitch: 144 B = 36 words, fragment loads conflict-free
-constexpr int KSTEP = 32;           // k of one mma.m16n8k32
+constexpr int A8_THREADS = 256;     // FINE build: 8 warps
+constexpr int KSTEP = 32;           // k of one int8 product step
 constexpr int KSTEPS = KT / KSTEP;  // most k steps of a K tile
-constexpr size_t A8_BUF = (size_t)(A8_BM + A8_BN) * A8_LD + 2 * KSTEPS * A8_BN * sizeof(float);
-constexpr size_t A8_SMEM = 2 * A8_BUF;
 
 template <int BITS, bool SYM>
-constexpr int a8_sub() {
+__host__ __device__ constexpr int a8_sub() {
   return SYM ? 1 << (BITS - 1) : (BITS == 8 ? 128 : 0);
 }
+
+enum A8Flags { X_VEC = 1, W_VEC = 2, OUT_VEC = 4 };
+
+// ============================================================== FINE build
+
+constexpr int A8_BM = 128, A8_BN = 128;
+constexpr int A8_LD = KT + 16;      // int8 row pitch: 144 B = 36 words, fragment loads conflict-free
+constexpr size_t A8_BUF = (size_t)(A8_BM + A8_BN) * A8_LD + 2 * KSTEPS * A8_BN * sizeof(float);
+constexpr size_t A8_SMEM = 2 * A8_BUF;
 
 // The packed words of one (kt, A8_BN) weight tile, and the scales (and
 // zeros less off) of its k steps, held in registers between load() and
@@ -173,13 +232,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BITS, bool SYM, bool FINE, typename T>
-__global__ void __launch_bounds__(A8_THREADS, 1)
-    qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                  const int32_t* __restrict__ qw, const float* __restrict__ scales,
-                  const float* __restrict__ zeros, T* __restrict__ out, int M, int K, int N,
-                  int pb, int groupsize, bool vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
+template <int BITS, bool SYM, typename T>
+__device__ __forceinline__ void a8_fine(unsigned char* smem, const int8_t* __restrict__ xq,
+                                        const float* __restrict__ xs,
+                                        const int32_t* __restrict__ qw,
+                                        const float* __restrict__ scales,
+                                        const float* __restrict__ zeros, T* __restrict__ out,
+                                        int M, int K, int N, int pb, int groupsize, bool vec) {
   int8_t* Xs = reinterpret_cast<int8_t*>(smem);             // 2 x BM x LD
   int8_t* Ws = Xs + 2 * A8_BM * A8_LD;                        // 2 x BN x LD
   float* Ss = reinterpret_cast<float*>(Ws + 2 * A8_BN * A8_LD);  // 2 x KSTEPS x BN
@@ -188,9 +247,7 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
   const int gid = lane >> 2, tig = lane & 3;  // the mma fragments' row group and lane in it
   const int m0 = blockIdx.x * A8_BM, n0 = blockIdx.y * A8_BN;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  // The FINE build takes any K tile; the other one tiles of KT rows (pack
-  // blocks that divide KT), compile-time constants.
-  const int kt = FINE ? tile_rows(pb) : KT, ksteps = (kt + KSTEP - 1) / KSTEP;
+  const int kt = tile_rows(pb), ksteps = (kt + KSTEP - 1) / KSTEP;
   const int tiles = (K + kt - 1) / kt;
 
   // acc: float32 sums of finished segments; iacc: int32 sums of the current
@@ -207,11 +264,9 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
   }
 
   // Weight rows kt .. 32 * ksteps - 1 of both buffers are never stored: zeros.
-  if constexpr (FINE) {
-    for (int i = threadIdx.x; i < 2 * A8_BN * (ksteps * KSTEP - kt); i += A8_THREADS) {
-      const int b = i / (A8_BN * (ksteps * KSTEP - kt)), j = i % (A8_BN * (ksteps * KSTEP - kt));
-      Ws[b * A8_BN * A8_LD + (j % A8_BN) * A8_LD + kt + j / A8_BN] = 0;
-    }
+  for (int i = threadIdx.x; i < 2 * A8_BN * (ksteps * KSTEP - kt); i += A8_THREADS) {
+    const int b = i / (A8_BN * (ksteps * KSTEP - kt)), j = i % (A8_BN * (ksteps * KSTEP - kt));
+    Ws[b * A8_BN * A8_LD + (j % A8_BN) * A8_LD + kt + j / A8_BN] = 0;
   }
 
   // Tile t sits in buffer t % 2; while tile t is multiplied, the x copy of
@@ -234,8 +289,6 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
     }
     const int8_t* xt = Xs + cur * A8_BM * A8_LD;
     const int8_t* wt_s = Ws + cur * A8_BN * A8_LD;
-    const float* st = Ss + cur * KSTEPS * A8_BN;
-    const float* zt = Zs + cur * KSTEPS * A8_BN;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
       const int k = t * kt + ks * KSTEP, kk = ks * KSTEP, tend = min(t * kt + kt, K);
@@ -311,43 +364,33 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
           }
         }
       };
-      if constexpr (!FINE) {
-        step(a);
-        // End of a segment: the last k step of the tile, of K, or of a group.
-        if (ks == ksteps - 1 || k + KSTEP >= K || (k + KSTEP) % groupsize == 0)
-          fold([&](int c, float& s, float& zr) {
-            s = st[ks * A8_BN + c];
-            if constexpr (!SYM) zr = zt[ks * A8_BN + c];
-          });
-      } else {
-        // Segments [lo, hi) of the step, cut at the group boundaries and at
-        // the tile's end (tend: rows past it are zeros); the step's registers
-        // hold k + 4 * tig (a0, a1) and k + 16 + 4 * tig (a2, a3).
-        const int klo = k + 4 * tig, khi = klo + 16;
-        for (int lo = k; lo < k + KSTEP && lo < tend;) {
-          const int g = lo / groupsize, hi = min(min((g + 1) * groupsize, k + KSTEP), tend);
-          const bool inl = lo <= klo && klo < hi, inh = lo <= khi && khi < hi;
-          unsigned am[2][4];
+      // Segments [lo, hi) of the step, cut at the group boundaries and at
+      // the tile's end (tend: rows past it are zeros); the step's registers
+      // hold k + 4 * tig (a0, a1) and k + 16 + 4 * tig (a2, a3).
+      const int klo = k + 4 * tig, khi = klo + 16;
+      for (int lo = k; lo < k + KSTEP && lo < tend;) {
+        const int g = lo / groupsize, hi = min(min((g + 1) * groupsize, k + KSTEP), tend);
+        const bool inl = lo <= klo && klo < hi, inh = lo <= khi && khi < hi;
+        unsigned am[2][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            am[i][0] = inl ? a[i][0] : 0u;
-            am[i][1] = inl ? a[i][1] : 0u;
-            am[i][2] = inh ? a[i][2] : 0u;
-            am[i][3] = inh ? a[i][3] : 0u;
-          }
-          step(am);
-          if (hi % groupsize == 0 || hi >= tend)
-            fold([&](int c, float& s, float& zr) {
-              const int n = n0 + c;
-              const long gi = (long)g * N + n;
-              s = n < N ? __ldg(scales + gi) : 0.f;
-              if constexpr (!SYM) {
-                constexpr float sub = Int8WeightTile<BITS, SYM>::SUB;
-                zr = n < N ? __fsub_rn(__ldg(zeros + gi), sub) : 0.f;
-              }
-            });
-          lo = hi;
+        for (int i = 0; i < 2; ++i) {
+          am[i][0] = inl ? a[i][0] : 0u;
+          am[i][1] = inl ? a[i][1] : 0u;
+          am[i][2] = inh ? a[i][2] : 0u;
+          am[i][3] = inh ? a[i][3] : 0u;
         }
+        step(am);
+        if (hi % groupsize == 0 || hi >= tend)
+          fold([&](int c, float& s, float& zr) {
+            const int n = n0 + c;
+            const long gi = (long)g * N + n;
+            s = n < N ? __ldg(scales + gi) : 0.f;
+            if constexpr (!SYM) {
+              constexpr float sub = Int8WeightTile<BITS, SYM>::SUB;
+              zr = n < N ? __fsub_rn(__ldg(zeros + gi), sub) : 0.f;
+            }
+          });
+        lo = hi;
       }
     }
   }
@@ -370,26 +413,463 @@ __global__ void __launch_bounds__(A8_THREADS, 1)
     }
 }
 
+// ============================================================== main build
+
+namespace a8tc {
+
+using tc::desc;
+using tc::mbar_init;
+using tc::smem_u32;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait_all;
+
+constexpr int PT = 128, CT = 256;        // producer and consumer threads
+constexpr int NT = PT + CT;              // one producer warpgroup, two consumer warpgroups
+constexpr int BM = 128, BN = 128;        // the block's output tile
+constexpr int STAGES = 4;
+constexpr int AHEAD = 2;                 // tiles the producer's copies run ahead of its decode
+constexpr int NB = BN + 16;              // B rows: the weight tile and 16 rows of ones
+constexpr int X_BYTES = BM * KT;         // x tile of a stage, [m][k] int8 (16 KB)
+constexpr int W_BYTES = NB * KT;         // weight tile [n][k] u8 and the ones (18 KB)
+constexpr int SC_FLOATS = KSTEPS * BN;   // scales (or zeros) of a tile's k steps
+constexpr int LDO = BN + 8;              // epilogue staging pitch, values (rows 4 or 8 banks apart)
+constexpr int MAGIC = 0x4B400000;        // the bits of 1.5 * 2^23
+constexpr float MAGIC_F = 12582912.f;    // 1.5 * 2^23
+
+// A stage: x tile, weight tile with its rows of ones, the tile's raw words
+// ([word row][column], 16-byte chunks swizzled, see raw_col), scales and,
+// asymmetric, zeros.
+template <int BITS, bool SYM>
+struct Layout {
+  static constexpr int PER = Packing<BITS>::PER;
+  static constexpr int WR = KT / PER;  // word rows of a tile
+  static constexpr int RAW = WR * BN * 4;
+  static constexpr int SCALES = X_BYTES + W_BYTES + RAW;
+  static constexpr int STAGE = SCALES + SC_FLOATS * 4 * (SYM ? 1 : 2);
+  static constexpr int BARS = STAGES * STAGE;  // full and empty mbarriers of each stage
+  static constexpr size_t SMEM = BARS + 16 * STAGES + 1024;  // + room to align the base to 1 KB
+  static_assert(STAGE % 1024 == 0, "stages keep the swizzle atoms 1 KB aligned");
+  static_assert(STAGES * STAGE >= BM * LDO * 4, "the epilogue fits in the ring");
+};
+
+// Word (wr, c) of a stage's raw words sits at column raw_col(wr, c) of row
+// wr: the four word rows of a decode item share a swizzle, and the four
+// items a warp takes down K read distinct banks.
+__device__ __forceinline__ int raw_col(int wr, int c) { return c ^ (((wr >> 2) & 3) << 3); }
+
+template <int R>
+__device__ __forceinline__ void fence_iregs(int (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 144, s32) = [d +] a (64 x 32, s8, K-major) * b (32 x 144, u8,
+// K-major), both in shared memory. Columns 128-143 of b are ones, so d's
+// columns 128-143 hold the sums of a's rows.
+__device__ __forceinline__ void mma_n144(int (&d)[72], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71}, "
+      "%72, %73, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait for phase `parity` of an mbarrier to complete; a phase that never
+// completes traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool in) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(in ? 4 : 0));
+}
+
+// x tile t (128 rows from m0, 128 columns) into a stage by TMA.
+__device__ __forceinline__ void tma_x(unsigned char* dst, uint64_t* bar, const CUtensorMap* map,
+                                      int k0, int m0) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(X_BYTES)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(m0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The raw words of tile t (word rows t * WR.., columns n0..) and the scales
+// (and zeros) of its k steps into a stage, by cp.async from the producer
+// threads (p = 0..127); zeros past K and N. `vec` (N % 4 == 0, 16-byte
+// aligned buffers): a thread's copies are fixed for the block, 16 bytes
+// each: word rows p / 32 + 4 j and the scales (and zeros) of k step p / 32,
+// columns 4 (p % 32). Otherwise word by word.
+template <int BITS, bool SYM>
+__device__ __forceinline__ void copy_words(unsigned char* st, const int32_t* __restrict__ qw,
+                                           const float* __restrict__ scales,
+                                           const float* __restrict__ zeros, int t, int K, int n0,
+                                           int N, int groupsize, int gshift, int p, bool vec) {
+  using L = Layout<BITS, SYM>;
+  int32_t* raw = reinterpret_cast<int32_t*>(st + X_BYTES + W_BYTES);
+  float* sc = reinterpret_cast<float*>(st + L::SCALES);
+  const int k0 = t * KT, wr0 = t * L::WR, wrows = K / L::PER;
+  auto row = [&](int k) { return gshift >= 0 ? k >> gshift : k / groupsize; };
+  if (vec) {
+    const int r = p >> 5, c = (p & 31) * 4;
+    const bool cin = n0 + c < N;
+    const int32_t* wp = qw + (long)(wr0 + r) * N + n0 + c;
+#pragma unroll
+    for (int j = 0; j < L::WR / 4; ++j) {
+      const int wr = r + 4 * j;
+      const bool in = cin && wr0 + wr < wrows;
+      cp_async(raw + wr * BN + raw_col(wr, c), in ? wp + (long)4 * j * N : qw, 16, in);
+    }
+    const int k = k0 + r * KSTEP;
+    const bool in = cin && k < K;
+#pragma unroll
+    for (int a = 0; a < (SYM ? 1 : 2); ++a) {
+      const float* src = a ? zeros : scales;
+      cp_async(sc + a * SC_FLOATS + r * BN + c, in ? src + (long)row(k) * N + n0 + c : src, 16, in);
+    }
+    return;
+  }
+  for (int i = p; i < L::WR * BN; i += PT) {
+    const int wr = i / BN, c = i % BN, n = n0 + c;
+    const bool in = wr0 + wr < wrows && n < N;
+    cp_async(raw + wr * BN + raw_col(wr, c), in ? qw + (long)(wr0 + wr) * N + n : qw, 4, in);
+  }
+  for (int i = p; i < (SYM ? 1 : 2) * SC_FLOATS; i += PT) {
+    const int a = i / SC_FLOATS, ks = i % SC_FLOATS / BN, c = i % BN;
+    const int k = k0 + ks * KSTEP, n = n0 + c;
+    const bool in = k < K && n < N;
+    const float* src = a ? zeros : scales;
+    cp_async(sc + i, in ? src + (long)row(k) * N + n : src, 4, in);
+  }
+}
+
+// o[b] = byte b of a[0..3], a[0]'s lowest: a 4x4 byte transpose.
+__device__ __forceinline__ void transpose4(const unsigned (&a)[4], unsigned (&o)[4]) {
+  const unsigned t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
+  const unsigned t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Decode a stage's raw words into its weight tile, raw grid values as u8.
+// Item (q, c) is word rows 4q..4q+3 of column c: one pack block (rpp % 4 ==
+// 0), so each of their planes s holds the four consecutive k from kb + s *
+// rpp, which become one 32-bit word of row c. A warp's lanes take up to four
+// items down K and eight or sixteen columns across (as Int8WeightTile).
+// The tile is K-major in the 128-byte swizzle: 16-byte chunk k / 16 of row
+// c sits at chunk (k / 16) ^ (c % 8), so (c, k) is at byte (c * 128 + ((c %
+// 8) << 4)) ^ k, and as kb and s * rpp have disjoint bits (powers of two),
+// the stores of an item differ by XORs.
+template <int BITS, bool SYM>
+__device__ __forceinline__ void decode(unsigned char* st, int p0, int rsh, int psh) {
+  using L = Layout<BITS, SYM>;
+  constexpr int Q = L::WR / 4, QL = Q < 4 ? Q : 4, CL = 32 / QL, ITEMS = Q * BN / PT;
+  static_assert(Q * BN % PT == 0, "whole items");
+  const int32_t* raw = reinterpret_cast<const int32_t*>(st + X_BYTES + W_BYTES);
+  const uint32_t wt = smem_u32(st + X_BYTES);
+  const int rpp = 1 << rsh;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int p = p0 + it * PT, l = p & 31, wi = p >> 5;
+    const int q = (wi / (BN / CL)) * QL + l % QL, c = (wi % (BN / CL)) * CL + l / QL;
+    const int wr = 4 * q, kb = ((wr >> rsh) << psh) | (wr & (rpp - 1));
+    const int32_t* src = raw + wr * BN + raw_col(wr, c);
+    unsigned a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = src[j * BN];
+    const uint32_t at = wt + c * 128 + (((c & 7) << 4) ^ kb);
+    auto put = [&](int s, unsigned v) {
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at ^ (s << rsh)), "r"(v) : "memory");
+    };
+    // Byte j of o[b] is byte b of word j, whose bits BITS * m hold plane
+    // PARTS * b + m: a shift and a mask a plane.
+    constexpr int PARTS = 8 / BITS;
+    constexpr unsigned M4 = ((1u << BITS) - 1) * 0x01010101u;
+    unsigned o[4];
+    transpose4(a, o);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int m = 0; m < PARTS; ++m) put(PARTS * b + m, (o[b] >> (BITS * m)) & M4);
+  }
+}
+
+// Steps lo..lo + NS - 1 of a stage into d, the first with scale-d 0: each
+// step 32 bytes further into the swizzle rows (the hardware applies the
+// swizzle to the sum); SBO 1 KB between 8-row groups, LBO unused inside the
+// 128-byte atom. xa: this warpgroup's x rows, wb: the weight tile.
+template <int NS>
+__device__ __forceinline__ void chain(int (&d)[72], uint32_t xa, uint32_t wb) {
+#pragma unroll
+  for (int ks = 0; ks < NS; ++ks)
+    mma_n144(d, desc(xa + ks * 32, 16, 1024), desc(wb + ks * 32, 16, 1024), ks != 0);
+}
+
+// One (BM, BN) output tile. Warpgroup 0 produces: tile u's x by TMA and its
+// raw words and scales by cp.async into stage u % 4 (once the consumers
+// have freed it), and AHEAD tiles later the decode of its words into the
+// stage's weight tile, after which each producer thread arrives on the
+// stage's full barrier (with the TMA's bytes, 129 arrivals). Warpgroups 1
+// and 2 consume rows 0-63 and 64-127: per segment a chain of wgmma into
+// one int32 set, a wait, and the fold; then each thread arrives on the
+// stage's empty barrier.
+template <int BITS, bool SYM, typename T>
+__device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xmap,
+                                      const float* __restrict__ xs,
+                                      const int32_t* __restrict__ qw,
+                                      const float* __restrict__ scales,
+                                      const float* __restrict__ zeros, T* __restrict__ out, int M,
+                                      int K, int N, int pb, int groupsize, int flags) {
+  using L = Layout<BITS, SYM>;
+  constexpr int SUB = a8_sub<BITS, SYM>();
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tiles = (K + KT - 1) / KT;
+  // k steps a segment: groups of 32 or 64 rows, else whole tiles (groups of
+  // whole tiles, or one group); run_a8_bits sends other groups to FINE.
+  const int gs = groupsize == KSTEP ? 1 : groupsize == 2 * KSTEP ? 2 : KSTEPS;
+  auto stage = [&](int t) { return smem + (t & (STAGES - 1)) * L::STAGE; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + s, 1 + PT), mbar_init(empty + s, CT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < STAGES * 16 * KT / 4; i += NT)  // the rows of ones under each weight tile
+    reinterpret_cast<unsigned*>(stage(i / (4 * KT)) + X_BYTES + BN * KT)[i % (4 * KT)] = 0x01010101u;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (wg == 0) {  // ------------------------------------------------ producer
+    const int rsh = __ffs(pb / L::PER) - 1, psh = __ffs(pb) - 1;  // both powers of two here
+    const int gshift = (groupsize & (groupsize - 1)) == 0 ? __ffs(groupsize) - 1 : -1;
+    const bool wvec = flags & W_VEC;
+    for (int u = 0; u < tiles + AHEAD; ++u) {
+      if (u < tiles) {
+        const int s = u & (STAGES - 1);
+        if (u >= STAGES) mbar_wait(empty + s, (u / STAGES - 1) & 1);
+        if (tid == 0) tma_x(stage(u), full + s, xmap, u * KT, m0);
+        copy_words<BITS, SYM>(stage(u), qw, scales, zeros, u, K, n0, N, groupsize, gshift, tid,
+                              wvec);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+      const int d = u - AHEAD;  // tile d's words: AHEAD groups were committed after them
+      if (d < 0) continue;
+      if (u < tiles) asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD) : "memory");
+      else cp_async_wait_all();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");  // every producer's copies
+      decode<BITS, SYM>(stage(d), tid, rsh, psh);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full + (d & (STAGES - 1)));
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  const int cw = wg - 1;  // rows 64 cw.. of the tile
+  // The int32 set needs no clearing (each segment's first step has scale-d
+  // 0), and must not get any: ptxas serializes every wgmma if a non-wgmma
+  // instruction writes an accumulator while a chain is in flight.
+  int acci[72];
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint32_t base = smem_u32(smem);
+  // acci[i] is row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) & 1) of the
+  // warpgroup's 64, column 8 (i >> 2) + 2 (lane % 4) + (i & 1), as acc[i];
+  // acci[64] and acci[66] (columns of ones) are the sums of the two rows.
+  auto fold = [&](const float* sc) {
+    const int b0 = MAGIC - SUB * acci[64], b1 = MAGIC - SUB * acci[66];
+    float rf0 = 0.f, rf1 = 0.f;
+    if constexpr (!SYM) rf0 = __int2float_rn(acci[64]), rf1 = __int2float_rn(acci[66]);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 s = *reinterpret_cast<const float2*>(sc + c);
+      float2 z = make_float2(0.f, 0.f);
+      if constexpr (!SYM) {
+        z = *reinterpret_cast<const float2*>(sc + SC_FLOATS + c);
+        if constexpr (SUB != 0) z = make_float2(__fsub_rn(z.x, (float)SUB), __fsub_rn(z.y, (float)SUB));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float dv = __fsub_rn(__int_as_float(acci[i] + (h ? b1 : b0)), MAGIC_F);
+          const float se = e ? s.y : s.x;
+          float term;
+          if constexpr (SYM) {
+            term = __fmul_rn(dv, se);
+          } else {
+            term = __fmul_rn(__fsub_rn(dv, __fmul_rn(e ? z.y : z.x, h ? rf1 : rf0)), se);
+          }
+          acc[i] = __fadd_rn(acc[i], term);
+        }
+    }
+  };
+#pragma unroll 1
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t & (STAGES - 1);
+    mbar_wait(full + s, (t / STAGES) & 1);
+    const uint32_t st = base + s * L::STAGE, xa = st + cw * 64 * 128, wb = st + X_BYTES;
+    const float* sc = reinterpret_cast<const float*>(stage(t) + L::SCALES);
+#pragma unroll 1
+    for (int lo = 0; lo < KSTEPS; lo += gs) {
+      fence_iregs(acci);
+      wg_fence();
+      if (gs == KSTEPS) chain<KSTEPS>(acci, xa, wb);
+      else if (gs == 2) chain<2>(acci, xa + lo * 32, wb + lo * 32);
+      else chain<1>(acci, xa + lo * 32, wb + lo * 32);
+      wg_commit();
+      wg_wait_all();
+      fence_iregs(acci);
+      fold(sc + lo * BN);
+    }
+    mbar_arrive(empty + s);
+  }
+
+  // Epilogue: the token scale, the cast, the tile staged in the ring (once
+  // both consumers are done with it; the producer is: every tile was full)
+  // and written out in 16-byte rows.
+  asm volatile("bar.sync 2, %0;\n" ::"n"(CT) : "memory");
+  T* so = reinterpret_cast<T*>(smem);
+  const int r0 = cw * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const float x0 = m0 + r0 < M ? __ldg(xs + m0 + r0) : 0.f;
+  const float x1 = m0 + r0 + 8 < M ? __ldg(xs + m0 + r0 + 8) : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float v0 = __fmul_rn(acc[4 * j + 2 * h], h ? x1 : x0);
+      const float v1 = __fmul_rn(acc[4 * j + 2 * h + 1], h ? x1 : x0);
+      T* dst = so + (r0 + 8 * h) * LDO + c;
+      if constexpr (sizeof(T) == 4) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      else *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+    }
+  asm volatile("bar.sync 2, %0;\n" ::"n"(CT) : "memory");
+  constexpr int V = 16 / sizeof(T), CH = BN / V;
+  const bool ovec = flags & OUT_VEC;
+  for (int i = tid - PT; i < BM * CH; i += CT) {
+    const int r = i / CH, c = (i % CH) * V, m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const T* src = so + r * LDO + c;
+    T* dst = out + (long)m * N + n;
+    if (ovec && n + V <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < V && n + e < N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+}  // namespace a8tc
+
+// Both builds behind one kernel: FINE = true runs a8_fine, else a8tc::a8_tc.
+template <int BITS, bool SYM, bool FINE, typename T>
+__global__ void __launch_bounds__(FINE ? A8_THREADS : a8tc::NT, 1)
+    qmm_a8_kernel(const __grid_constant__ CUtensorMap xmap, const int8_t* __restrict__ xq,
+                  const float* __restrict__ xs, const int32_t* __restrict__ qw,
+                  const float* __restrict__ scales, const float* __restrict__ zeros,
+                  T* __restrict__ out, int M, int K, int N, int pb, int groupsize, int flags) {
+  extern __shared__ __align__(1024) unsigned char a8_smem[];
+  if constexpr (FINE) {
+    a8_fine<BITS, SYM, T>(a8_smem, xq, xs, qw, scales, zeros, out, M, K, N, pb, groupsize,
+                          flags & X_VEC);
+  } else {
+    // Swizzle atoms need 1 KB alignment; SMEM leaves room for it.
+    const uint32_t mis = tc::smem_u32(a8_smem) & 1023;
+    a8tc::a8_tc<BITS, SYM, T>(a8_smem + (mis ? 1024 - mis : 0), &xmap, xs, qw, scales, zeros,
+                              out, M, K, N, pb, groupsize, flags);
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <int BITS, bool SYM, bool FINE>
 static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* qw,
                   const float* s, const float* z, void* out, int M, int K, int N, int pb, int g,
                   cudaStream_t stream) {
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  size_t smem = A8_SMEM;
+  int flags = vec_ok(xq, K, tile_rows(pb), 16) ? X_VEC : 0;
+  if constexpr (!FINE) {
+    using L = a8tc::Layout<BITS, SYM>;
+    smem = L::SMEM;
+    const auto fn = tc::encode_fn();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)K};
+    const cuuint32_t box[2] = {KT, a8tc::BM}, estr[2] = {1, 1};
+    if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xq), dims, strides, box,
+           estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    if (N % 4 == 0 && aligned16(qw) && aligned16(s) && (SYM || aligned16(z))) flags |= W_VEC;
+    if (N % (dtype == 1 ? 8 : 4) == 0 && aligned16(out)) flags |= OUT_VEC;
+  }
   const dim3 grid((M + A8_BM - 1) / A8_BM, (N + A8_BN - 1) / A8_BN);
-  const bool vec = vec_ok(xq, K, tile_rows(pb), 16);
+  const int threads = FINE ? A8_THREADS : a8tc::NT;
   if (dtype == 1)
-    return launch(qmm_a8_kernel<BITS, SYM, FINE, __nv_bfloat16>, grid, A8_THREADS, A8_SMEM,
-                  stream, xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, vec);
-  return launch(qmm_a8_kernel<BITS, SYM, FINE, float>, grid, A8_THREADS, A8_SMEM, stream, xq, xs,
-                qw, s, z, static_cast<float*>(out), M, K, N, pb, g, vec);
+    return launch(qmm_a8_kernel<BITS, SYM, FINE, __nv_bfloat16>, grid, threads, smem, stream, map,
+                  xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, flags);
+  return launch(qmm_a8_kernel<BITS, SYM, FINE, float>, grid, threads, smem, stream, map, xq, xs,
+                qw, s, z, static_cast<float*>(out), M, K, N, pb, g, flags);
 }
 
 template <int BITS>
 static int run_a8_bits(int dtype, int sym, const int8_t* xq, const float* xs, const int32_t* qw,
                        const float* s, const float* z, void* out, int M, int K, int N, int pb,
                        int g, cudaStream_t stream) {
-  // FINE: a group ends inside a 32-deep k step, or the K tiles are not KT
-  // rows (pack blocks that do not divide KT).
-  const bool fine = (g != K && g % KSTEP != 0) || tile_rows(pb) != KT;
+  // FINE: groups other than 32 or 64 rows, whole K tiles or all of K (those
+  // that end inside a 32-deep k step, and 96, 160, ...), K tiles of other
+  // than KT rows (pack blocks that do not divide KT), pack blocks of fewer
+  // than four word rows a plane, or x that TMA cannot address.
+  const bool fine = !(g == K || g == KSTEP || g == 2 * KSTEP || g % KT == 0) ||
+                    tile_rows(pb) != KT || (pb / Packing<BITS>::PER) % 4 != 0 || K % 16 != 0 ||
+                    !aligned16(xq);
   if (sym) {
     if (fine) return run_a8<BITS, true, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
     return run_a8<BITS, true, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);

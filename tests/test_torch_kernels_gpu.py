@@ -401,7 +401,12 @@ def _check_a8(out, ref, dtype):
 @pytest.mark.parametrize("sym", [True, False])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("M,K,N,g", [(64, 256, 128, 32), (100, 512, 192, 64), (37, 256, 250, 128),
-                                     (130, 384, 128, 0), (1, 128, 64, 0), (0, 128, 64, 32)])
+                                     (130, 384, 128, 0), (1, 128, 64, 0), (0, 128, 64, 32),
+                                     # groups of 32 and 64 inside the 128-row K tile, and
+                                     # M 1, 63, 65, 4900 against a ragged N: the TMA
+                                     # zero-fill of the x tile and the masked epilogue
+                                     (63, 384, 250, 32), (65, 384, 250, 64), (1, 384, 250, 128),
+                                     (4900, 384, 250, 32)])
 def test_a8_kernels_match_plain(cuda, dtype, sym, bits, M, K, N, g):
     tdt = DTYPES[dtype][0]
     p = _packed_a8(40, K, N, bits, g, sym, cuda)
@@ -417,6 +422,72 @@ def test_a8_kernels_match_plain(cuda, dtype, sym, bits, M, K, N, g):
     # quant_matmul dispatches the layer (sym or not) to this kernel and
     # quantizes x to the same xq.
     assert torch.equal(tqm.quant_matmul(x, p), out)
+
+
+# ViT-H's qkv (25 windows x 196 tokens) and lin2 (4096 global tokens, K
+# 5120) at 4 bits, groups of 128, as W4A8 serves them; tolerance as above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("M,K,N", [(4900, 1280, 3840), (4096, 5120, 1280)])
+def test_a8_kernels_match_plain_at_vit_h(cuda, dtype, sym, M, K, N):
+    tdt = DTYPES[dtype][0]
+    p = _packed_a8(42, K, N, 4, 128, sym, cuda)
+    xq, xs = tqm.quantize_activations_int8(_randn(43, M, K).to(cuda, tdt))
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    before = dict(tqm.LAUNCHES)
+    out = tqm.a8_matmul(xq, xs, p, tdt, sym)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES == {**before, name: before[name] + 1}
+    assert out.dtype == tdt and out.shape == (M, N)
+    _check_a8(out, tqm.a8_matmul_plain(xq, xs, p, tdt, sym), dtype)
+
+
+def _sass_counts(name, pattern, instructions):
+    """{instantiation key: [count of each instruction]} of the built library
+    of ``csrc/<name>.cu``, read from ``cuobjdump -sass``."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from sam_quantization_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists() and shutil.which("cuobjdump") is None:
+        pytest.skip("needs cuobjdump to read the kernels' SASS")
+    _build.load(name)
+    sass = subprocess.run([str(cuobjdump) if cuobjdump.exists() else "cuobjdump", "-sass",
+                           str(_build.library_path(name))], capture_output=True, text=True,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(pattern, line)
+            key = m.groups() if m else None
+            if key:
+                counts[key] = [0] * len(instructions)
+        elif key:
+            for i, ins in enumerate(instructions):
+                if ins in line:
+                    counts[key][i] += 1
+    return counts
+
+
+@pytest.mark.gpu
+def test_a8_main_build_runs_int8_wgmma(cuda):
+    """Every main-build instantiation of the W-A8 kernel (bits 2/4/8, sym and
+    asym, float32 and bf16 out) holds IGMMA (int8 wgmma) and no IMMA; every
+    FINE one holds IMMA (mma.sync)."""
+    counts = _sass_counts("quant_matmul_a8",
+                          r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)E(13__nv_bfloat16|f)E",
+                          ("IGMMA", "IMMA"))
+    assert len(counts) == 24, sorted(counts)
+    for (bits, sym, fine, out), (igmma, imma) in counts.items():
+        if fine == "1":
+            assert imma > 0 and igmma == 0, (bits, sym, out, igmma, imma)
+        else:
+            assert igmma > 0 and imma == 0, (bits, sym, out, igmma, imma)
 
 
 @pytest.mark.gpu

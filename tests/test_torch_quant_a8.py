@@ -209,6 +209,63 @@ def test_a8_groups_below_the_k_step_match_jax_kernel(sym, bits, K, groupsize):
 
 
 # ---------------------------------------------------------------------------
+# (c') the integer algebra of the kernels' tensor-core build
+# ---------------------------------------------------------------------------
+
+MAGIC = 0x4B400000  # the bits of 1.5 * 2**23
+
+
+def _u8_form(xq, xs, p, dtype, sym):
+    """What the main build of ``csrc/quant_matmul_a8.cu`` computes: the raw
+    grid values w (u8, nothing subtracted), per segment the int32 sum d =
+    xq.w - sub * rowsum(xq), the same integer as xq.(w - sub), turned into
+    float32 through the bits of 1.5 * 2**23 + d (no conversion), then the
+    plain version's float32 fold, token scale and cast."""
+    sub = tqm.a8_offset(p.bits, sym)
+    w = tpacked.unpack_to_int(p).to(torch.int64)
+    assert 0 <= int(w.min()) and int(w.max()) < 256  # u8 operands
+    xl = xq.to(torch.int64)
+    acc = torch.zeros((xq.shape[0], p.out_features), dtype=torch.float32)
+    for a, b in tqm.a8_segments(p.in_features, p.groupsize, p.pack_block):
+        g = a // p.groupsize
+        rs = xl[:, a:b].sum(dim=1, keepdim=True)
+        d = xl[:, a:b] @ w[a:b] - sub * rs
+        assert int(d.abs().max()) < 2**22  # where the magic-number conversion is exact
+        dv = (d + MAGIC).to(torch.int32).view(torch.float32) - 1.5 * 2**23
+        if sym:
+            term = dv * p.scales[g]
+        else:
+            term = (dv - (p.zeros[g] - sub) * rs.to(torch.float32)) * p.scales[g]
+        acc = acc + term
+    return (acc * xs).to(dtype)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("groupsize", [32, 64, 128])
+@pytest.mark.parametrize("K", [384, 1280])
+def test_a8_u8_form_matches_plain_and_jax_kernel(sym, bits, groupsize, K):
+    """The tensor-core build's decomposition against the plain version, bit
+    for bit (float32 and bfloat16), and in float32 against JAX's Pallas
+    kernel in interpret mode, whose K tiles hold whole groups here, so its
+    segments are the port's: |d| <= 1e-5 max|ref| (``_close``), because
+    XLA on the CPU rounds the fold's float32 arithmetic differently (about
+    half the outputs move by an ulp). x (37, K) with one row of extreme
+    values (+-127 in every column), N 128; asymmetric grids on skewed
+    weights, zero points far from the middle (at 8 bits from 128)."""
+    jp, tp = _layer(bits * 100 + groupsize + K, K, 128, bits, groupsize, sym)
+    x = np.random.default_rng(K + groupsize).normal(size=(37, K)).astype(np.float32)
+    x[5] = np.where(np.arange(K) % 3 == 0, -1.0, 1.0)  # xq row of +-127: the largest |d|
+    xq, xs = tqm.quantize_activations_int8(torch.from_numpy(x))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = _u8_form(xq, xs, tp, dtype, sym)
+        assert torch.equal(out, tqm.a8_matmul_plain(xq, xs, tp, dtype, sym))
+    jfn = jqm._quant_matmul_a8_sym if sym else jqm._quant_matmul_a8_asym
+    ref = _interpret(jfn, jnp.asarray(x), jp)
+    _close(_u8_form(xq, xs, tp, torch.float32, sym), ref, "f32")
+
+
+# ---------------------------------------------------------------------------
 # (d) the dispatch table, (e) with_act_bits
 # ---------------------------------------------------------------------------
 
