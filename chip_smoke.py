@@ -14,9 +14,10 @@ Run from the repository root on a machine with one CUDA card. It
    each also showing that its bound rejects a wrong output, the packed-weight
    kernels' being their plain version with x's last K tile left out, also at
    pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
-   serving attention kernels and packed-weight kernels also show their
-   tensor-core instructions, the HGMMA count that ``cuobjdump -sass`` finds in
-   each instantiation, and the W-A8 kernels their IGMMA (int8 wgmma, main
+   serving attention kernels, packed-weight kernels and the probes' row-max
+   and clamp-40 body (P3, P4) also show their tensor-core instructions, the
+   HGMMA count that ``cuobjdump -sass`` finds in each instantiation (and no
+   CUDA-core build of P3 or P4), and the W-A8 kernels their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
    and times the kernel, the plain version, and one
@@ -122,6 +123,16 @@ QUANT_RANGE = "quantize_activations_int8"  # profiler range around the quantize 
 # output across a rounding point), and the plain version with its last key
 # tile skipped in p.v reads 0.35 to 1.05; HS_BF16_C leaves room for both.
 HS_BF16_C = 2.0**-10
+# P3 on the probe driver's own unscaled q (logits of std ~9): a p near 1
+# that rounds to bf16 on either side with the last bit of s moves a row by
+# two output steps, and the plain version itself reads 1.037e-3 (exp2) and
+# 7.5e-4 (exp) from a float64 evaluation on an H100, above HS_BF16_C for
+# exp2. There the kernel is held within P3_RAW_C of the plain version and no
+# farther from float64 than the larger of HS_BF16_C and P3_F64_MARGIN times
+# the plain version's own reading (it read 1.041e-3 / 9.05e-4 and 9.9e-4 /
+# 9.05e-4); the plain version with its last key tile skipped must fail both.
+P3_RAW_C = 2.0**-9
+P3_F64_MARGIN = 1.25
 TRAIN_STEPS = 4  # timed ViT-H training steps (one more is profiled)
 # One-click flash_train vs eager on identical weights and click: the forward
 # differs only by the kernel's clamped exp2 softmax and float32 sum order.
@@ -193,13 +204,15 @@ def gpu_line() -> str:
 
 
 def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
-    """{key: (HGMMA, HMMA, IMMA, IGMMA)} of each instantiation whose mangled
-    name matches ``pattern`` in a built library's SASS, as ``cuobjdump
-    -sass`` lists it: bf16 wgmma, bf16 mma.sync, int8 mma.sync and int8
-    wgmma. The key is the pattern's groups: (head dim tile, out type) of the
-    bfloat16 attention kernels (``*_tc_kernel<HDP, OutT>``), (bits,
-    epilogue) of the packed-weight body (``qmm_tc_kernel<BITS, EPI>``),
-    (bits, sym, fine, out type) of the W-A8 kernels."""
+    """{key: (HGMMA, HMMA, IMMA, IGMMA, FFMA)} of each instantiation whose
+    mangled name matches ``pattern`` in a built library's SASS, as
+    ``cuobjdump -sass`` lists it: bf16 wgmma, bf16 mma.sync, int8 mma.sync,
+    int8 wgmma and float32 fma. The key is the pattern's groups: (head dim
+    tile, out type) of the bfloat16 attention kernels (``*_tc_kernel<HDP,
+    OutT>``), (bits, epilogue) of the packed-weight body (``qmm_tc_kernel<BITS,
+    EPI>``), (bits, sym, fine, out type) of the W-A8 kernels, (mode, exp2,
+    head dim tile) of the probes' tensor-core body (``probe_tc_kernel``) and
+    (mode, bias) of their CUDA-core one (``probe_heads_kernel``)."""
     import re
 
     cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
@@ -211,7 +224,7 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
             m = re.search(pattern, line)
             key = m.groups() if m else None
             if key:
-                counts[key] = [0, 0, 0, 0]
+                counts[key] = [0, 0, 0, 0, 0]
         elif key and "HGMMA" in line:
             counts[key][0] += 1
         elif key and "HMMA" in line:
@@ -220,6 +233,8 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
             counts[key][2] += 1
         elif key and "IGMMA" in line:
             counts[key][3] += 1
+        elif key and "FFMA" in line:
+            counts[key][4] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -334,10 +349,10 @@ def main() -> int:
     for name in ("flash_windowed", "flash_global"):
         tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
                                        r"tc_kernelILi(\d+)E(13__nv_bfloat16|a)E")
-        check(len(tc_counts) == 16 and all(h + m > 0 for h, m, _, _ in tc_counts.values()),
+        check(len(tc_counts) == 16 and all(c[0] + c[1] > 0 for c in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA/HMMA in SASS: " + ", ".join(
-                  f"hd{hdp} {'int8' if out == 'a' else 'bf16'} {h}/{m}"
-                  for (hdp, out), (h, m, _, _) in sorted(tc_counts.items())))
+                  f"hd{hdp} {'int8' if out == 'a' else 'bf16'} {c[0]}/{c[1]}"
+                  for (hdp, out), c in sorted(tc_counts.items())))
     # And the bfloat16 packed-weight kernels: every instantiation of their
     # body (qmm_tc_kernel<BITS, EPI>) holds HGMMA, bits 2, 3, 4, 8 in
     # quant_matmul (plain epilogue), bits 2, 4, 8 in fused_mlp (both).
@@ -345,9 +360,9 @@ def main() -> int:
                        ("fused_mlp", {(b, e) for b in ("2", "4", "8") for e in ("0", "1")})):
         tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
                                        r"qmm_tc_kernelILi(\d+)ELi(\d+)E")
-        check(set(tc_counts) == want and all(h > 0 for h, _, _, _ in tc_counts.values()),
+        check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA in SASS: " + ", ".join(
-                  f"W{b} epilogue {e} {h}" for (b, e), (h, _, _, _) in sorted(tc_counts.items())))
+                  f"W{b} epilogue {e} {c[0]}" for (b, e), c in sorted(tc_counts.items())))
     # The W-A8 kernels (bits 2, 4, 8; sym and asym; float32 and bf16 out):
     # the 12 main-build instantiations run int8 wgmma (IGMMA), the 12 FINE
     # ones int8 mma.sync (IMMA).
@@ -361,6 +376,27 @@ def main() -> int:
               f"{len(build)} instantiations, "
               f"{min((c[i] for c in build.values()), default=0)}-"
               f"{max((c[i] for c in build.values()), default=0)} {ins} each")
+
+    # The probes' row-max and clamp-40 softmax without a bias (P3, P4) run the
+    # tensor-core body: each of its 24 instantiations (row max exp2 and exp,
+    # clamp; hd tiles 16..128) holds HGMMA, and the CUDA-core template, whose
+    # products are FFMA loops, is built only for the modes P2 and P5 take
+    # (dot-only without a bias, the two softmaxes with one), so no launch of
+    # P3 or P4 can reach an FFMA product loop.
+    heads = _build.library_path("probe_heads")
+    tc_counts = tensor_core_counts(heads, _build._nvcc(), r"probe_tc_kernelILi(\d)ELb(\d)ELi(\d+)E")
+    want = {(m, e, str(h)) for m, e in (("1", "1"), ("1", "0"), ("2", "1"))
+            for h in range(16, 129, 16)}
+    cuda_core = tensor_core_counts(heads, _build._nvcc(), r"probe_heads_kernelILi(\d)ELb(\d)E")
+    check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values())
+          and set(cuda_core) == {("0", "0"), ("1", "1"), ("2", "1")},
+          f"probe_heads: {len(tc_counts)} tensor-core instantiations (P3, P4), HGMMA "
+          f"{min((c[0] for c in tc_counts.values()), default=0)}-"
+          f"{max((c[0] for c in tc_counts.values()), default=0)} each, FFMA "
+          f"{min((c[4] for c in tc_counts.values()), default=0)}-"
+          f"{max((c[4] for c in tc_counts.values()), default=0)}; CUDA-core "
+          f"template only for (mode, bias) " + ", ".join(
+              f"({m}, {b}) FFMA {c[4]}" for (m, b), c in sorted(cuda_core.items())))
 
     gen = torch.Generator(device=dev)
 
@@ -573,12 +609,13 @@ def main() -> int:
     # ------------------------------------------------- stage-probe kernels
     # bfloat16 at the probes' ViT-H shapes: P1 on the packed qkv of 25
     # windows (16 heads, L 196, hd 80, rel 14 + 14), read in place; P2/P3 on
-    # the same heads split and zero-padded to (25, 16, 256, 128); P4/P5 on
-    # the 16 global heads (L 4096) padded to 128 lanes, q prescaled by
-    # hd**-0.5 * log2(e), P5 with raw 64 + 64 rel tiles. Each is held to the
-    # head-split bound; the plain version with the last key tile (of the
-    # real keys) left out of p.v must fail it. The first case of each counter
-    # is its JSON row.
+    # the same heads split and zero-padded to (25, 16, 256, 128), P3 with q
+    # prescaled by hd**-0.5 * log2(e) and, after them, on the probe driver's
+    # unscaled q (P3_RAW_C); P4/P5 on the 16 global heads (L 4096)
+    # padded to 128 lanes, q prescaled the same way, P5 with raw 64 + 64 rel
+    # tiles. Each is held to the head-split bound; the plain version with the
+    # last key tile (of the real keys) left out of p.v must fail it. The
+    # first case of each counter is its JSON row.
     gen.manual_seed(5)
     bf = torch.bfloat16
     qkv = randn(NW, Lw, 3 * C, dtype=bf)
@@ -590,6 +627,7 @@ def main() -> int:
         return TF.pad(a, (0, 128 - hd, 0, Lp - L)).reshape(B * heads, Lp, 128).contiguous()
 
     ws_heads = [split_pad(a, Lw, 256, nh, NW) for a in (pq, pk, pv)]
+    p3_heads = [(ws_heads[0].float() * (scale * fa.LOG2E)).to(bf), *ws_heads[1:]]
     gq, gk, gv = (randn(1, Lg, C, dtype=bf) for _ in range(3))
     gq = (gq.float() * (scale * fa.LOG2E)).to(bf)
     g_heads = [split_pad(a, Lg, Lg, nh, 1) for a in (gq, gk, gv)]
@@ -605,7 +643,7 @@ def main() -> int:
     def bmm2(q3, k3, v3):
         return lambda: torch.bmm(torch.bmm(q3, k3.transpose(1, 2)), v3)
 
-    heads_w = [t.reshape(NW, nh, 256, 128) for t in ws_heads]
+    heads_w = [t.reshape(NW, nh, 256, 128) for t in p3_heads]
     heads_g = [t.reshape(1, nh, Lg, 128) for t in g_heads]
     probe_cases = [
         # name, what, kernel, plain (on v'), v, real keys, bytes, flops, library
@@ -620,12 +658,12 @@ def main() -> int:
          lambda v: ps.probe_dots_floor_plain(*ws_heads[:2], v), ws_heads[2], Lw,
          4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, bmm2(*ws_heads)),
         ("probe_presplit", "exp2, presplit (400, 256, 128)",
-         lambda v: ps.probe_presplit(*ws_heads[:2], v, True),
-         lambda v: ps.probe_presplit_plain(*ws_heads[:2], v, True), ws_heads[2], Lw,
+         lambda v: ps.probe_presplit(*p3_heads[:2], v, True),
+         lambda v: ps.probe_presplit_plain(*p3_heads[:2], v, True), p3_heads[2], Lw,
          4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, sdpa(heads_w)),
         ("probe_presplit", "exp, presplit (400, 256, 128)",
-         lambda v: ps.probe_presplit(*ws_heads[:2], v, False),
-         lambda v: ps.probe_presplit_plain(*ws_heads[:2], v, False), ws_heads[2], Lw,
+         lambda v: ps.probe_presplit(*p3_heads[:2], v, False),
+         lambda v: ps.probe_presplit_plain(*p3_heads[:2], v, False), p3_heads[2], Lw,
          4 * NW * nh * 256 * 128 * 2, 4 * NW * nh * 256 * 256 * 128, sdpa(heads_w)),
         ("probe_pair", "row max, global (16, 4096, 128)",
          lambda v: ps.probe_pair(*g_heads[:2], v, False),
@@ -669,7 +707,41 @@ def main() -> int:
               f"max|d| {r['err']:.3e}")
         report.setdefault((name, "bfloat16"), r)
         del v_skip, ref, out
-    del probe_cases, qkv, rel, pq, pk, pv, ws_heads, heads_w, g_heads, heads_g, gq, gk, gv
+    # P3 on tools/packed_probe.py's own unscaled q, held to P3_RAW_C against
+    # the plain version and to the plain version's own distance from a
+    # float64 evaluation of the same function (see P3_RAW_C).
+    def presplit_f64(q, k, v, exp2):
+        s = torch.matmul(q.double(), k.double().transpose(1, 2))
+        x = s - s.amax(-1, keepdim=True)
+        p = torch.exp2(x) if exp2 else torch.exp(x)
+        o = torch.matmul(p.float().to(bf).double(), v.double())
+        return (o / p.sum(-1, keepdim=True)).float().to(bf)
+
+    def reading(out, ref):
+        return head_split_ok(out, ref, bf)[1]
+
+    v_skip = ws_heads[2].clone()
+    v_skip[..., Lw - (Lw % 64 or 64):Lw, :] = 0
+    for exp2 in (True, False):
+        before = counts()
+        out = ps.probe_presplit(*ws_heads, exp2)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in counts().items() if c != before[n]}
+        ref, f64 = ps.probe_presplit_plain(*ws_heads, exp2), presplit_f64(*ws_heads, exp2)
+        wrong = ps.probe_presplit_plain(*ws_heads[:2], v_skip, exp2)
+        raw, plain_f64, kernel_f64 = reading(out, ref), reading(ref, f64), reading(out, f64)
+        f64_limit = max(HS_BF16_C, P3_F64_MARGIN * plain_f64)
+        wrong_raw, wrong_f64 = reading(wrong, ref), reading(wrong, f64)
+        check(raw <= P3_RAW_C and kernel_f64 <= f64_limit and wrong_raw > P3_RAW_C
+              and wrong_f64 > f64_limit and launched == {"probe_presplit": 1},
+              f"probe_presplit {'exp2' if exp2 else 'exp'} on unscaled q: reading kernel vs "
+              f"plain {raw:.3e} (<= {P3_RAW_C}), kernel vs float64 {kernel_f64:.3e} (<= "
+              f"{f64_limit:.3e}; plain vs float64 {plain_f64:.3e}); last tile skipped reads "
+              f"{wrong_raw:.3e} / {wrong_f64:.3e}, launches {launched}")
+        del out, ref, f64, wrong
+    del v_skip
+    del probe_cases, qkv, rel, pq, pk, pv, ws_heads, p3_heads, heads_w, g_heads, heads_g, gq, gk
+    del gv
     del grh, grw, g_mask
     torch.cuda.empty_cache()
 

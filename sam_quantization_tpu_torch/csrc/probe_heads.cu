@@ -4,7 +4,7 @@
 // Replaces (tools/packed_probe.py, tools/global_stage_probe.py):
 //   _kernel_dots_floor (packed_probe.py:97)  MODE NONE:   o = round(q.k) . v
 //   _kernel_presplit   (packed_probe.py:111) MODE ROWMAX: p = exp2(s - max s)
-//                                             (exp with EXP2 false)
+//                                             (exp with exp2 0)
 //   _k_pair            (global_stage_probe.py:183) ROWMAX, or CLAMP:
 //                                             p = exp2(min(s, 40) - 40)
 //   _k_pair_bias       (global_stage_probe.py:316) the same with BIAS:
@@ -22,22 +22,23 @@
 // and 137 GFLOP against 105 and 67 MB of bf16 traffic: P2/P3 are bound by
 // bytes (31 us at 3.35 TB/s), P4/P5 by the bf16 tensor cores (139 us).
 //
-// Design: the body of flash_common.cuh's attend_rows (64 query rows of one
-// problem a block, keys streamed through shared memory in 64-row tiles, both
-// products on the CUDA cores in float32), with the softmax as a template
-// parameter. The row-max softmax is exact in m: a first pass over the key
-// tiles takes each row's max of s, a second computes exp2(s - m), sum p and
-// p.v, so every p is the plain version's, step for step (the q.k product is
-// recomputed, 1.5x the work of a clamped pass). The clamped and dot-only
-// modes take one pass. Tensor-core products are the step toward the bound.
+// Two bodies:
+// - The row-max and clamp-40 softmax without a bias (P3, P4) run
+//   probe_tc.cuh: both products on wgmma, the row max exact by a first q.k
+//   pass, IEEE gradual underflow in p as the plain version has it.
+// - The dot-only mode (P2) and the biased modes (P5) run probe_heads_kernel
+//   below: the body of flash_common.cuh's attend_rows (64 query rows of one
+//   problem a block, keys streamed through shared memory in 64-row tiles,
+//   both products on the CUDA cores in float32), with the softmax as a
+//   template parameter. Its row max is exact the same way (a first pass of
+//   q.k over the key tiles, 1.5x the work of a clamped pass); the clamped
+//   and dot-only modes take one pass. P5's step toward the bound is
+//   probe_tc.cuh plus the bias.
 #include <math.h>
 
-#include "flash_common.cuh"
+#include "probe_tc.cuh"
 
 namespace samq {
-
-enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2 };
-constexpr float PAIR_CAP = 40.f;  // _k_pair's static shift
 
 inline size_t heads_smem_bytes(int D, int kh, int kw) {
   const int ld = D + 1;
@@ -80,7 +81,7 @@ __device__ __forceinline__ void tile_logits(const float* Qs, const float* Ks, co
   }
 }
 
-template <int MODE, bool BIAS, bool EXP2>
+template <int MODE, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS)
     probe_heads_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rh,
@@ -181,7 +182,7 @@ __global__ void __launch_bounds__(NTHREADS)
             if constexpr (MODE == PROBE_CLAMP)
               e = exp2f(fminf(s[i][j], PAIR_CAP) - PAIR_CAP);
             else
-              e = EXP2 ? exp2f(s[i][j] - mrow[i]) : expf(s[i][j] - mrow[i]);
+              e = exp2f(s[i][j] - mrow[i]);
             lsum[i] += e;
             p = round_to<__nv_bfloat16>(e);
           }
@@ -230,12 +231,12 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int MODE, bool BIAS, bool EXP2>
+template <int MODE, bool BIAS>
 static int run(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                void* out, int BH, int L, int D, int kh, int kw, cudaStream_t stream) {
   using T = __nv_bfloat16;
   const dim3 grid((L + BQ - 1) / BQ, BH);
-  return launch(probe_heads_kernel<MODE, BIAS, EXP2>, grid, heads_smem_bytes(D, kh, kw), stream,
+  return launch(probe_heads_kernel<MODE, BIAS>, grid, heads_smem_bytes(D, kh, kw), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(rh), static_cast<const T*>(rw), static_cast<T*>(out), L, D,
                 kh, kw);
@@ -244,9 +245,11 @@ static int run(const void* q, const void* k, const void* v, const void* rh, cons
 }  // namespace samq
 
 // mode: 0 dots only (P2), 1 row-max softmax (P3, P4, P5), 2 clamp-40 softmax
-// (P4, P5). exp2: 0 takes exp instead (row-max only). has_bias: add
-// rw[n % kw] + rh[n // kw] (kh * kw == L). Operands bfloat16, contiguous.
-// Returns the CUDA error of the launch (0 on success).
+// (P4, P5). exp2: 0 takes exp instead (row-max without bias only). has_bias:
+// add rw[n % kw] + rh[n // kw] (kh * kw == L). Operands bfloat16,
+// contiguous. Modes 1 and 2 without a bias run the tensor-core body
+// (probe_tc.cuh), the others the CUDA-core one. Returns the CUDA error of
+// the launch (0 on success).
 extern "C" int samq_probe_heads(int mode, int exp2, int has_bias, const void* q, const void* k,
                                 const void* v, const void* rh, const void* rw, void* out, int BH,
                                 int L, int D, int kh, int kw, void* stream) {
@@ -256,14 +259,15 @@ extern "C" int samq_probe_heads(int mode, int exp2, int has_bias, const void* q,
   if (!has_bias) kh = kw = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == PROBE_NONE && !has_bias)
-    return run<PROBE_NONE, false, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
+    return run<PROBE_NONE, false>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
   if (mode == PROBE_ROWMAX && !has_bias)
-    return exp2 ? run<PROBE_ROWMAX, false, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s)
-                : run<PROBE_ROWMAX, false, false>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
+    return exp2 ? ptc::run<PROBE_ROWMAX, true>(q, k, v, out, BH, L, D, s)
+                : ptc::run<PROBE_ROWMAX, false>(q, k, v, out, BH, L, D, s);
+  if (mode == PROBE_CLAMP && !has_bias)
+    return ptc::run<PROBE_CLAMP, true>(q, k, v, out, BH, L, D, s);
   if (mode == PROBE_ROWMAX && exp2)
-    return run<PROBE_ROWMAX, true, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
+    return run<PROBE_ROWMAX, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
   if (mode == PROBE_CLAMP)
-    return has_bias ? run<PROBE_CLAMP, true, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s)
-                    : run<PROBE_CLAMP, false, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
+    return run<PROBE_CLAMP, true>(q, k, v, rh, rw, out, BH, L, D, kh, kw, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,462 @@
+// Tensor-core body of the row-max and clamp-40 probe kernels (probe_heads.cu
+// without a bias): P3 (_kernel_presplit, tools/packed_probe.py:111) and P4
+// (_k_pair, tools/global_stage_probe.py:183), both products on Hopper's
+// warpgroup MMA (wgmma), built from flash_tc.cuh's primitives.
+//
+// Numerics, step for step those of the plain version (ops/probes.py):
+//   s   = f32 sum_d q k                     (no scale, no bias)
+//   ROWMAX: p = exp2(s - m), m = max_n s    (exp(s - m) with EXP2 false,
+//                                            as ex2((s - m) * log2 e))
+//   CLAMP:  p = exp2(min(s, 40) - 40)       (no floor)
+//   o   = f32 sum_n round_bf16(p) v;  out = round_bf16(o * (1 / sum_n p))
+// with sum p over the unrounded f32 p. Only the summation order inside the
+// two products and the row sums differs (and, for exp, the rounding of its
+// argument times log2 e). Two things keep it exact where the plain version
+// is:
+// - The row max is exact: a first pass streams the K tiles through q.k and
+//   keeps each row's max of s; the second pass recomputes the same s (the
+//   same products in the same order) and takes exp2(s - m) against it, so
+//   every p is the plain version's and the row's largest p is 1. This is
+//   1.5x the product work of one pass; an online softmax would round p at
+//   a running max instead.
+// - IEEE gradual underflow as the plain version has it: exp2 is the non-ftz
+//   ex2.approx.f32, so a clamp-40 logit in (-109, -86) gives the subnormal
+//   p that the plain version keeps (flash_tc.cuh's ex2 flushes it), and a
+//   row whose logits all lie there sums to a finite sum p. For p.v, p is
+//   rounded to bf16 first (cvt keeps subnormals) and then carried times
+//   2^64 by a bf16x2 multiply, which is exact, subnormal inputs included;
+//   the f32 products on the tensor cores then stay normal. o' = 2^64 o, so
+//   out = round_bf16((o' * (1 / sum p)) * 2^-64), the plain version's
+//   rounding of o * (1 / sum p). A row whose every p underflows to 0 sums
+//   to 0 and gives 0 * inf = NaN, as the plain version (and the TPU kernel
+//   of _k_pair) does.
+//
+// What bounds it on an H100: at P4's (16, 4096, 128) the one-pass product
+// work is 137 GFLOP, 139 us at 989 TFLOP/s bf16 (operations); the row-max
+// mode's second q.k pass makes it 206 GFLOP, 208 us. At P3's (400, 256, 128)
+// the 105 MB of bf16 traffic take 31 us (bytes), above 13.4 (20.1) GFLOP.
+// Every block reads its head's whole K and V (from L2: 32 times at P4's
+// shape), so the copies have to keep pace with the products.
+//
+// Layout. A block is two consumer warpgroups, each 64 query rows of one
+// (batch, head) (BQ = 128 rows a block), and one producer warp; keys are
+// walked in tiles of BK = 64. HDP is D rounded up to 16 (the probes run 128).
+// - Shared memory holds q, K and V in the 128-byte swizzle: atoms of 64
+//   columns (128-byte rows, 16-byte chunk c of row r at c ^ (r % 8)).
+// - The producer warp brings q once and the K (and in the second pass V)
+//   tile of each step into a ring of four stages by TMA (one thread, 3D
+//   tensor maps that read zeros past L and past D), each stage's full
+//   mbarrier counting the bytes. TMA needs rows of whole 16-byte groups and
+//   16-byte aligned operands: ops/probes.py pads D to a multiple of 8 and
+//   copies an unaligned operand before the launch. A stage is written
+//   again once all 256 consumer threads have arrived on its empty
+//   mbarrier. The consumers meet no block barrier, so the two
+//   warpgroups drift apart and one's softmax runs beside the other's
+//   products.
+// - q.k: wgmma.m64n64k16, A = the warpgroup's q rows and B = the K tile,
+//   both in shared memory, K-major; HDP / 16 depth steps. q is copied as it
+//   is (the callers prescale it).
+// - Max, exp2, masks and row sums on the f32 accumulator registers; the
+//   packed bf16 p is the register A operand of p.v (the accumulator layout
+//   of 16 keys is the A fragment layout of one k16 step).
+// - p.v: wgmma.m64n128k16 at HDP 128, else m64n64k16 per 64 output columns
+//   and m64n16k16 for the rest; B = the V tile, MN-major.
+// - The softmax pass issues q.k of tile t and p.v of tile t - 1 together,
+//   waits for both, then forms tile t's p with no product in flight.
+// - Keys n >= L take no part: -inf in the max, p = 0. Rows m >= L are
+//   computed on zeros and not stored.
+// What ptxas needs (-Xptxas -v names each case): the producer/consumer
+// split is taken on a warp-uniform value, else it serializes every wgmma
+// (C7520); no accumulator is written or read outside its chain while
+// another chain is in flight (C7514, C7515), so the row-max pass folds each
+// tile before it issues the next; q as a register operand of q.k cost
+// registers that ptxas then lacked (C7512). Forming tile t's p while p.v of
+// tile t - 1 was still in flight is not safe: ptxas gave the registers of
+// p.v's register operand, which the tensor cores read after the issue, to
+// the new p and its temporaries (wrong rows on the card once the exp code
+// grew), so p.v is waited for first.
+#pragma once
+
+#include <string.h>
+
+#include "flash_tc.cuh"
+#include "tma.cuh"
+
+namespace samq {
+
+enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2 };
+constexpr float PAIR_CAP = 40.f;  // _k_pair's static shift
+
+namespace ptc {
+
+using tc::BK;
+using tc::BQ;
+constexpr int STAGES = 4;               // K/V stages of the ring
+constexpr int CONSUMERS = 2 * tc::WG;   // two warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int ATOM_ROW = 128;           // bytes of a row of a 128-byte-swizzle atom: 64 values
+
+// Shared memory: per stage, the K tile then the V tile, each NA atoms of
+// BK rows x 128 bytes (NA = HDP / 64 rounded up: the 64 columns of an atom);
+// then q, NA atoms of BQ rows; then the barriers: each stage's full and
+// empty, and q's full.
+__host__ __device__ constexpr int atoms(int hdp) { return (hdp + 63) / 64; }
+inline size_t smem_bytes(int hdp) {
+  return (size_t)atoms(hdp) * ATOM_ROW * (2 * STAGES * BK + BQ) + 8 * (2 * STAGES + 1);
+}
+
+// 2^x with gradual underflow: subnormal results for x in (-149, -126).
+__device__ __forceinline__ float ex2_sub(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (round_bf16(lo), round_bf16(hi)) * 2^64, packed; exact for every finite
+// input, subnormal bf16 values included (bf16 arithmetic keeps subnormals).
+__device__ __forceinline__ uint32_t pack_carried(float lo, float hi) {
+  uint32_t r = tc::pack_bf16(lo, hi);
+  asm("mul.rn.bf16x2 %0, %0, %1;" : "+r"(r) : "r"(0x5F805F80u));  // bf16 2^64, twice
+  return r;
+}
+
+// wgmma matrix descriptor of an operand in the 128-byte swizzle (layout
+// type 1 in bits 62-63): start address, LBO and SBO in bytes.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return tc::desc(addr, lbo, sbo) | (1ull << 62);
+}
+
+using samq_tma::mbar_arrive;
+using samq_tma::mbar_expect;
+using samq_tma::mbar_init;
+using samq_tma::mbar_wait;
+
+// Box (64 columns from col, rows from row, head bh) of a (BH, L, D) tensor
+// map into dst, counted on bar.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int col, int row,
+                                        int bh, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(tc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bh), "r"(tc::smem_u32(bar))
+      : "memory");
+}
+
+// d (64 x 64, f32) += a (64 x 16, bf16 registers) * b (16 x 64, MN-major).
+__device__ __forceinline__ void mma_pv64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// (d0 | d1) (64 x 128, f32: columns 0-63 | 64-127) += a (64 x 16, bf16
+// registers) * b (16 x 128, MN-major).
+__device__ __forceinline__ void mma_pv128(float (&d0)[32], float (&d1)[32], const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]),
+        "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]),
+        "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]),
+        "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]),
+        "+f"(d1[22]), "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// One (batch, head) of (BH, L, D) operands a blockIdx.y, rows blockIdx.x *
+// BQ..; q, K and V arrive by TMA through `maps`, out (D a multiple of 8,
+// 4-byte aligned) is written a pair of columns at a time.
+template <int MODE, bool EXP2, int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+    probe_tc_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out, int L,
+                    int D) {
+  constexpr bool ROWMAX = MODE == PROBE_ROWMAX;
+  constexpr int NA = atoms(HDP);    // 64-column atoms of a row
+  constexpr int KS = HDP / 16;      // q.k depth steps
+  constexpr int TILE = NA * BK * ATOM_ROW;  // bytes of one K or V tile
+  constexpr int N64 = HDP / 64, N16 = HDP % 64 / 16;  // p.v column chunks of 64 and 16
+  static_assert(MODE == PROBE_ROWMAX || MODE == PROBE_CLAMP, "softmax modes only");
+  static_assert(HDP % 16 == 0 && HDP <= MAX_HD, "HDP: a multiple of 16 up to MAX_HD");
+  extern __shared__ __align__(1024) unsigned char ptc_smem[];
+  unsigned char* KV = ptc_smem;                      // [stage][K, V][TILE]
+  unsigned char* Qs = KV + 2 * STAGES * TILE;        // NA atoms of BQ rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + NA * BQ * ATOM_ROW);  // [STAGES], q's
+  uint64_t* empty = full + STAGES + 1;                                    // [STAGES]
+
+  const int bh = blockIdx.y, m0 = blockIdx.x * BQ, tid = threadIdx.x, lane = tid & 31;
+  const long off = (long)bh * L * D;
+  const int tiles = (L + BK - 1) / BK, steps = ROWMAX ? 2 * tiles : tiles;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= STAGES; ++i) mbar_init(full + i, 1);
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) mbar_init(empty + i, CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the block's only barrier: the warps part here
+
+  // The warpgroup index through a shuffle, so that ptxas sees the split as
+  // warp-uniform: wgmma behind a branch it takes for divergent gets every
+  // product serialized (C7520).
+  if (__shfl_sync(0xffffffffu, tid / tc::WG, 0) == CONSUMERS / tc::WG) {
+    // The producer warp: q, then each step's tiles into stage u % STAGES as
+    // soon as both warpgroups have released the stage's previous step: K,
+    // and V where the step forms p.v (the row-max mode's steps tiles ..
+    // 2 tiles - 1, every clamp step), all by TMA from lane 0.
+    if (lane == 0) {
+      mbar_expect(full + STAGES, NA * BQ * ATOM_ROW);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        tma_box(Qs + a * BQ * ATOM_ROW, &maps.q, 64 * a, m0, bh, full + STAGES);
+      for (int u = 0; u < steps; ++u) {
+        const int st = u % STAGES;
+        if (u >= STAGES) mbar_wait(empty + st, (u / STAGES - 1) & 1);
+        const bool pv = !ROWMAX || u >= tiles;
+        const int n0 = (ROWMAX && pv ? u - tiles : u) * BK;
+        unsigned char* dst = KV + 2 * st * TILE;
+        mbar_expect(full + st, (pv ? 2 : 1) * TILE);
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          tma_box(dst + a * BK * ATOM_ROW, &maps.k, 64 * a, n0, bh, full + st);
+          if (pv) tma_box(dst + TILE + a * BK * ATOM_ROW, &maps.v, 64 * a, n0, bh, full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  // The two consumer warpgroups.
+  out += off;
+  const int lr0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows lr0, lr0 + 8
+  const int cq = 2 * (lane & 3);  // first column (key) of each of the thread's pairs
+  // o[c][i], o16[c][i]: row lr0 (i & 2 == 0) or lr0 + 8, column
+  // c0 + 8 (i >> 2) + cq + (i & 1) with c0 = 64 c, or 64 N64 + 16 c.
+  float o[N64 ? N64 : 1][32], o16[N16 ? N16 : 1][8];
+#pragma unroll
+  for (int c = 0; c < N64; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < N16; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o16[c][i] = 0.f;
+  float mx0 = -INFINITY, mx1 = -INFINITY;  // row max of s (ROWMAX), rows lr0, lr0 + 8
+  float ls0 = 0.f, ls1 = 0.f;              // this thread's part of sum p
+  const uint32_t qaddr = tc::smem_u32(Qs) + (tid >> 7) * 64 * ATOM_ROW;  // this warpgroup's rows
+  mbar_wait(full + STAGES, 0);
+
+  // Step u's tiles are in place (the full barrier's phase u / STAGES); a
+  // step's stage is released once its last product is done: q.k for the
+  // row-max pass, p.v (issued in the next step) for the softmax pass.
+  auto begin_step = [&](int u) { mbar_wait(full + u % STAGES, (u / STAGES) & 1); };
+  auto release = [&](int u) { mbar_arrive(empty + u % STAGES); };
+  auto kaddr = [&](int u) { return tc::smem_u32(KV + 2 * (u % STAGES) * TILE); };
+  // Issue q.k of the K tile of step u into sp (committed). Step ks of both
+  // operands starts 32 bytes into the rows of atom ks / 4 (the hardware
+  // applies the swizzle to the sum); 8-row groups 1 KB apart (SBO).
+  auto issue_qk = [&](float (&sp)[32], int u) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sp[i] = 0.f;
+    tc::fence_regs(sp);
+    tc::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      tc::mma_qk(sp, desc128(qaddr + (ks >> 2) * BQ * ATOM_ROW + (ks & 3) * 32, 16, 1024),
+                 desc128(kaddr(u) + (ks >> 2) * BK * ATOM_ROW + (ks & 3) * 32, 16, 1024), ks);
+    tc::wg_commit();
+  };
+  // Issue p.v of the V tile of step u with the packed p (committed). The V
+  // tile is MN-major: 16 keys are 2 KB of rows, 64 columns an atom (LBO);
+  // a 16-column chunk starts 32 bytes a chunk into its atom's rows.
+  auto issue_pv = [&](const uint32_t (&pa)[BK / 16][4], int u) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t vk = kaddr(u) + TILE + kk * 2048;
+      constexpr bool WIDE = N64 == 2;  // one m64n128k16 for both 64-column chunks
+      if constexpr (WIDE) mma_pv128(o[0], o[1], pa[kk], desc128(vk, BK * ATOM_ROW, 1024));
+#pragma unroll
+      for (int c = 0; c < (WIDE ? 0 : N64); ++c)
+        mma_pv64(o[c], pa[kk], desc128(vk + c * BK * ATOM_ROW, BK * ATOM_ROW, 1024));
+#pragma unroll
+      for (int c = 0; c < N16; ++c)
+        tc::mma_pv(o16[c], pa[kk],
+                   desc128(vk + N64 * BK * ATOM_ROW + 32 * c, BK * ATOM_ROW, 1024));
+    }
+    tc::wg_commit();
+  };
+  auto fence_o = [&] {
+#pragma unroll
+    for (int c = 0; c < N64; ++c) tc::fence_regs(o[c]);
+#pragma unroll
+    for (int c = 0; c < N16; ++c) tc::fence_regs(o16[c]);
+  };
+  // Is sp[i] of the tile at n0 a key past L? (sp[i]: row lr0 when i & 2 is
+  // 0, else lr0 + 8; key n0 + 8 (i >> 2) + cq + (i & 1).)
+  auto absent = [&](int n0, int i) { return n0 + 8 * (i >> 2) + cq + (i & 1) >= L; };
+
+  float sp[32];
+  if constexpr (ROWMAX) {  // the row-max pass: steps 0 .. tiles - 1
+    for (int t = 0; t < tiles; ++t) {
+      begin_step(t);
+      issue_qk(sp, t);
+      tc::wg_wait_all();
+      tc::fence_regs(sp);
+      release(t);
+      const bool tail = (t + 1) * BK > L;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float s = tail && absent(t * BK, i) ? -INFINITY : sp[i];
+        if (i & 2) mx1 = fmaxf(mx1, s); else mx0 = fmaxf(mx0, s);
+      }
+    }
+    // A row's max is spread over the four lanes of a quad.
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+  }
+
+  // The softmax pass. Step u issues q.k of tile t and p.v of tile t - 1
+  // together and waits for both; it then forms tile t's p, packed into pa,
+  // the register operand of the next step's p.v, with no product in flight.
+  const int u0 = ROWMAX ? tiles : 0;
+  uint32_t pa[BK / 16][4];
+  for (int t = 0; t < tiles; ++t) {
+    const int u = u0 + t;
+    begin_step(u);
+    issue_qk(sp, u);
+    if (t > 0) issue_pv(pa, u - 1);
+    tc::wg_wait_all();
+    tc::fence_regs(sp);
+    tc::fence_u32(pa);
+    fence_o();
+    if (t > 0) release(u - 1);
+    const int n0 = t * BK;
+    const bool tail = n0 + BK > L;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        float p2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 8 * kk + 2 * f + h;
+          float p;
+          if constexpr (MODE == PROBE_CLAMP)
+            p = ex2_sub(fminf(sp[i], PAIR_CAP) - PAIR_CAP);
+          else if constexpr (EXP2)
+            p = ex2_sub(sp[i] - ((i & 2) ? mx1 : mx0));
+          else
+            p = ex2_sub((sp[i] - ((i & 2) ? mx1 : mx0)) * LOG2E_F);
+          if (tail && absent(n0, i)) p = 0.f;
+          if (i & 2) ls1 += p; else ls0 += p;
+          p2[h] = p;
+        }
+        pa[kk][f] = pack_carried(p2[0], p2[1]);
+      }
+  }
+  fence_o();
+  tc::wg_fence();
+  issue_pv(pa, u0 + tiles - 1);
+  tc::wg_wait_all();
+  tc::fence_u32(pa);
+  fence_o();
+
+  // A row's sum is spread over the four lanes of a quad.
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    ls0 += __shfl_xor_sync(0xffffffffu, ls0, sh);
+    ls1 += __shfl_xor_sync(0xffffffffu, ls1, sh);
+  }
+  const float r0 = 1.f / ls0, r1 = 1.f / ls1;
+  // out = round_bf16((o' * r) * 2^-64), a pair of columns at a time.
+  auto store = [&](const auto& acc, int c0) {
+    constexpr int NACC = std::extent<std::remove_reference_t<decltype(acc)>>::value;
+#pragma unroll
+    for (int i = 0; i < NACC; i += 2) {
+      const int m = m0 + lr0 + ((i & 2) ? 8 : 0), c = c0 + 8 * (i >> 2) + cq;
+      const float r = (i & 2) ? r1 : r0;
+      const float y0 = acc[i] * r * (1.f / tc::P_SCALE), y1 = acc[i + 1] * r * (1.f / tc::P_SCALE);
+      if (m >= L || c >= D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(out + (long)m * D + c) = __floats2bfloat162_rn(y0, y1);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < N64; ++c) store(o[c], 64 * c);
+#pragma unroll
+  for (int c = 0; c < N16; ++c) store(o16[c], 64 * N64 + 16 * c);
+}
+
+// The (BH, L, D) operand at x as a 3D tensor map of boxes of 64 columns by
+// `rows` rows of one head in the 128-byte swizzle; past L and past D the
+// box reads zeros.
+inline bool encode(CUtensorMap* map, const void* x, int BH, int L, int D, int rows) {
+  const auto fn = samq_tma::encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the body for one mode on (BH, L, D) bf16 operands, D <= MAX_HD a
+// multiple of 8, q, k and v 16-byte aligned and out 4-byte aligned (what
+// TMA and the paired stores take); anything else is refused.
+template <int MODE, bool EXP2>
+inline int run(const void* q, const void* k, const void* v, void* out, int BH, int L, int D,
+               cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const auto aligned = [](const void* p, int a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; };
+  if (D % 8 != 0 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) || !aligned(out, 4))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!(encode(&maps.q, q, BH, L, D, BQ) && encode(&maps.k, k, BH, L, D, BK) &&
+        encode(&maps.v, v, BH, L, D, BK)))
+    return (int)cudaErrorNotSupported;
+  return tc::dispatch_hdp(D, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const dim3 grid((L + BQ - 1) / BQ, BH);
+    const auto kernel = probe_tc_kernel<MODE, EXP2, HDP>;
+    const size_t bytes = smem_bytes(HDP);
+    if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, THREADS, bytes, stream>>>(maps, static_cast<bf16*>(out), L, D);
+    return (int)cudaGetLastError();
+  });
+}
+
+}  // namespace ptc
+}  // namespace samq

@@ -65,6 +65,7 @@
 #include <string.h>
 
 #include "quant_common.cuh"
+#include "tma.cuh"
 
 namespace samq_quant {
 
@@ -271,14 +272,11 @@ struct Weights {
 // k atom of the layout above (the tensor map's 128-byte swizzle is the
 // layout's), rows past M and columns past K filled with zeros. One thread
 // arms the stage's mbarrier with the tile's bytes and issues both copies.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
+using samq_tma::mbar_init;
+using samq_tma::mbar_wait;
 __device__ __forceinline__ void tma_x(unsigned char* xst, uint64_t* bar, const CUtensorMap* map,
                                       int k0, int m0) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(X_BYTES)
-               : "memory");
+  samq_tma::mbar_expect(bar, X_BYTES);
 #pragma unroll
   for (int a = 0; a < 2; ++a)
     asm volatile(
@@ -286,14 +284,6 @@ __device__ __forceinline__ void tma_x(unsigned char* xst, uint64_t* bar, const C
         " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(xst + a * (BM * 128))),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(k0 + 64 * a), "r"(m0), "r"(smem_u32(bar))
         : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // The x tile copies of one thread: 16-byte chunk c16 = tid % 16 (fixed per
@@ -465,23 +455,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no link to libcuda).
-inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
+using samq_tma::encode_fn;
 
 // Launch the body on x (M, K) bf16 -> out (M, N) bf16. x tiles of 128 rows
 // arrive by TMA; other tiles (pack blocks that do not divide 128) and x

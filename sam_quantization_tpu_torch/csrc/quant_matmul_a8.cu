@@ -418,7 +418,9 @@ __device__ __forceinline__ void a8_fine(unsigned char* smem, const int8_t* __res
 namespace a8tc {
 
 using tc::desc;
-using tc::mbar_init;
+using samq_tma::mbar_arrive;
+using samq_tma::mbar_init;
+using samq_tma::mbar_wait;
 using tc::smem_u32;
 using tc::wg_commit;
 using tc::wg_fence;
@@ -489,25 +491,6 @@ __device__ __forceinline__ void mma_n144(int (&d)[72], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait for phase `parity` of an mbarrier to complete; a phase that never
-// completes traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1 << 24)) __trap();
-  }
-}
-
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool in) {
   if (bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -520,9 +503,7 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, 
 // x tile t (128 rows from m0, 128 columns) into a stage by TMA.
 __device__ __forceinline__ void tma_x(unsigned char* dst, uint64_t* bar, const CUtensorMap* map,
                                       int k0, int m0) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(X_BYTES)
-               : "memory");
+  samq_tma::mbar_expect(bar, X_BYTES);
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),

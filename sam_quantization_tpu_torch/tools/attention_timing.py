@@ -1,11 +1,16 @@
-"""Device times of the bfloat16 serving attention kernels at ViT-H.
+"""Device times of the bfloat16 attention kernels at ViT-H.
 
     python -m sam_quantization_tpu_torch.tools.attention_timing [--iters 50]
 
 Times ``flash_windowed`` (25 windows of 14 x 14, 16 heads, hd 80) and
 ``flash_global`` (a 64 x 64 grid, 16 heads, hd 80) at one image's shapes,
-bf16 out and int8 out, on random inputs made from ``--seed``, and prints one
-JSON line with the card's name, its power limit and the ms per call
+bf16 out and int8 out, and the stage probes' softmax kernels at the probes'
+shapes: ``probe_presplit`` (P3, exp2 and exp) on (400, 256, 128) and
+``probe_pair`` (P4, row max and clamp 40) on (16, 4096, 128), q scaled by
+hd**-0.5 * log2(e) as the probes scale it, each beside its yardstick
+``scaled_dot_product_attention`` with scale ln 2 (the exp2 softmax). Inputs
+are random, made from ``--seed``. It prints one JSON line with the card's
+name, its power limit and the ms per call
 (:func:`sam_quantization_tpu_torch.tools.timing.timed_ms`). Run it from two
 checkouts in one session to compare two versions of the kernels.
 """
@@ -14,11 +19,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 from sam_quantization_tpu_torch.ops import flash_attention as fa
+from sam_quantization_tpu_torch.ops import probes
 from sam_quantization_tpu_torch.tools.timing import timed_ms
 
 
@@ -61,6 +69,23 @@ def main(argv=None) -> int:
         "flash_global_int8": lambda: fa.flash_attention_relpos(
             q, k, v, rh, rw, scale, out_inv_scale=ois),
     }
+    # The probes' head shapes (hd 80 padded to 128 lanes; random in all 128).
+    pq, pk, pv = (randn(400, 256, 128) for _ in range(3))
+    gq, gk, gv = (randn(16, Lg, 128) for _ in range(3))
+    pq, gq = ((t.float() * (scale * fa.LOG2E)).to(bf) for t in (pq, gq))
+
+    def sdpa(q3, k3, v3):
+        q4, k4, v4 = (t[None] for t in (q3, k3, v3))
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=math.log(2.0))
+
+    cases.update({
+        "probe_presplit_exp2": lambda: probes.probe_presplit(pq, pk, pv, True),
+        "probe_presplit_exp": lambda: probes.probe_presplit(pq, pk, pv, False),
+        "sdpa_presplit": sdpa(pq, pk, pv),
+        "probe_pair_rowmax": lambda: probes.probe_pair(gq, gk, gv, False),
+        "probe_pair_clamp": lambda: probes.probe_pair(gq, gk, gv, True),
+        "sdpa_pair": sdpa(gq, gk, gv),
+    })
     line = {"gpu": card_line()}
     for name, fn in cases.items():
         line[f"{name}_ms"] = timed_ms(fn, args.iters, dev, args.repeats)

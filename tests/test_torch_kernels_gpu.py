@@ -631,10 +631,15 @@ PROBE_HEADS = [  # name, call on (q, k, v, rh, rw)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(len(PROBE_HEADS)))
-@pytest.mark.parametrize("BH,L,D,kh,kw", [(4, 256, 128, 16, 16), (3, 200, 80, 10, 20)])
+@pytest.mark.parametrize("BH,L,D,kh,kw", [(4, 256, 128, 16, 16), (3, 200, 80, 10, 20),
+                                          (2, 1024, 128, 32, 32), (3, 320, 64, 16, 20),
+                                          (2, 96, 40, 8, 12), (2, 70, 20, 7, 10)])
 def test_probe_heads_kernel_matches_plain(cuda, case, BH, L, D, kh, kw):
     """q scaled by D**-0.5 * log2(e) as the probes scale it; L 200 leaves a
-    ragged last key tile, D 80 unpadded heads."""
+    ragged last key tile, D 80 unpadded heads; L 1024 is 8 row blocks and 16
+    key tiles of the tensor-core body (P3, P4), D 64 one p.v column chunk,
+    D 40 three 16-column chunks inside one swizzle atom, D 20 rows that TMA
+    cannot address (the wrapper pads them to 24 with zeros)."""
     name, kernel, plain = PROBE_HEADS[case]
     q = (_randn(62, BH, L, D) * (D**-0.5 * 1.4426950408889634)).to(cuda, torch.bfloat16)
     k, v = (_randn(s, BH, L, D).to(cuda, torch.bfloat16) for s in (63, 64))
@@ -644,6 +649,100 @@ def test_probe_heads_kernel_matches_plain(cuda, case, BH, L, D, kh, kw):
     torch.cuda.synchronize()
     assert tpr.LAUNCHES[name] == before + 1 and out.dtype == torch.bfloat16
     _check_hs(out, plain(q, k, v, rh, rw))
+
+
+def _probe_operands(seed, BH, L, D=128):
+    """numpy q (scaled as the probes scale it), k, v of shape (BH, L, D)."""
+    q = _randn(seed, BH, L, D).numpy() * (D**-0.5 * 1.4426950408889634)
+    return [q, _randn(seed + 1, BH, L, D).numpy(), _randn(seed + 2, BH, L, D).numpy()]
+
+
+def _bf16_on(arrays, device):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.bfloat16) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", ["nan", "subnormal"])
+def test_probe_pair_clamp_edge_rows_on_card(cuda, row):
+    """Clamp-40 rows (tests/test_torch_probes.py pins them on the CPU), through
+    the last lane, whose k is 2 + (n % 8) / 16: row 5 of head 0 takes
+    s = -44 k in [-107.25, -88], every p = 2^(s - 40) subnormal in float32, a
+    finite sum p and an output within the head-split bound; or s = -100 k,
+    where every p underflows to 0 and the row is NaN on both sides."""
+    q, k, v = _probe_operands(67, 2, 200)
+    k[..., -1] = 2 + (np.arange(200) % 8) / 16
+    q[0, 5] = 0
+    q[0, 5, -1] = -44.0 if row == "subnormal" else -100.0
+    q, k, v = _bf16_on((q, k, v), cuda)
+    before = tpr.LAUNCHES["probe_pair"]
+    out = tpr.probe_pair(q, k, v, clamp=True)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_pair"] == before + 1 and out.dtype == torch.bfloat16
+    ref = tpr.probe_pair_plain(q, k, v, clamp=True)
+    if row == "nan":
+        assert torch.isnan(ref[0, 5]).all() and torch.isnan(out[0, 5]).all()
+        out[0, 5], ref[0, 5] = 0, 0
+    else:
+        assert torch.isfinite(ref).all() and torch.isfinite(out).all()
+        assert ref[0, 5].abs().max() > 0
+    _check_hs(out, ref)
+
+
+PROBE_ROWMAX = {  # the row-max callers of the tensor-core body
+    "presplit exp2": ("probe_presplit", lambda q, k, v: tpr.probe_presplit(q, k, v, True),
+                      lambda q, k, v: tpr.probe_presplit_plain(q, k, v, True)),
+    "presplit exp": ("probe_presplit", lambda q, k, v: tpr.probe_presplit(q, k, v, False),
+                     lambda q, k, v: tpr.probe_presplit_plain(q, k, v, False)),
+    "pair": ("probe_pair", lambda q, k, v: tpr.probe_pair(q, k, v, False),
+             lambda q, k, v: tpr.probe_pair_plain(q, k, v, False)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(PROBE_ROWMAX))
+@pytest.mark.parametrize("edge", ["dominant", "tied", "padded"])
+def test_probe_rowmax_edge_rows_on_card(cuda, kernel, edge):
+    """The row-max edge rows of tests/test_torch_probes.py: one dominant logit
+    (s 256 above the rest: every other p underflows, the output is that
+    key's v), tied logits at the max (s = 6 on every fifth key), and the last
+    quarter of the keys zero-padded (they take part, s = 0)."""
+    name, run, plain = PROBE_ROWMAX[kernel]
+    q, k, v = _probe_operands(68, 2, 200)
+    if edge == "padded":
+        k[:, 150:], v[:, 150:] = 0, 0
+    else:
+        q[0, 5] = 0
+        q[0, 5, -1] = 64.0 if edge == "dominant" else 2.0
+        k[..., -1] = 0
+        if edge == "dominant":
+            k[0, 37, -1] = 4.0
+        else:
+            k[0, ::5, -1] = 3.0
+    q, k, v = _bf16_on((q, k, v), cuda)
+    before = tpr.LAUNCHES[name]
+    out = run(q, k, v)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES[name] == before + 1 and out.dtype == torch.bfloat16
+    ref = plain(q, k, v)
+    if edge == "dominant":
+        assert torch.equal(ref[0, 5], v[0, 37]) and torch.equal(out[0, 5], v[0, 37])
+    _check_hs(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clamp", [False, True])
+def test_probe_pair_takes_unaligned_operands_on_card(cuda, clamp):
+    """Contiguous operands that start one element into their buffer, so not
+    16-byte aligned as TMA needs: the wrapper copies them; one launch, within
+    the head-split bound."""
+    q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+               for t in _bf16_on(_probe_operands(69, 2, 200), cuda))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v))
+    before = tpr.LAUNCHES["probe_pair"]
+    out = tpr.probe_pair(q, k, v, clamp)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_pair"] == before + 1 and out.dtype == torch.bfloat16
+    _check_hs(out, tpr.probe_pair_plain(q, k, v, clamp))
 
 
 @pytest.mark.gpu

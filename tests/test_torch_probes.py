@@ -278,6 +278,101 @@ def test_pair_clamp_has_no_floor():
     assert torch.isfinite(probes.probe_pair(*tops, clamp=False)).all()
 
 
+def _both(arrays, dtype):
+    """The same numpy arrays as JAX and torch operands of ``dtype``."""
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(np.ascontiguousarray(a)).to(tdt) for a in arrays])
+
+
+def _edge_rows(arrays, edge):
+    """Row-max edge rows on numpy copies of q, k, v (BH, L, D), through the
+    last lane (zero padding in the probes' layouts): ``dominant``, row 5 of
+    head 0 with one logit 256 above the rest (every other p underflows to 0,
+    the row is that key's v); ``tied``, row 5 with s = 6 on every fifth key
+    and 0 elsewhere; ``padded``, the last quarter of the keys zero (s = 0:
+    they take part in the max, the sum and p.v)."""
+    q, k, v = (np.array(a, np.float32) for a in arrays)
+    L = q.shape[1]
+    if edge == "padded":
+        k[:, L - L // 4:], v[:, L - L // 4:] = 0, 0
+    else:
+        q[0, 5] = 0
+        q[0, 5, -1] = 64.0 if edge == "dominant" else 2.0
+        k[..., -1] = 0
+        if edge == "dominant":
+            k[0, 7, -1] = 4.0
+        else:
+            k[0, ::5, -1] = 3.0
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["presplit exp2", "presplit exp", "pair"])
+@pytest.mark.parametrize("edge", ["dominant", "tied", "padded"])
+def test_rowmax_edge_rows_match_tpu_kernel(dtype, kernel, edge):
+    """P3 (exp2 and exp) and P4's row-max mode on the edge rows of
+    ``_edge_rows``, the plain version against the TPU kernel; the card tests
+    hold the kernel to the same rows."""
+    jdt = DTYPES[dtype][0]
+    if kernel == "pair":
+        jops, _ = _pair(9, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    else:
+        jops, _ = _presplit_operands(10, dtype)
+        jops = [a.reshape(NW * NH, LP, 128) for a in jops]
+    jops, tops = _both(_edge_rows([np.asarray(a, np.float32) for a in jops], edge), dtype)
+    if kernel == "pair":
+        ref = _pair_call(functools.partial(_k_pair, halves=1, clamp=False), jops, jdt)
+        out = probes.probe_pair(*tops, clamp=False)
+    else:
+        exp2 = kernel == "presplit exp2"
+        ref = _call_heads(functools.partial(TPU_PROBE._kernel_presplit, exp2=exp2),
+                          [a.reshape(NW, NH, LP, 128) for a in jops], jdt).reshape(NW * NH, LP, 128)
+        out = probes.probe_presplit(*tops, exp2=exp2)
+    _close(out, ref, dtype)
+    if edge == "dominant":
+        np.testing.assert_array_equal(np.asarray(ref, np.float32)[0, 5],
+                                      np.asarray(jops[2], np.float32)[0, 7])
+        assert torch.equal(out[0, 5], tops[2][0, 7])
+    if edge == "tied":
+        p = np.where(np.arange(out.shape[1]) % 5 == 0, 1.0, 2.0**-6 if kernel != "presplit exp"
+                     else float(np.exp(np.float32(-6))))
+        assert abs(float(out[0, 5, 0]) - float((p @ tops[2][0, :, 0].double().numpy()) / p.sum())) \
+            <= 2.0**-7 * abs(float(out[0, 5, 0])) + 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pair_clamp_subnormal_band(dtype):
+    """Clamp-40 logits in (-109, -86) give p = 2^(s - 40) below 2^-126. Row 5
+    of head 0 mixes such keys (s = -44 k, k = 2 + (n % 8) / 16 on the last
+    lane: s in [-107.25, -88]) with keys at s = 40: finite, and equal to the
+    TPU kernel, whose p for the band keys JAX flushes to zero on the CPU
+    (XLA, as TPUs, flushes subnormals). Row 7 has only band keys: PyTorch
+    keeps the subnormal p (IEEE gradual underflow), so its sum p is finite
+    and the row is the mean of v weighted by round(p); JAX flushes every p to
+    0 and gives NaN. The card kernel follows the plain version (the card
+    test of the same row), so this row is where the port and the reference
+    part: a known difference (ROADMAP Queue 3)."""
+    jops, _ = _pair(11, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    q, k, v = (np.array(a, np.float32) for a in jops)
+    k[..., -1] = 2 + (np.arange(PAIR_L) % 8) / 16
+    k[0, ::16, -2] = 1.0
+    q[0, 5] = 0
+    q[0, 5, -1], q[0, 5, -2] = -44.0, 128.0  # band keys, and every 16th key at s = 40
+    q[0, 7] = 0
+    q[0, 7, -1] = -44.0
+    jops, tops = _both((q, k, v), dtype)
+    ref = np.asarray(_pair_call(functools.partial(_k_pair, halves=1, clamp=True), jops,
+                                DTYPES[dtype][0]), np.float32)
+    out = probes.probe_pair(*tops, clamp=True)
+    assert np.isfinite(ref[0, 5]).all() and torch.isfinite(out[0, 5]).all()
+    assert torch.isfinite(out[0, 7]).all() and float(out[0, 7].abs().max()) > 0
+    assert np.isnan(ref[0, 7]).all()
+    out, ref = out.clone(), ref.copy()
+    out[0, 7], ref[0, 7] = 0, 0
+    _close(out, ref, dtype)
+
+
 # ---------------------------------------------------------------------------
 # The repairs: rel=None and bias3d=False, against JAX
 # ---------------------------------------------------------------------------
