@@ -14,10 +14,11 @@ Run from the repository root on a machine with one CUDA card. It
    each also showing that its bound rejects a wrong output, the packed-weight
    kernels' being their plain version with x's last K tile left out, also at
    pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
-   serving attention kernels, packed-weight kernels and the probes' row-max
-   and clamp-40 body (P3, P4) also show their tensor-core instructions, the
-   HGMMA count that ``cuobjdump -sass`` finds in each instantiation (and no
-   CUDA-core build of P3 or P4), and the W-A8 kernels their IGMMA (int8 wgmma, main
+   serving attention kernels, packed-weight kernels and the TMA attention
+   body (P3-P5, bfloat16 ``flash_rowblock``) also show their tensor-core
+   instructions, the HGMMA count that ``cuobjdump -sass`` finds in each
+   instantiation (and no CUDA-core build of P3-P5), and the W-A8 kernels
+   their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
    and times the kernel, the plain version, and one
@@ -211,8 +212,8 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
     tile, out type) of the bfloat16 attention kernels (``*_tc_kernel<HDP,
     OutT>``), (bits, epilogue) of the packed-weight body (``qmm_tc_kernel<BITS,
     EPI>``), (bits, sym, fine, out type) of the W-A8 kernels, (mode, exp2,
-    head dim tile) of the probes' tensor-core body (``probe_tc_kernel``) and
-    (mode, bias) of their CUDA-core one (``probe_heads_kernel``)."""
+    bias, head dim tile) of the TMA attention body (``probe_tc_kernel``) and
+    the name of a CUDA-core kernel."""
     import re
 
     cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
@@ -377,26 +378,32 @@ def main() -> int:
               f"{min((c[i] for c in build.values()), default=0)}-"
               f"{max((c[i] for c in build.values()), default=0)} {ins} each")
 
-    # The probes' row-max and clamp-40 softmax without a bias (P3, P4) run the
-    # tensor-core body: each of its 24 instantiations (row max exp2 and exp,
-    # clamp; hd tiles 16..128) holds HGMMA, and the CUDA-core template, whose
-    # products are FFMA loops, is built only for the modes P2 and P5 take
-    # (dot-only without a bias, the two softmaxes with one), so no launch of
-    # P3 or P4 can reach an FFMA product loop.
-    heads = _build.library_path("probe_heads")
-    tc_counts = tensor_core_counts(heads, _build._nvcc(), r"probe_tc_kernelILi(\d)ELb(\d)ELi(\d+)E")
-    want = {(m, e, str(h)) for m, e in (("1", "1"), ("1", "0"), ("2", "1"))
-            for h in range(16, 129, 16)}
-    cuda_core = tensor_core_counts(heads, _build._nvcc(), r"probe_heads_kernelILi(\d)ELb(\d)E")
-    check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values())
-          and set(cuda_core) == {("0", "0"), ("1", "1"), ("2", "1")},
-          f"probe_heads: {len(tc_counts)} tensor-core instantiations (P3, P4), HGMMA "
-          f"{min((c[0] for c in tc_counts.values()), default=0)}-"
-          f"{max((c[0] for c in tc_counts.values()), default=0)} each, FFMA "
-          f"{min((c[4] for c in tc_counts.values()), default=0)}-"
-          f"{max((c[4] for c in tc_counts.values()), default=0)}; CUDA-core "
-          f"template only for (mode, bias) " + ", ".join(
-              f"({m}, {b}) FFMA {c[4]}" for (m, b), c in sorted(cuda_core.items())))
+    # The TMA tensor-core body (probe_tc_kernel<MODE, EXP2, BIAS, HDP>, hd
+    # tiles 16..128): in probe_heads, the row-max and clamp-40 softmax
+    # without a bias (P3 row max exp2 and exp, P4 both) and with one (P5
+    # both), 40 instantiations; in flash_attn, bfloat16 flash_rowblock's
+    # FLASH mode with and without a rel grid, 16. Each holds HGMMA. The
+    # CUDA-core body of probe_heads is dots_floor_kernel alone (P2), so no
+    # launch of P3-P5 can reach an FFMA product loop.
+    hdps = [str(h) for h in range(16, 129, 16)]
+    for name, want in (("probe_heads", {(m, e, b, h) for m, e, b in (
+            ("1", "1", "0"), ("1", "0", "0"), ("2", "1", "0"), ("1", "1", "1"), ("2", "1", "1"))
+            for h in hdps}), ("flash_attn", {("3", "1", b, h) for b in "01" for h in hdps})):
+        lib = _build.library_path(name)
+        tc_counts = tensor_core_counts(lib, _build._nvcc(),
+                                       r"probe_tc_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d+)E")
+        cuda_core = tensor_core_counts(lib, _build._nvcc(),
+                                       r"(dots_floor_kernel|flash_attn_kernel\w+?E)")
+        check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values()),
+              f"{name}: {len(tc_counts)} probe_tc_kernel instantiations (mode, exp2, bias), HGMMA "
+              f"{min((c[0] for c in tc_counts.values()), default=0)}-"
+              f"{max((c[0] for c in tc_counts.values()), default=0)} each, FFMA "
+              f"{min((c[4] for c in tc_counts.values()), default=0)}-"
+              f"{max((c[4] for c in tc_counts.values()), default=0)}; CUDA-core kernels: "
+              + ", ".join(f"{k[0]} FFMA {c[4]}" for k, c in sorted(cuda_core.items())))
+        if name == "probe_heads":
+            check(set(cuda_core) == {("dots_floor_kernel",)},
+                  f"probe_heads: the CUDA-core body is P2's alone ({sorted(cuda_core)})")
 
     gen = torch.Generator(device=dev)
 
@@ -550,11 +557,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------- head-split kernel
-    # One kernel (csrc/flash_attn.cu) behind two counters: flash_whole at the
-    # ViT-H training shape (25 windows x 16 heads, L 196, rel 14 + 14) and
-    # rel-less; flash_rowblock at the rel-less ViT-H global shape (16 heads,
-    # L 4096) and at a rel grid the bias3d kernel cannot take (50 x 50,
-    # 128 % 50 != 0). The first case of each counter is its JSON row. Each
+    # csrc/flash_attn.cu behind two counters: flash_whole (the CUDA-core
+    # body) at the ViT-H training shape (25 windows x 16 heads, L 196, rel
+    # 14 + 14) and rel-less; flash_rowblock (bfloat16: the TMA tensor-core
+    # body) at the rel-less ViT-H global shape (16 heads, L 4096) and at a
+    # rel grid the bias3d kernel cannot take (50 x 50, 128 % 50 != 0). The
+    # first case of each counter is its JSON row. Each
     # case also reads a wrong output, the plain version with the last key
     # tile (L % 64 keys, or 64) left out of p.v, and fails if the bound
     # takes it.

@@ -5,8 +5,8 @@
 // :711-733) and ::_attn_kernel_rowblock (:680-699, one row block per
 // program, the bw == 1 branch :734-754), both reached from the generic
 // dispatch of flash_attention_relpos (:875-913). Those two differ only in
-// their TPU tiling; they compute one function, and this file is one kernel
-// for it, launched behind two counters (flash_whole for L <= 512, the
+// their TPU tiling; they compute one function, and this file computes it,
+// launched behind two counters (flash_whole for L <= 512, the
 // windowed training forward; flash_rowblock for longer L, the rel-less global
 // blocks). On q, k, v of shape (BH, L, hd) and, with REL, rel_h (BH, L, kh)
 // and rel_w (BH, L, kw):
@@ -28,15 +28,26 @@
 // rel-less ViT-H global shape (BH 16, L 4096, hd 80) is 85.9 GFLOP, bound
 // by operations (87 us in bf16).
 //
-// Design: each block takes 64 query rows of one problem and streams K and V
-// in 64-key tiles (flash_common.cuh's attend_rows), for every L: the TPU's
-// whole-problem batching (bw problems per program, all of K and V in VMEM)
-// buys nothing here, since a problem's K and V come from L2 for each of its
-// row blocks. The rel-less path is a compile-time branch that touches no
-// bias tile and divides by nothing. The products run on the CUDA cores in
-// float32, like the other two attention kernels; tensor-core products are
-// the step toward the bound.
-#include "flash_common.cuh"
+// Two bodies, chosen by the caller (ops/flash_attention.py's route()):
+// - bfloat16 flash_rowblock (the long-L rows, rel-less at ViT-H's global
+//   blocks, or with a rel grid the bias3d kernel does not take) runs
+//   probe_tc.cuh's FLASH mode: q, K and V by TMA from a producer warp into a
+//   ring of 128-byte-swizzled tiles, q.k and p.v on wgmma, qs and rel'
+//   formed in shared memory as above, p carried times 2^64. hd stays
+//   unpadded in device memory (TMA reads zeros past hd: hd 80 is five k16
+//   steps of q.k and one m64n64k16 plus one m64n16k16 of p.v); the wrapper
+//   pads hd to a multiple of 8 and copies unaligned operands for TMA. The
+//   ptxas pitfalls it avoids are in probe_tc.cuh's header; FLASH met no
+//   new diagnostic.
+// - flash_whole (L <= 512, the windowed training forward, both dtypes) and
+//   float32 flash_rowblock run flash_common.cuh's attend_rows: 64 query
+//   rows of one problem a block, K and V streamed in 64-key tiles, both
+//   products on the CUDA cores in float32 (tensor cores would mean TF32).
+//   The rel-less path is a compile-time branch that touches no bias tile.
+// The TPU's whole-problem batching (bw problems per program, all of K and
+// V in VMEM) buys nothing here, since a problem's K and V come from L2 for
+// each of its row blocks.
+#include "probe_tc.cuh"
 
 namespace samq {
 
@@ -79,8 +90,10 @@ static int run(const void* q, const void* k, const void* v, const void* rh, cons
 }  // namespace samq
 
 // dtype: 0 float32, 1 bfloat16. has_rel: 0 for no bias (kh, kw ignored).
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int samq_flash_attn(int dtype, int has_rel, const void* q, const void* k,
+// tc: 1 runs the TMA tensor-core body (bfloat16 only; D a multiple of 8, q,
+// k, v 16-byte aligned), 0 attend_rows. Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int samq_flash_attn(int dtype, int has_rel, int tc, const void* q, const void* k,
                                const void* v, const void* rel_h, const void* rel_w, void* out,
                                int BH, int L, int hd, int kh, int kw, float q_scale,
                                void* stream) {
@@ -89,6 +102,13 @@ extern "C" int samq_flash_attn(int dtype, int has_rel, const void* q, const void
   if (has_rel && (kh < 1 || kw < 1 || kh * kw != L)) return (int)cudaErrorInvalidValue;
   if (!has_rel) kh = kw = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return has_rel ? ptc::run<FLASH_CLIP, true, true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh,
+                                                      kw, q_scale, s)
+                   : ptc::run<FLASH_CLIP, true, false>(q, k, v, nullptr, nullptr, out, BH, L, hd,
+                                                       0, 0, q_scale, s);
+  }
   if (dtype == 0)
     return has_rel ? run<float, true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s)
                    : run<float, false>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s);

@@ -1,70 +1,95 @@
-// Tensor-core body of the row-max and clamp-40 probe kernels (probe_heads.cu
-// without a bias): P3 (_kernel_presplit, tools/packed_probe.py:111) and P4
-// (_k_pair, tools/global_stage_probe.py:183), both products on Hopper's
-// warpgroup MMA (wgmma), built from flash_tc.cuh's primitives.
+// Tensor-core body of the long-L attention kernels whose K and V arrive by
+// TMA: both products on Hopper's warpgroup MMA (wgmma), built from
+// flash_tc.cuh's primitives. Compile-time policy picks the softmax, the bias
+// and whether q is scaled; each instantiation computes its plain version's
+// function. It replaces
+//   P3 _kernel_presplit  (tools/packed_probe.py:111)        ROWMAX, no bias
+//   P4 _k_pair           (tools/global_stage_probe.py:183)  ROWMAX or CLAMP
+//   P5 _k_pair_bias      (tools/global_stage_probe.py:316)  the same, BIAS
+// through probe_heads.cu, and
+//   _attn_kernel_rowblock (sam_quantization_tpu/ops/flash_attention.py:680)
+//                        FLASH, with or without BIAS (flash_attn.cu's
+//                        bfloat16 flash_rowblock)
 //
-// Numerics, step for step those of the plain version (ops/probes.py):
-//   s   = f32 sum_d q k                     (no scale, no bias)
-//   ROWMAX: p = exp2(s - m), m = max_n s    (exp(s - m) with EXP2 false,
-//                                            as ex2((s - m) * log2 e))
-//   CLAMP:  p = exp2(min(s, 40) - 40)       (no floor)
+// Numerics, step for step those of the plain versions (ops/probes.py,
+// ops/flash_attention.py):
+//   s   = f32 sum_d q k, with FLASH q first scaled: qs = round_bf16(q * q_scale)
+//   BIAS: s += (rw[m, n % kw] + rh[m, n // kw]), rw + rh formed first, in
+//         f32 from bf16 rows: the raw tiles (probes), or round_bf16(rel *
+//         log2 e) (FLASH)
+//   ROWMAX: p = exp2(s - m), m = max_n s   (exp(s - m) with EXP2 false, as
+//                                           ex2((s - m) * log2 e))
+//   CLAMP:  p = exp2(min(s, 40) - 40)      (no floor)
+//   FLASH:  p = exp2(clip(s, -60, 64) - 64)
 //   o   = f32 sum_n round_bf16(p) v;  out = round_bf16(o * (1 / sum_n p))
 // with sum p over the unrounded f32 p. Only the summation order inside the
 // two products and the row sums differs (and, for exp, the rounding of its
-// argument times log2 e). Two things keep it exact where the plain version
-// is:
-// - The row max is exact: a first pass streams the K tiles through q.k and
-//   keeps each row's max of s; the second pass recomputes the same s (the
-//   same products in the same order) and takes exp2(s - m) against it, so
-//   every p is the plain version's and the row's largest p is 1. This is
-//   1.5x the product work of one pass; an online softmax would round p at
-//   a running max instead.
-// - IEEE gradual underflow as the plain version has it: exp2 is the non-ftz
-//   ex2.approx.f32, so a clamp-40 logit in (-109, -86) gives the subnormal
-//   p that the plain version keeps (flash_tc.cuh's ex2 flushes it), and a
-//   row whose logits all lie there sums to a finite sum p. For p.v, p is
-//   rounded to bf16 first (cvt keeps subnormals) and then carried times
-//   2^64 by a bf16x2 multiply, which is exact, subnormal inputs included;
-//   the f32 products on the tensor cores then stay normal. o' = 2^64 o, so
-//   out = round_bf16((o' * (1 / sum p)) * 2^-64), the plain version's
-//   rounding of o * (1 / sum p). A row whose every p underflows to 0 sums
-//   to 0 and gives 0 * inf = NaN, as the plain version (and the TPU kernel
-//   of _k_pair) does.
+// argument times log2 e). What keeps it exact where the plain version is:
+// - The row max is exact: a first pass streams the K tiles through q.k (and
+//   the bias) and keeps each row's max of s; the second pass recomputes the
+//   same s and takes exp2(s - m) against it, so every p is the plain
+//   version's and the row's largest p is 1. This is 1.5x the product work
+//   of one pass; an online softmax would round p at a running max instead.
+// - IEEE gradual underflow as the plain version has it: the probes' exp2 is
+//   the non-ftz ex2.approx.f32, so a clamp-40 logit in (-109, -86) gives the
+//   subnormal p that the plain version keeps, and a row whose logits all lie
+//   there sums to a finite sum p (FLASH's floor keeps p >= 2^-124, normal,
+//   and takes flash_tc.cuh's ftz ex2). For p.v, p is rounded to bf16 first
+//   (cvt keeps subnormals) and then carried times 2^64 by a bf16x2 multiply,
+//   which is exact, subnormal inputs included; the f32 products on the
+//   tensor cores then stay normal. o' = 2^64 o, so out = round_bf16((o' *
+//   (1 / sum p)) * 2^-64), the plain version's rounding of o * (1 / sum p).
+//   A CLAMP row whose every p underflows to 0 sums to 0 and gives 0 * inf =
+//   NaN, as the plain version (and the TPU kernel of _k_pair) does.
+// - Keys n >= L take no part: -inf in the max, p = 0 (the port does not pad
+//   L). Rows m >= L are computed on zeros and not stored.
 //
-// What bounds it on an H100: at P4's (16, 4096, 128) the one-pass product
-// work is 137 GFLOP, 139 us at 989 TFLOP/s bf16 (operations); the row-max
-// mode's second q.k pass makes it 206 GFLOP, 208 us. At P3's (400, 256, 128)
-// the 105 MB of bf16 traffic take 31 us (bytes), above 13.4 (20.1) GFLOP.
-// Every block reads its head's whole K and V (from L2: 32 times at P4's
-// shape), so the copies have to keep pace with the products.
+// What bounds it on an H100: at P4/P5's (16, 4096, 128) the one-pass
+// product work is 137 GFLOP, 139 us at 989 TFLOP/s bf16 (operations); the
+// row-max mode's second q.k pass makes it 206 GFLOP, 208 us. At flash_rowblock's
+// rel-less ViT-H global shape (16, 4096, 80) it is 85.9 GFLOP, 87 us
+// (operations). At P3's (400, 256, 128) the 105 MB of bf16 traffic take
+// 31 us (bytes), above 13.4 (20.1) GFLOP. Every block reads its head's whole
+// K and V (from L2: 32 times at L 4096), so the copies have to keep pace
+// with the products, and the bias and softmax with both.
 //
 // Layout. A block is two consumer warpgroups, each 64 query rows of one
 // (batch, head) (BQ = 128 rows a block), and one producer warp; keys are
-// walked in tiles of BK = 64. HDP is D rounded up to 16 (the probes run 128).
+// walked in tiles of BK = 64. HDP is D rounded up to 16 (128 at the probes,
+// 80 at ViT-H's head dim, which stays unpadded in device memory).
 // - Shared memory holds q, K and V in the 128-byte swizzle: atoms of 64
 //   columns (128-byte rows, 16-byte chunk c of row r at c ^ (r % 8)).
 // - The producer warp brings q once and the K (and in the second pass V)
-//   tile of each step into a ring of four stages by TMA (one thread, 3D
+//   tile of each step into a ring of four stages by TMA (lane 0, 3D
 //   tensor maps that read zeros past L and past D), each stage's full
 //   mbarrier counting the bytes. TMA needs rows of whole 16-byte groups and
-//   16-byte aligned operands: ops/probes.py pads D to a multiple of 8 and
-//   copies an unaligned operand before the launch. A stage is written
-//   again once all 256 consumer threads have arrived on its empty
-//   mbarrier. The consumers meet no block barrier, so the two
-//   warpgroups drift apart and one's softmax runs beside the other's
-//   products.
+//   16-byte aligned operands: the wrappers pad D to a multiple of 8 and copy
+//   an unaligned operand before the launch. A stage is written again once
+//   all 256 consumer threads have arrived on its empty mbarrier. The
+//   consumers meet no block barrier, so the two warpgroups drift apart and
+//   one's softmax runs beside the other's products.
+// - FLASH: each warpgroup scales its own 64 q rows in shared memory once q
+//   has landed (element-wise, so the swizzle does not matter), then fences
+//   them to the tensor cores' proxy and meets its 128 threads at a named
+//   barrier before its first wgmma.
+// - BIAS: each warpgroup copies the rh and rw rows of its 64 rows into
+//   shared memory as bf16 before q.k (128 x (kh + kw) values a block; the
+//   ring has two stages where four do not fit beside them, and a shape
+//   whose rows leave no room for two is refused). At kw == 64 (the ViT-H
+//   grid) n // kw is the tile and n % kw the column: each thread keeps its
+//   16 rw pairs packed in registers and reads rh once a tile. At any other
+//   kw the producer warp's lanes write the stage's 64-entry (n // kw,
+//   n % kw) table before they arrive on its full barrier.
 // - q.k: wgmma.m64n64k16, A = the warpgroup's q rows and B = the K tile,
-//   both in shared memory, K-major; HDP / 16 depth steps. q is copied as it
-//   is (the callers prescale it).
-// - Max, exp2, masks and row sums on the f32 accumulator registers; the
-//   packed bf16 p is the register A operand of p.v (the accumulator layout
-//   of 16 keys is the A fragment layout of one k16 step).
+//   both in shared memory, K-major; HDP / 16 depth steps.
+// - Bias, max, exp2, masks and row sums on the f32 accumulator registers;
+//   the packed bf16 p is the register A operand of p.v (the accumulator
+//   layout of 16 keys is the A fragment layout of one k16 step).
 // - p.v: wgmma.m64n128k16 at HDP 128, else m64n64k16 per 64 output columns
-//   and m64n16k16 for the rest; B = the V tile, MN-major.
+//   and m64n16k16 for the rest (one of each at HDP 80); B = the V tile,
+//   MN-major.
 // - The softmax pass issues q.k of tile t and p.v of tile t - 1 together,
 //   waits for both, then forms tile t's p with no product in flight.
-// - Keys n >= L take no part: -inf in the max, p = 0. Rows m >= L are
-//   computed on zeros and not stored.
 // What ptxas needs (-Xptxas -v names each case): the producer/consumer
 // split is taken on a warp-uniform value, else it serializes every wgmma
 // (C7520); no accumulator is written or read outside its chain while
@@ -74,7 +99,9 @@
 // tile t - 1 was still in flight is not safe: ptxas gave the registers of
 // p.v's register operand, which the tensor cores read after the issue, to
 // the new p and its temporaries (wrong rows on the card once the exp code
-// grew), so p.v is waited for first.
+// grew), so p.v is waited for first. The bias, q-scale and FLASH policies
+// met no new diagnostic; the named barrier with a register id makes ptxas
+// reserve all 16 barriers ("used 16 barriers"), harmless at one block an SM.
 #pragma once
 
 #include <string.h>
@@ -84,25 +111,28 @@
 
 namespace samq {
 
-enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2 };
+enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2, FLASH_CLIP = 3 };
 constexpr float PAIR_CAP = 40.f;  // _k_pair's static shift
 
 namespace ptc {
 
 using tc::BK;
 using tc::BQ;
-constexpr int STAGES = 4;               // K/V stages of the ring
+constexpr int MAX_STAGES = 4;           // K/V stages of the ring, at most
 constexpr int CONSUMERS = 2 * tc::WG;   // two warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int ATOM_ROW = 128;           // bytes of a row of a 128-byte-swizzle atom: 64 values
+constexpr int BAR_BYTES = 80;           // full and empty per stage, q's: 9 mbarriers, 16-aligned
 
 // Shared memory: per stage, the K tile then the V tile, each NA atoms of
 // BK rows x 128 bytes (NA = HDP / 64 rounded up: the 64 columns of an atom);
-// then q, NA atoms of BQ rows; then the barriers: each stage's full and
-// empty, and q's full.
+// then q, NA atoms of BQ rows; the barriers; a 64-entry key index table per
+// stage; and the bias rows, BQ x kh then BQ x kw bf16.
 __host__ __device__ constexpr int atoms(int hdp) { return (hdp + 63) / 64; }
-inline size_t smem_bytes(int hdp) {
-  return (size_t)atoms(hdp) * ATOM_ROW * (2 * STAGES * BK + BQ) + 8 * (2 * STAGES + 1);
+inline size_t stage_bytes(int hdp) { return (size_t)2 * atoms(hdp) * BK * ATOM_ROW; }
+inline size_t fixed_bytes(int hdp, int kh, int kw) {
+  return (size_t)atoms(hdp) * BQ * ATOM_ROW + BAR_BYTES + MAX_STAGES * BK * 4 +
+         (size_t)BQ * (kh + kw) * 2;
 }
 
 // 2^x with gradual underflow: subnormal results for x in (-149, -126).
@@ -118,6 +148,10 @@ __device__ __forceinline__ uint32_t pack_carried(float lo, float hi) {
   uint32_t r = tc::pack_bf16(lo, hi);
   asm("mul.rn.bf16x2 %0, %0, %1;" : "+r"(r) : "r"(0x5F805F80u));  // bf16 2^64, twice
   return r;
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 // wgmma matrix descriptor of an operand in the 128-byte swizzle (layout
@@ -189,35 +223,55 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
+// What a launch takes besides the tensor maps: out (D a multiple of 8,
+// 4-byte aligned), written a pair of columns at a time; with BIAS the rows
+// rh (BH, L, kh) and rw (BH, L, kw), kh * kw == L; the ring's stage count;
+// FLASH's q scale.
+struct Args {
+  __nv_bfloat16* out;
+  const __nv_bfloat16* rh;
+  const __nv_bfloat16* rw;
+  int L, D, kh, kw, stages;
+  float q_scale;
+};
+
 // One (batch, head) of (BH, L, D) operands a blockIdx.y, rows blockIdx.x *
-// BQ..; q, K and V arrive by TMA through `maps`, out (D a multiple of 8,
-// 4-byte aligned) is written a pair of columns at a time.
-template <int MODE, bool EXP2, int HDP>
+// BQ..; q, K and V arrive by TMA through `maps`.
+template <int MODE, bool EXP2, bool BIAS, int HDP>
 __global__ void __launch_bounds__(THREADS, 1)
-    probe_tc_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out, int L,
-                    int D) {
-  constexpr bool ROWMAX = MODE == PROBE_ROWMAX;
+    probe_tc_kernel(const __grid_constant__ Maps maps, const Args args) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool ROWMAX = MODE == PROBE_ROWMAX, FLASH = MODE == FLASH_CLIP;
   constexpr int NA = atoms(HDP);    // 64-column atoms of a row
   constexpr int KS = HDP / 16;      // q.k depth steps
   constexpr int TILE = NA * BK * ATOM_ROW;  // bytes of one K or V tile
   constexpr int N64 = HDP / 64, N16 = HDP % 64 / 16;  // p.v column chunks of 64 and 16
-  static_assert(MODE == PROBE_ROWMAX || MODE == PROBE_CLAMP, "softmax modes only");
+  static_assert(ROWMAX || MODE == PROBE_CLAMP || FLASH, "softmax modes only");
   static_assert(HDP % 16 == 0 && HDP <= MAX_HD, "HDP: a multiple of 16 up to MAX_HD");
   extern __shared__ __align__(1024) unsigned char ptc_smem[];
+  const int L = args.L, D = args.D, kh = args.kh, kw = args.kw, stages = args.stages;
+  const int smask = stages - 1, sshift = stages == 4 ? 2 : 1;  // u % stages, u / stages
   unsigned char* KV = ptc_smem;                      // [stage][K, V][TILE]
-  unsigned char* Qs = KV + 2 * STAGES * TILE;        // NA atoms of BQ rows
-  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + NA * BQ * ATOM_ROW);  // [STAGES], q's
-  uint64_t* empty = full + STAGES + 1;                                    // [STAGES]
+  unsigned char* Qs = KV + 2 * stages * TILE;        // NA atoms of BQ rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + NA * BQ * ATOM_ROW);  // [MAX_STAGES]
+  uint64_t* empty = full + MAX_STAGES;                                    // [MAX_STAGES]
+  uint64_t* qbar = empty + MAX_STAGES;
+  int* idx = reinterpret_cast<int*>(Qs + NA * BQ * ATOM_ROW + BAR_BYTES);  // [stage][BK]
+  bf16* Rh = reinterpret_cast<bf16*>(idx + MAX_STAGES * BK);  // BQ x kh
+  bf16* Rw = Rh + BQ * kh;                                    // BQ x kw
 
   const int bh = blockIdx.y, m0 = blockIdx.x * BQ, tid = threadIdx.x, lane = tid & 31;
-  const long off = (long)bh * L * D;
   const int tiles = (L + BK - 1) / BK, steps = ROWMAX ? 2 * tiles : tiles;
+  // kw == BK: n // kw is the tile and n % kw the column (every tile whole);
+  // any other kw takes a table of (n // kw, n % kw) per stage.
+  const bool kw64 = BIAS && kw == BK, table = BIAS && !kw64;
 
   if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i <= STAGES; ++i) mbar_init(full + i, 1);
-#pragma unroll
-    for (int i = 0; i < STAGES; ++i) mbar_init(empty + i, CONSUMERS);
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, table ? 32 : 1);
+      mbar_init(empty + i, CONSUMERS);
+    }
+    mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // the block's only barrier: the warps part here
@@ -225,21 +279,35 @@ __global__ void __launch_bounds__(THREADS, 1)
   // The warpgroup index through a shuffle, so that ptxas sees the split as
   // warp-uniform: wgmma behind a branch it takes for divergent gets every
   // product serialized (C7520).
-  if (__shfl_sync(0xffffffffu, tid / tc::WG, 0) == CONSUMERS / tc::WG) {
-    // The producer warp: q, then each step's tiles into stage u % STAGES as
+  const int wg = __shfl_sync(0xffffffffu, tid / tc::WG, 0);
+  if (wg == CONSUMERS / tc::WG) {
+    // The producer warp: q, then each step's tiles into stage u % stages as
     // soon as both warpgroups have released the stage's previous step: K,
     // and V where the step forms p.v (the row-max mode's steps tiles ..
-    // 2 tiles - 1, every clamp step), all by TMA from lane 0.
+    // 2 tiles - 1, every other step), all by TMA from lane 0. With a bias
+    // table, every lane first writes two of its entries, and all 32 lanes
+    // arrive on the full barrier, so the consumers' wait also acquires the
+    // table; otherwise lane 0 alone.
     if (lane == 0) {
-      mbar_expect(full + STAGES, NA * BQ * ATOM_ROW);
+      mbar_expect(qbar, NA * BQ * ATOM_ROW);
 #pragma unroll
       for (int a = 0; a < NA; ++a)
-        tma_box(Qs + a * BQ * ATOM_ROW, &maps.q, 64 * a, m0, bh, full + STAGES);
-      for (int u = 0; u < steps; ++u) {
-        const int st = u % STAGES;
-        if (u >= STAGES) mbar_wait(empty + st, (u / STAGES - 1) & 1);
-        const bool pv = !ROWMAX || u >= tiles;
-        const int n0 = (ROWMAX && pv ? u - tiles : u) * BK;
+        tma_box(Qs + a * BQ * ATOM_ROW, &maps.q, 64 * a, m0, bh, qbar);
+    }
+    if (lane != 0 && !table) return;
+    for (int u = 0; u < steps; ++u) {
+      const int st = u & smask;
+      if (u >= stages) mbar_wait(empty + st, ((u >> sshift) - 1) & 1);
+      const bool pv = !ROWMAX || u >= tiles;
+      const int n0 = (ROWMAX && pv ? u - tiles : u) * BK;
+      if (table) {  // n // kw and n % kw stay below 2^16: their bias rows must fit
+#pragma unroll
+        for (int j = lane; j < BK; j += 32) {
+          const int n = n0 + j, hq = n / kw;
+          idx[st * BK + j] = n < L ? hq | ((n - hq * kw) << 16) : 0;
+        }
+      }
+      if (lane == 0) {
         unsigned char* dst = KV + 2 * st * TILE;
         mbar_expect(full + st, (pv ? 2 : 1) * TILE);
 #pragma unroll
@@ -247,15 +315,72 @@ __global__ void __launch_bounds__(THREADS, 1)
           tma_box(dst + a * BK * ATOM_ROW, &maps.k, 64 * a, n0, bh, full + st);
           if (pv) tma_box(dst + TILE + a * BK * ATOM_ROW, &maps.v, 64 * a, n0, bh, full + st);
         }
+      } else {
+        mbar_arrive(full + st);
       }
     }
     return;
   }
 
   // The two consumer warpgroups.
-  out += off;
-  const int lr0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows lr0, lr0 + 8
+  bf16* out = args.out + (long)bh * L * D;
+  const int wt = tid & (tc::WG - 1);  // thread of the warpgroup
+  const int lr0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows lr0, lr0 + 8
   const int cq = 2 * (lane & 3);  // first column (key) of each of the thread's pairs
+
+  // The bias rows of this warpgroup's 64 rows, as bf16 (FLASH: rel * log2 e,
+  // rounded); zeros past row L.
+  if constexpr (BIAS) {
+    const int r0 = m0 + wg * 64, valid = min(max(L - r0, 0), 64);
+    auto copy_rows = [&](bf16* dst, const bf16* src, int width) {
+      src += ((long)bh * L + r0) * width;
+      dst += wg * 64 * width;
+      const int n = 64 * width, have = valid * width;
+#pragma unroll 4
+      for (int i = wt; i < n; i += tc::WG) {
+        const bf16 x = i < have ? src[i] : __float2bfloat16(0.f);
+        dst[i] = FLASH ? __float2bfloat16(__bfloat162float(x) * LOG2E_F) : x;
+      }
+    };
+    copy_rows(Rh, args.rh, kh);
+    copy_rows(Rw, args.rw, kw);
+  }
+  mbar_wait(qbar, 0);
+  if constexpr (FLASH) {
+    // qs = round_bf16(q * q_scale), in place in this warpgroup's rows of
+    // each atom, then made visible to the tensor cores (async proxy).
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      uint4* rows = reinterpret_cast<uint4*>(Qs + a * BQ * ATOM_ROW + wg * 64 * ATOM_ROW);
+#pragma unroll
+      for (int c = wt; c < 64 * ATOM_ROW / 16; c += tc::WG) {
+        uint4 w = rows[c];
+        uint32_t* h = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack_bf16(h[e]);
+          h[e] = tc::pack_bf16(f.x * args.q_scale, f.y * args.q_scale);
+        }
+        rows[c] = w;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if constexpr (BIAS || FLASH)  // the warpgroup's 128 threads, named barrier 1 or 2
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(tc::WG) : "memory");
+
+  const bf16 *rh0 = Rh + lr0 * kh, *rh1 = rh0 + 8 * kh;
+  const bf16 *rw0 = Rw + lr0 * kw, *rw1 = rw0 + 8 * kw;
+  // kw64: rw of rows lr0 and lr0 + 8 at columns 8 j + cq and + 1, packed.
+  uint32_t rwp[2][BK / 8];
+  if (kw64) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      rwp[0][j] = *reinterpret_cast<const uint32_t*>(rw0 + 8 * j + cq);
+      rwp[1][j] = *reinterpret_cast<const uint32_t*>(rw1 + 8 * j + cq);
+    }
+  }
+
   // o[c][i], o16[c][i]: row lr0 (i & 2 == 0) or lr0 + 8, column
   // c0 + 8 (i >> 2) + cq + (i & 1) with c0 = 64 c, or 64 N64 + 16 c.
   float o[N64 ? N64 : 1][32], o16[N16 ? N16 : 1][8];
@@ -269,15 +394,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < 8; ++i) o16[c][i] = 0.f;
   float mx0 = -INFINITY, mx1 = -INFINITY;  // row max of s (ROWMAX), rows lr0, lr0 + 8
   float ls0 = 0.f, ls1 = 0.f;              // this thread's part of sum p
-  const uint32_t qaddr = tc::smem_u32(Qs) + (tid >> 7) * 64 * ATOM_ROW;  // this warpgroup's rows
-  mbar_wait(full + STAGES, 0);
+  const uint32_t qaddr = tc::smem_u32(Qs) + wg * 64 * ATOM_ROW;  // this warpgroup's rows
 
-  // Step u's tiles are in place (the full barrier's phase u / STAGES); a
-  // step's stage is released once its last product is done: q.k for the
-  // row-max pass, p.v (issued in the next step) for the softmax pass.
-  auto begin_step = [&](int u) { mbar_wait(full + u % STAGES, (u / STAGES) & 1); };
-  auto release = [&](int u) { mbar_arrive(empty + u % STAGES); };
-  auto kaddr = [&](int u) { return tc::smem_u32(KV + 2 * (u % STAGES) * TILE); };
+  // Step u's tiles are in place (the full barrier's phase u / stages); a
+  // step's stage is released once its last product and its table read are
+  // done: q.k for the row-max pass, p.v (issued in the next step) for the
+  // softmax pass.
+  auto begin_step = [&](int u) { mbar_wait(full + (u & smask), (u >> sshift) & 1); };
+  auto release = [&](int u) { mbar_arrive(empty + (u & smask)); };
+  auto kaddr = [&](int u) { return tc::smem_u32(KV + 2 * (u & smask) * TILE); };
   // Issue q.k of the K tile of step u into sp (committed). Step ks of both
   // operands starts 32 bytes into the rows of atom ks / 4 (the hardware
   // applies the swizzle to the sum); 8-row groups 1 KB apart (SBO).
@@ -317,6 +442,35 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int c = 0; c < N16; ++c) tc::fence_regs(o16[c]);
   };
+  // s += (rw + rh) on the logits of step u (tile t). sp[4 j + e]: row lr0
+  // (e < 2) or lr0 + 8, key t * BK + 8 j + cq + (e & 1).
+  auto add_bias = [&](float (&sp)[32], int u, int t) {
+    if constexpr (BIAS) {
+      if (kw64) {
+        const float h0 = __bfloat162float(rh0[t]), h1 = __bfloat162float(rh1[t]);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float2 w0 = unpack_bf16(rwp[0][j]), w1 = unpack_bf16(rwp[1][j]);
+          sp[4 * j + 0] += w0.x + h0;
+          sp[4 * j + 1] += w0.y + h0;
+          sp[4 * j + 2] += w1.x + h1;
+          sp[4 * j + 3] += w1.y + h1;
+        }
+      } else {
+        const int* id = idx + (u & smask) * BK;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const int2 hw = *reinterpret_cast<const int2*>(id + 8 * j + cq);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int hq = (e ? hw.y : hw.x) & 0xffff, wq = (e ? hw.y : hw.x) >> 16;
+            sp[4 * j + e] += __bfloat162float(rw0[wq]) + __bfloat162float(rh0[hq]);
+            sp[4 * j + 2 + e] += __bfloat162float(rw1[wq]) + __bfloat162float(rh1[hq]);
+          }
+        }
+      }
+    }
+  };
   // Is sp[i] of the tile at n0 a key past L? (sp[i]: row lr0 when i & 2 is
   // 0, else lr0 + 8; key n0 + 8 (i >> 2) + cq + (i & 1).)
   auto absent = [&](int n0, int i) { return n0 + 8 * (i >> 2) + cq + (i & 1) >= L; };
@@ -328,6 +482,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       issue_qk(sp, t);
       tc::wg_wait_all();
       tc::fence_regs(sp);
+      add_bias(sp, t, t);
       release(t);
       const bool tail = (t + 1) * BK > L;
 #pragma unroll
@@ -359,6 +514,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     tc::fence_u32(pa);
     fence_o();
     if (t > 0) release(u - 1);
+    add_bias(sp, u, t);
     const int n0 = t * BK;
     const bool tail = n0 + BK > L;
 #pragma unroll
@@ -370,7 +526,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int i = 8 * kk + 2 * f + h;
           float p;
-          if constexpr (MODE == PROBE_CLAMP)
+          if constexpr (FLASH)
+            p = tc::ex2(fminf(fmaxf(sp[i], CLAMP_FLOOR), CLAMP_CAP) - CLAMP_CAP);
+          else if constexpr (MODE == PROBE_CLAMP)
             p = ex2_sub(fminf(sp[i], PAIR_CAP) - PAIR_CAP);
           else if constexpr (EXP2)
             p = ex2_sub(sp[i] - ((i & 2) ? mx1 : mx0));
@@ -429,15 +587,21 @@ inline bool encode(CUtensorMap* map, const void* x, int BH, int L, int D, int ro
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Launch the body for one mode on (BH, L, D) bf16 operands, D <= MAX_HD a
-// multiple of 8, q, k and v 16-byte aligned and out 4-byte aligned (what
-// TMA and the paired stores take); anything else is refused.
-template <int MODE, bool EXP2>
-inline int run(const void* q, const void* k, const void* v, void* out, int BH, int L, int D,
+// Launch the body on (BH, L, D) bf16 operands, D <= MAX_HD a multiple of 8,
+// q, k and v 16-byte aligned and out 4-byte aligned (what TMA and the paired
+// stores take); with BIAS, rh (BH, L, kh) and rw (BH, L, kw) with kh * kw ==
+// L, whose 128 x (kh + kw) rows of a block must leave room for two ring
+// stages. Anything else is refused.
+template <int MODE, bool EXP2, bool BIAS>
+inline int run(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+               void* out, int BH, int L, int D, int kh, int kw, float q_scale,
                cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const auto aligned = [](const void* p, int a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; };
   if (D % 8 != 0 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) || !aligned(out, 4))
+    return (int)cudaErrorInvalidValue;
+  if (BIAS ? (rh == nullptr || rw == nullptr || kh < 1 || kw < 1 || (long)kh * kw != L)
+           : (kh != 0 || kw != 0))
     return (int)cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -446,14 +610,20 @@ inline int run(const void* q, const void* k, const void* v, void* out, int BH, i
     return (int)cudaErrorNotSupported;
   return tc::dispatch_hdp(D, [&](auto hdp) {
     constexpr int HDP = decltype(hdp)::value;
-    const dim3 grid((L + BQ - 1) / BQ, BH);
-    const auto kernel = probe_tc_kernel<MODE, EXP2, HDP>;
-    const size_t bytes = smem_bytes(HDP);
-    if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+    // Four stages where they fit, else two (a power of two: the stage and
+    // phase of a step are a mask and a shift).
+    const size_t fixed = fixed_bytes(HDP, kh, kw), stage = stage_bytes(HDP);
+    const int stages = fixed + MAX_STAGES * stage <= (size_t)MAX_SMEM ? MAX_STAGES : 2;
+    if (fixed + stages * stage > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const size_t bytes = fixed + stages * stage;
+    const auto kernel = probe_tc_kernel<MODE, EXP2, BIAS, HDP>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, THREADS, bytes, stream>>>(maps, static_cast<bf16*>(out), L, D);
+    const Args a{static_cast<bf16*>(out), static_cast<const bf16*>(rh),
+                 static_cast<const bf16*>(rw), L, D, kh, kw, stages, q_scale};
+    const dim3 grid((L + BQ - 1) / BQ, BH);
+    kernel<<<grid, THREADS, bytes, stream>>>(maps, a);
     return (int)cudaGetLastError();
   });
 }

@@ -20,6 +20,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 import torch
+import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -45,11 +46,11 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
         "samq_flash_global",
         (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     ),
-    # dtype, has_rel, q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale,
-    # stream
+    # dtype, has_rel, tc, q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
+    # q_scale, stream
     "flash_attn": (
         "samq_flash_attn",
-        (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     ),
     # dtype, bits, x, qweight, qweight_hi, scales, zeros, out, M, K, N,
     # groupsize, pack_block, stream
@@ -152,6 +153,16 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def tma_operands(*tensors: torch.Tensor):
+    """``tensors`` (..., D) as csrc/probe_tc.cuh's TMA copies take them: D
+    padded with zeros to a multiple of 8 (rows of whole 16-byte groups), and
+    a copy of any operand that does not start on 16 bytes. Zero columns add
+    nothing to q.k; the caller cuts the output columns they give."""
+    pad = -tensors[0].shape[-1] % 8
+    padded = (F.pad(t, (0, pad)) if pad else t for t in tensors)
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in padded]
 
 
 def launch(name: str, *args) -> None:

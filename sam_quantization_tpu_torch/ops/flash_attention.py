@@ -23,8 +23,11 @@ past the p.v product, and (windowed and bias3d global only) an optional int8
 epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 
 In bfloat16 the windowed and bias3d global kernels run both products on
-Hopper's tensor cores (wgmma, ``csrc/flash_tc.cuh``); their float32
-instantiations and ``csrc/flash_attn.cu`` run them on the CUDA cores.
+Hopper's tensor cores (wgmma, ``csrc/flash_tc.cuh``), and so does
+``flash_rowblock`` (``csrc/probe_tc.cuh``: K and V by TMA from a producer
+warp; the wrapper pads hd to a multiple of 8 and copies operands that do
+not start on 16 bytes, as TMA needs). Their float32 instantiations and
+``flash_whole`` run them on the CUDA cores.
 
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
@@ -244,6 +247,12 @@ def flash_attention_relpos(
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
     quant = out_inv_scale is not None
+    # bfloat16 row blocks run the TMA tensor-core body (csrc/probe_tc.cuh),
+    # which takes q, k and v as tma_operands gives them; float32 ones and
+    # flash_whole keep the CUDA-core body.
+    tc = name == "flash_rowblock" and q.dtype == torch.bfloat16
+    if tc:
+        q, k, v = _build.tma_operands(q, k, v)
     out = torch.empty(q.shape, dtype=torch.int8 if quant else q.dtype, device=q.device)
     kh, kw = kv_size or (0, 0)
     rh, rw = (None, None) if kv_size is None else (rel_h.data_ptr(), rel_w.data_ptr())
@@ -257,10 +266,12 @@ def flash_attention_relpos(
             )
         else:
             _build.launch(
-                "flash_attn", _build.DTYPE_CODE[q.dtype], int(kv_size is not None),
+                "flash_attn", _build.DTYPE_CODE[q.dtype], int(kv_size is not None), int(tc),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L,
-                hd, kh, kw, float(scale * LOG2E), stream,
+                q.shape[-1], kh, kw, float(scale * LOG2E), stream,
             )
+    if out.shape[-1] != hd:
+        out = out[..., :hd].contiguous()
     LAUNCHES[name] += 1
     if quant:  # only flash_global has the epilogue
         INT8_OUT[name] += 1

@@ -19,13 +19,14 @@ probes, which strip the serving attention kernels down to their parts
   ``_k_pair_bias``).
 
 The last four are one entry point of ``csrc/probe_heads.cu`` with two
-bodies. :func:`probe_presplit` and :func:`probe_pair` (the row-max and
-clamp-40 softmax without a bias) run ``csrc/probe_tc.cuh``: both products on
-the tensor cores (``wgmma``), the row max exact by a first q.k pass, and
-IEEE gradual underflow in p as the plain version has it, so a clamp-40 row
-whose logits all lie in (-109, -86) stays finite on both; the wrapper pads a
-head dim that is not a multiple of 8 with zeros and copies an operand that
-is not 16-byte aligned, as its TMA copies need. P2 and P5 run a
+bodies. :func:`probe_presplit`, :func:`probe_pair` and
+:func:`probe_pair_bias` (the row-max and clamp-40 softmax, with and without
+the bias) run ``csrc/probe_tc.cuh``: both products on the tensor cores
+(``wgmma``), the row max exact by a first q.k pass (the bias added in both
+passes), and IEEE gradual underflow in p as the plain version has it, so a
+clamp-40 row whose logits all lie in (-109, -86) stays finite on both; the
+wrapper pads a head dim that is not a multiple of 8 with zeros and copies
+an operand that is not 16-byte aligned, as its TMA copies need. P2 runs a
 body with both products on the CUDA cores in float32. None of them scales
 q: the callers prescale it where they want a scale (the probes pass
 ``q * hd**-0.5 * log2(e)`` to the pair kernels), and a key padded with
@@ -43,7 +44,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from sam_quantization_tpu_torch.ops import _build
 
@@ -196,22 +196,20 @@ def _heads(name: str, mode: int, exp2: bool, q, k, v, rh=None, rw=None) -> torch
         raise ValueError(f"{name}: operands must be contiguous")
     if D > 128:
         raise ValueError(f"{name}: head dim {D} > 128")
-    if rh is None and mode != _NONE:
-        # csrc/probe_tc.cuh takes its tiles by TMA: rows of whole 16-byte
-        # groups and 16-byte aligned operands. Zero columns add nothing to
-        # q.k, and the output columns they give are cut off.
-        if D % 8:
-            padded = (F.pad(t, (0, -D % 8)) for t in (q, k, v))
-            return _heads(name, mode, exp2, *padded)[..., :D].contiguous()
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    if mode != _NONE:
+        # csrc/probe_tc.cuh takes q, k and v by TMA (rh and rw are read a
+        # value at a time and need neither).
+        q, k, v = _build.tma_operands(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.launch(
             "probe_heads", mode, int(exp2), int(rh is not None), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), None if rh is None else rh.data_ptr(),
-            None if rw is None else rw.data_ptr(), out.data_ptr(), q.numel() // (L * D), L, D,
-            kh, kw, torch.cuda.current_stream().cuda_stream,
+            None if rw is None else rw.data_ptr(), out.data_ptr(), q.numel() // (L * q.shape[-1]),
+            L, q.shape[-1], kh, kw, torch.cuda.current_stream().cuda_stream,
         )
+    if out.shape[-1] != D:
+        out = out[..., :D].contiguous()
     LAUNCHES[name] += 1
     return out
 

@@ -4,11 +4,15 @@
 
 Times ``flash_windowed`` (25 windows of 14 x 14, 16 heads, hd 80) and
 ``flash_global`` (a 64 x 64 grid, 16 heads, hd 80) at one image's shapes,
-bf16 out and int8 out, and the stage probes' softmax kernels at the probes'
-shapes: ``probe_presplit`` (P3, exp2 and exp) on (400, 256, 128) and
-``probe_pair`` (P4, row max and clamp 40) on (16, 4096, 128), q scaled by
-hd**-0.5 * log2(e) as the probes scale it, each beside its yardstick
-``scaled_dot_product_attention`` with scale ln 2 (the exp2 softmax). Inputs
+bf16 out and int8 out; ``flash_rowblock`` in bf16 at the rel-less global
+shape (1, 16, 4096, 80), scale hd**-0.5, beside
+``scaled_dot_product_attention`` at the same scale; and the stage probes'
+softmax kernels at the probes' shapes: ``probe_presplit`` (P3, exp2 and
+exp) on (400, 256, 128), ``probe_pair`` (P4, row max and clamp 40) and
+``probe_pair_bias`` (P5, the same with raw 64 x 64 rel tiles) on (16,
+4096, 128), q scaled by hd**-0.5 * log2(e) as the probes scale it, each
+beside its yardstick ``scaled_dot_product_attention`` with scale ln 2 (the
+exp2 softmax; P5's bias times ln 2 as ``attn_mask``). Inputs
 are random, made from ``--seed``. It prints one JSON line with the card's
 name, its power limit and the ms per call
 (:func:`sam_quantization_tpu_torch.tools.timing.timed_ms`). Run it from two
@@ -68,15 +72,24 @@ def main(argv=None) -> int:
         "flash_global": lambda: fa.flash_attention_relpos(q, k, v, rh, rw, scale),
         "flash_global_int8": lambda: fa.flash_attention_relpos(
             q, k, v, rh, rw, scale, out_inv_scale=ois),
+        "flash_rowblock": lambda: fa.flash_attention_relpos(q, k, v, None, None, scale),
+        "sdpa_rowblock": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }
     # The probes' head shapes (hd 80 padded to 128 lanes; random in all 128).
     pq, pk, pv = (randn(400, 256, 128) for _ in range(3))
     gq, gk, gv = (randn(16, Lg, 128) for _ in range(3))
     pq, gq = ((t.float() * (scale * fa.LOG2E)).to(bf) for t in (pq, gq))
 
-    def sdpa(q3, k3, v3):
+    # P5's raw rel tiles, at the probe's scale, and their bias as SDPA's mask.
+    prh, prw = ((torch.randn((16, Lg, g), generator=gen, device=dev) * 0.05).to(bf)
+                for _ in range(2))
+    n = torch.arange(Lg, device=dev)
+    mask = ((prw.float()[..., n % g] + prh.float()[..., n // g]) * math.log(2.0)).to(bf)[None]
+
+    def sdpa(q3, k3, v3, mask=None):
         q4, k4, v4 = (t[None] for t in (q3, k3, v3))
-        return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=math.log(2.0))
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      scale=math.log(2.0))
 
     cases.update({
         "probe_presplit_exp2": lambda: probes.probe_presplit(pq, pk, pv, True),
@@ -85,6 +98,9 @@ def main(argv=None) -> int:
         "probe_pair_rowmax": lambda: probes.probe_pair(gq, gk, gv, False),
         "probe_pair_clamp": lambda: probes.probe_pair(gq, gk, gv, True),
         "sdpa_pair": sdpa(gq, gk, gv),
+        "probe_pair_bias_rowmax": lambda: probes.probe_pair_bias(gq, gk, gv, prh, prw, False),
+        "probe_pair_bias_clamp": lambda: probes.probe_pair_bias(gq, gk, gv, prh, prw, True),
+        "sdpa_pair_bias": sdpa(gq, gk, gv, mask),
     })
     line = {"gpu": card_line()}
     for name, fn in cases.items():

@@ -181,6 +181,8 @@ HEAD_SPLIT_SHAPES = [  # B, nh, L, hd, kh, kw (kh = kw = 0: no rel-pos)
     (1, 2, 1024, 64, 32, 32),  # row blocks (JAX bias3d=False)
     (2, 2, 196, 64, 0, 0),  # rel-less, whole problems
     (1, 2, 1024, 64, 0, 0),  # rel-less, row blocks
+    (1, 2, 520, 80, 0, 0),  # rel-less, row blocks, L ragged against 64 and 128
+    (1, 2, 1000, 64, 0, 0),  # the same
 ]
 
 

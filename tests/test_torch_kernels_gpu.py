@@ -223,6 +223,81 @@ def test_head_split_kernel_matches_plain(cuda, dtype, L, kv, name):
         _check_hs(out, ref)
 
 
+def _last_tile_skipped(v, L):
+    """v with the last key tile (L % 64 keys, or 64) zeroed: the plain
+    version on it is the negative control of a head-split-rule check."""
+    skip = v.clone()
+    skip[..., L - (L % 64 or 64):L, :] = 0
+    return skip
+
+
+# bfloat16 flash_rowblock runs the TMA tensor-core body (csrc/probe_tc.cuh):
+# hd 64, 80 (unpadded, five k16 steps of q.k, m64n64k16 + m64n16k16 of p.v)
+# and 128 (one m64n128k16), rel-less at a ragged L 1000, with a rel grid at
+# kw 64 (the rel_w columns held in registers, L 576 = 9 x 64 not a multiple
+# of 128, so not the bias3d kernel's) and at 50 x 50 (the per-stage index
+# table).
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("L,kv", [(1000, None), (576, (9, 64)), (2500, (50, 50))])
+def test_rowblock_bf16_body_matches_plain(cuda, hd, L, kv):
+    bf = torch.bfloat16
+    q, k, v = (_randn(s, 1, 2, L, hd).to(cuda, bf) for s in (80, 81, 82))
+    rel = (None, None) if kv is None else tuple(
+        _randn(s, 1, 2, L, n).to(cuda, bf) for s, n in zip((83, 84), kv))
+    assert tfa.route(L, kv) == "flash_rowblock"
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention_relpos(q, k, v, *rel, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**before, "flash_rowblock": before["flash_rowblock"] + 1}
+    assert out.dtype == bf and out.shape == q.shape
+    ref = tfa.flash_attention_plain(q, k, v, *rel, hd**-0.5)
+    _check_hs(out, ref)
+    _hs_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), *rel, hd**-0.5), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [80, 20])
+def test_rowblock_all_below_floor_rows_on_card(cuda, hd):
+    """bfloat16 flash_rowblock rows whose logits all lie below the clamp
+    floor (|q|, |k| >= 8 with opposite signs: s <= -64 hd**0.5 log2 e):
+    every real key gets p = 2^-124, absent keys none, so each row is the
+    mean of the L = 1000 real values; |v| < 1/4 makes 2^-124 v subnormal,
+    which the 2^64 carry keeps off the tensor cores. hd 20 also takes the
+    wrapper's padding to 24 columns."""
+    bf, L = torch.bfloat16, 1000
+    q = (-(1 + _randn(85, 1, 2, L, hd).abs()) * 8).to(cuda, bf)
+    k = ((1 + _randn(86, 1, 2, L, hd).abs()) * 8).to(cuda, bf)
+    v = (_randn(87, 1, 2, L, hd).clamp(-1, 1) * 0.2).to(cuda, bf)
+    ref = tfa.flash_attention_plain(q, k, v, None, None, hd**-0.5)
+    mean = v.float().mean(dim=-2, keepdim=True)
+    assert float((ref.float() - mean).abs().max()) <= 2.0**-8 * float(mean.abs().max())
+    before = tfa.LAUNCHES["flash_rowblock"]
+    out = tfa.flash_attention_relpos(q, k, v, None, None, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_rowblock"] == before + 1 and out.shape == q.shape
+    _check_hs(out, ref)
+    _hs_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), None, None, hd**-0.5), ref)
+
+
+@pytest.mark.gpu
+def test_head_split_routes_pick_their_body_on_card(cuda, monkeypatch):
+    """The wrapper passes the body to csrc/flash_attn.cu: the TMA tensor-core
+    one (tc 1) for bfloat16 flash_rowblock only; flash_whole in both dtypes
+    and float32 flash_rowblock keep the CUDA-core flash_attn_kernel (tc 0)."""
+    from sam_quantization_tpu_torch.ops import _build
+
+    seen, launch = [], _build.launch
+    monkeypatch.setattr(_build, "launch", lambda name, *a: (seen.append((name, a[2])),
+                                                            launch(name, *a))[1])
+    for L, dtype, tc in ((196, torch.float32, 0), (196, torch.bfloat16, 0),
+                         (1000, torch.float32, 0), (1000, torch.bfloat16, 1)):
+        q = _randn(88, 1, 2, L, 80).to(cuda, dtype)
+        tfa.flash_attention_relpos(q, q, q, None, None, 0.125)
+        assert seen.pop() == ("flash_attn", tc), (L, dtype)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rel", [True, False])
 def test_trainable_grads_equal_eager_on_card(cuda, rel):
@@ -688,6 +763,58 @@ def test_probe_pair_clamp_edge_rows_on_card(cuda, row):
     _check_hs(out, ref)
 
 
+# P5 at L 4096: the ViT-H 64 x 64 grid (kw 64: rw pairs in registers, rh
+# once a tile) and a 16 x 256 grid (the per-stage index table; its 128 x 272
+# bias rows leave room for two ring stages, not four).
+@pytest.mark.gpu
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("kh,kw", [(64, 64), (16, 256)])
+def test_probe_pair_bias_at_long_grids_on_card(cuda, clamp, kh, kw):
+    L = kh * kw
+    q, k, v = _bf16_on(_probe_operands(90, 2, L), cuda)
+    rh, rw = ((_randn(s, 2, L, n) * 0.5).to(cuda, torch.bfloat16) for s, n in ((91, kh), (92, kw)))
+    before = tpr.LAUNCHES["probe_pair_bias"]
+    out = tpr.probe_pair_bias(q, k, v, rh, rw, clamp)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_pair_bias"] == before + 1 and out.dtype == torch.bfloat16
+    ref = tpr.probe_pair_bias_plain(q, k, v, rh, rw, clamp)
+    _check_hs(out, ref)
+    _hs_fails(tpr.probe_pair_bias_plain(q, k, _last_tile_skipped(v, L), rh, rw, clamp), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", ["nan", "subnormal"])
+@pytest.mark.parametrize("kh,kw", [(10, 20), (4, 64)])
+def test_probe_pair_bias_clamp_edge_rows_on_card(cuda, row, kh, kw):
+    """test_probe_pair_clamp_edge_rows_on_card's rows with a bias of -0.5
+    on row 5 of head 0 (rw -1, rh 0.5): s = -44 k - 0.5 in [-107.75,
+    -88.5], every p subnormal and the row finite; or s = -100 k - 0.5, every
+    p 0 and the row NaN on both sides. The other rows take random tiles;
+    kw 20 reads the index table, kw 64 the registers."""
+    L = kh * kw
+    q, k, v = _probe_operands(93, 2, L)
+    k[..., -1] = 2 + (np.arange(L) % 8) / 16
+    q[0, 5] = 0
+    q[0, 5, -1] = -44.0 if row == "subnormal" else -100.0
+    rh, rw = (_randn(s, 2, L, n).numpy() * 0.5 for s, n in ((94, kh), (95, kw)))
+    rh[0, 5], rw[0, 5] = 0.5, -1.0
+    q, k, v, rh, rw = _bf16_on((q, k, v, rh, rw), cuda)
+    before = tpr.LAUNCHES["probe_pair_bias"]
+    out = tpr.probe_pair_bias(q, k, v, rh, rw, clamp=True)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_pair_bias"] == before + 1 and out.dtype == torch.bfloat16
+    ref = tpr.probe_pair_bias_plain(q, k, v, rh, rw, clamp=True)
+    wrong = tpr.probe_pair_bias_plain(q, k, _last_tile_skipped(v, L), rh, rw, clamp=True)
+    if row == "nan":
+        assert torch.isnan(ref[0, 5]).all() and torch.isnan(out[0, 5]).all()
+        out[0, 5], ref[0, 5], wrong[0, 5] = 0, 0, 0
+    else:
+        assert torch.isfinite(ref).all() and torch.isfinite(out).all()
+        assert ref[0, 5].abs().max() > 0
+    _check_hs(out, ref)
+    _hs_fails(wrong, ref)
+
+
 PROBE_ROWMAX = {  # the row-max callers of the tensor-core body
     "presplit exp2": ("probe_presplit", lambda q, k, v: tpr.probe_presplit(q, k, v, True),
                       lambda q, k, v: tpr.probe_presplit_plain(q, k, v, True)),
@@ -746,6 +873,38 @@ def test_probe_pair_takes_unaligned_operands_on_card(cuda, clamp):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["probe_pair_bias", "flash_rowblock"])
+def test_tma_wrappers_take_unaligned_operands_on_card(cuda, kernel):
+    """Operands that start one element into their buffer, and a head dim of
+    20 (rows TMA cannot address): the wrappers pad to 24 columns and copy;
+    one launch, within the head-split bound, the padded columns cut. P5 at
+    L 200 on a 10 x 20 grid, flash_rowblock at L 1000, rel-less."""
+    def unaligned(t):
+        return torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+
+    D = 20
+    if kernel == "probe_pair_bias":
+        L, shape = 200, (2, 200, D)
+    else:
+        L, shape = 1000, (1, 2, 1000, D)
+    q, k, v = (unaligned(_randn(s, *shape).to(cuda, torch.bfloat16)) for s in (96, 97, 98))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v))
+    counts = tpr.LAUNCHES if kernel == "probe_pair_bias" else tfa.LAUNCHES
+    before = counts[kernel]
+    if kernel == "probe_pair_bias":
+        rh, rw = (_randn(s, 2, L, n).to(cuda, torch.bfloat16) for s, n in ((99, 10), (100, 20)))
+        out = tpr.probe_pair_bias(q, k, v, rh, rw, True)
+        ref = tpr.probe_pair_bias_plain(q, k, v, rh, rw, True)
+    else:
+        out = tfa.flash_attention_relpos(q, k, v, None, None, D**-0.5)
+        ref = tfa.flash_attention_plain(q, k, v, None, None, D**-0.5)
+    torch.cuda.synchronize()
+    assert counts[kernel] == before + 1
+    assert out.shape == q.shape and out.is_contiguous() and out.dtype == torch.bfloat16
+    _check_hs(out, ref)
+
+
+@pytest.mark.gpu
 def test_probe_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(2, 64, 32, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -755,6 +914,17 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
         tpr.probe_dots_floor(qb.transpose(1, 2), qb.transpose(1, 2), qb.transpose(1, 2))
     with pytest.raises(ValueError, match="kh x kw"):
         tpr.probe_pair_bias(qb, qb, qb, qb[..., :7], qb[..., :8], clamp=False)
+    # Bias rows of 128 x (1 + 600) values leave no room for two ring stages
+    # of the tensor-core body: refused, with no other body to fall back to.
+    q6 = torch.zeros(1, 600, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="probe_heads"):
+        tpr.probe_pair_bias(q6, q6, q6, q6[..., :1].contiguous(),
+                            torch.zeros(1, 600, 600, device=cuda, dtype=torch.bfloat16), True)
+    q6 = q6[..., :80].reshape(1, 1, 600, 80).contiguous()
+    with pytest.raises(RuntimeError, match="flash_attn"):
+        tfa.flash_attention_relpos(q6, q6, q6, q6[..., :1].contiguous(),
+                                   torch.zeros(1, 1, 600, 600, device=cuda, dtype=torch.bfloat16),
+                                   0.125)
     qkv = torch.zeros(2, 25, 3 * 64, device=cuda, dtype=torch.bfloat16)
     rel = torch.zeros(2, 4, 25, 10, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="strides"):

@@ -265,6 +265,26 @@ def test_pair_bias_plain_matches_tpu_kernel(dtype, clamp, halves):
     assert not torch.allclose(out.float(), probes.probe_pair(*tops, clamp=clamp).float(), atol=1e-2)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("kw", [8, 32, 128])
+def test_pair_bias_plain_matches_tpu_kernel_at_other_grids(dtype, clamp, kw):
+    """P5 at the other kw that divide 128 (L 256 on 32 x 8, 8 x 32 and 2 x
+    128 grids; the card kernel reads its index table at each, and holds its
+    rw columns in registers only at kw 64)."""
+    kh = PAIR_L // kw
+    jdt, tdt = DTYPES[dtype]
+    jops, tops = _pair(14, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    r = np.random.default_rng(15)
+    rh, rw = ((r.standard_normal((PAIR_BH, PAIR_L, n)) * 2.0).astype(np.float32) for n in (kh, kw))
+    tile = lambda n: pl.BlockSpec((1, BLOCK_Q, n), lambda b, i: (b, i, 0))  # noqa: E731
+    ref = _pair_call(functools.partial(_k_pair_bias, halves=1, clamp=clamp, kh=kh, kw=kw),
+                     [*jops, jnp.asarray(rh, jdt), jnp.asarray(rw, jdt)], jdt,
+                     (tile(kh), tile(kw)))
+    t_rh, t_rw = torch.from_numpy(rh).to(tdt), torch.from_numpy(rw).to(tdt)
+    _close(probes.probe_pair_bias(*tops, t_rh, t_rw, clamp=clamp), ref, dtype)
+
+
 def test_pair_clamp_has_no_floor():
     """P4's static shift has no floor: a row whose logits all lie far below
     40 sums to 0 and gives NaN, on both sides."""
@@ -365,6 +385,42 @@ def test_pair_clamp_subnormal_band(dtype):
     ref = np.asarray(_pair_call(functools.partial(_k_pair, halves=1, clamp=True), jops,
                                 DTYPES[dtype][0]), np.float32)
     out = probes.probe_pair(*tops, clamp=True)
+    assert np.isfinite(ref[0, 5]).all() and torch.isfinite(out[0, 5]).all()
+    assert torch.isfinite(out[0, 7]).all() and float(out[0, 7].abs().max()) > 0
+    assert np.isnan(ref[0, 7]).all()
+    out, ref = out.clone(), ref.copy()
+    out[0, 7], ref[0, 7] = 0, 0
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pair_bias_clamp_subnormal_band(dtype):
+    """test_pair_clamp_subnormal_band's rows through P5, with a bias of -0.5
+    on rows 5 and 7 of head 0 (rw -1, rh 0.5; random tiles elsewhere): row
+    5's band keys take s = -44 k - 0.5 in [-107.75, -88.5] beside keys at
+    s = 39.5, finite and equal to the TPU kernel; row 7 has only band keys,
+    finite here (IEEE gradual underflow) and NaN in JAX, which flushes every
+    p to 0. The same known difference as P4's (ROADMAP Queue 3); the card
+    test of the same rows holds the kernel to the plain version."""
+    kh = kw = 16
+    jdt = DTYPES[dtype][0]
+    jops, _ = _pair(12, PAIR_BH, PAIR_L, PAIR_HD, dtype)
+    q, k, v = (np.array(a, np.float32) for a in jops)
+    k[..., -1] = 2 + (np.arange(PAIR_L) % 8) / 16
+    k[0, ::16, -2] = 1.0
+    q[0, 5] = 0
+    q[0, 5, -1], q[0, 5, -2] = -44.0, 128.0
+    q[0, 7] = 0
+    q[0, 7, -1] = -44.0
+    r = np.random.default_rng(13)
+    rh, rw = ((r.standard_normal((PAIR_BH, PAIR_L, n)) * 2.0).astype(np.float32) for n in (kh, kw))
+    rh[0, [5, 7]], rw[0, [5, 7]] = 0.5, -1.0
+    jops, tops = _both((q, k, v, rh, rw), dtype)
+    tile = lambda n: pl.BlockSpec((1, BLOCK_Q, n), lambda b, i: (b, i, 0))  # noqa: E731
+    ref = np.asarray(_pair_call(functools.partial(_k_pair_bias, halves=1, clamp=True, kh=kh,
+                                                  kw=kw), jops, jdt, (tile(kh), tile(kw))),
+                     np.float32)
+    out = probes.probe_pair_bias(*tops, clamp=True)
     assert np.isfinite(ref[0, 5]).all() and torch.isfinite(out[0, 5]).all()
     assert torch.isfinite(out[0, 7]).all() and float(out[0, 7].abs().max()) > 0
     assert np.isnan(ref[0, 7]).all()
