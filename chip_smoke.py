@@ -15,9 +15,10 @@ Run from the repository root on a machine with one CUDA card. It
    kernels' being their plain version with x's last K tile left out, also at
    pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
    serving attention kernels, packed-weight kernels and the TMA attention
-   body (P3-P5, bfloat16 ``flash_rowblock``) also show their tensor-core
-   instructions, the HGMMA count that ``cuobjdump -sass`` finds in each
-   instantiation (and no CUDA-core build of P3-P5), and the W-A8 kernels
+   body (P2-P5, bfloat16 ``flash_whole`` and ``flash_rowblock``) also show
+   their tensor-core instructions, the HGMMA count that ``cuobjdump -sass``
+   finds in each instantiation (and no CUDA-core kernel in the probes'
+   library, and only float32 ones in ``flash_attn``'s), and the W-A8 kernels
    their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
@@ -118,11 +119,11 @@ QUANT_RANGE = "quantize_activations_int8"  # profiler range around the quantize 
 # kernel, the probes, and the tensor-core windowed and global kernels): both
 # round p and the output to bf16 from float32 sums taken in another order, so
 # an output may sit one bf16 step away: |d| <= 2**-7 |ref| + HS_BF16_C
-# max|ref|. On an H100 the head-split cases read c <= 0 (each difference a
-# flipped output rounding), the tensor-core windowed and global kernels
-# 4.2e-4 and 1.6e-4 (a flipped p rounding, or the wgmma sum order moving an
-# output across a rounding point), and the plain version with its last key
-# tile skipped in p.v reads 0.35 to 1.05; HS_BF16_C leaves room for both.
+# max|ref|. On an H100 the CUDA-core P1 reads c <= 0 (each difference a
+# flipped output rounding), the tensor-core kernels 1e-4 to 5e-4 (a flipped
+# p or s rounding, or the wgmma sum order moving an output across a
+# rounding point), and the plain version with its last key tile skipped in
+# p.v reads 0.16 to 1.05; HS_BF16_C leaves room for both.
 HS_BF16_C = 2.0**-10
 # P3 on the probe driver's own unscaled q (logits of std ~9): a p near 1
 # that rounds to bf16 on either side with the last bit of s moves a row by
@@ -379,31 +380,37 @@ def main() -> int:
               f"{max((c[i] for c in build.values()), default=0)} {ins} each")
 
     # The TMA tensor-core body (probe_tc_kernel<MODE, EXP2, BIAS, HDP>, hd
-    # tiles 16..128): in probe_heads, the row-max and clamp-40 softmax
-    # without a bias (P3 row max exp2 and exp, P4 both) and with one (P5
-    # both), 40 instantiations; in flash_attn, bfloat16 flash_rowblock's
-    # FLASH mode with and without a rel grid, 16. Each holds HGMMA. The
-    # CUDA-core body of probe_heads is dots_floor_kernel alone (P2), so no
-    # launch of P3-P5 can reach an FFMA product loop.
+    # tiles 16..128): in probe_heads, the dot-only mode (P2), the row-max
+    # and clamp-40 softmax without a bias (P3 row max exp2 and exp, P4 both)
+    # and with one (P5 both), 48 instantiations and no other kernel; in
+    # flash_attn, the FLASH mode of bfloat16 flash_whole and flash_rowblock,
+    # with and without a rel grid, 16, beside the CUDA-core
+    # flash_attn_kernel<T, REL> for float32 alone. Each holds HGMMA, so no
+    # bfloat16 launch of those kernels can reach an FFMA product loop.
     hdps = [str(h) for h in range(16, 129, 16)]
     for name, want in (("probe_heads", {(m, e, b, h) for m, e, b in (
-            ("1", "1", "0"), ("1", "0", "0"), ("2", "1", "0"), ("1", "1", "1"), ("2", "1", "1"))
-            for h in hdps}), ("flash_attn", {("3", "1", b, h) for b in "01" for h in hdps})):
+            ("0", "1", "0"), ("1", "1", "0"), ("1", "0", "0"), ("2", "1", "0"), ("1", "1", "1"),
+            ("2", "1", "1")) for h in hdps}),
+            ("flash_attn", {("3", "1", b, h) for b in "01" for h in hdps})):
         lib = _build.library_path(name)
         tc_counts = tensor_core_counts(lib, _build._nvcc(),
                                        r"probe_tc_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d+)E")
-        cuda_core = tensor_core_counts(lib, _build._nvcc(),
-                                       r"(dots_floor_kernel|flash_attn_kernel\w+?E)")
         check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values()),
               f"{name}: {len(tc_counts)} probe_tc_kernel instantiations (mode, exp2, bias), HGMMA "
               f"{min((c[0] for c in tc_counts.values()), default=0)}-"
               f"{max((c[0] for c in tc_counts.values()), default=0)} each, FFMA "
               f"{min((c[4] for c in tc_counts.values()), default=0)}-"
-              f"{max((c[4] for c in tc_counts.values()), default=0)}; CUDA-core kernels: "
-              + ", ".join(f"{k[0]} FFMA {c[4]}" for k, c in sorted(cuda_core.items())))
+              f"{max((c[4] for c in tc_counts.values()), default=0)}")
         if name == "probe_heads":
-            check(set(cuda_core) == {("dots_floor_kernel",)},
-                  f"probe_heads: the CUDA-core body is P2's alone ({sorted(cuda_core)})")
+            others = sorted(k[0] for k in tensor_core_counts(lib, _build._nvcc(),
+                                                             r"Function : (\w+)")
+                            if "probe_tc_kernel" not in k[0])
+            check(not others, f"probe_heads: no kernel but probe_tc_kernel ({others})")
+        else:
+            cuda_core = tensor_core_counts(lib, _build._nvcc(), r"flash_attn_kernelI(\w+?)Lb(\d)E")
+            check(set(cuda_core) == {("f", "0"), ("f", "1")},
+                  "flash_attn: flash_attn_kernel built for float32 alone: " + ", ".join(
+                      f"{t} rel {r} FFMA {c[4]}" for (t, r), c in sorted(cuda_core.items())))
 
     gen = torch.Generator(device=dev)
 
@@ -557,12 +564,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------- head-split kernel
-    # csrc/flash_attn.cu behind two counters: flash_whole (the CUDA-core
-    # body) at the ViT-H training shape (25 windows x 16 heads, L 196, rel
-    # 14 + 14) and rel-less; flash_rowblock (bfloat16: the TMA tensor-core
-    # body) at the rel-less ViT-H global shape (16 heads, L 4096) and at a
-    # rel grid the bias3d kernel cannot take (50 x 50, 128 % 50 != 0). The
-    # first case of each counter is its JSON row. Each
+    # csrc/flash_attn.cu behind two counters: flash_whole at the ViT-H
+    # training shape (25 windows x 16 heads, L 196, rel 14 + 14) and
+    # rel-less; flash_rowblock at the rel-less ViT-H global shape (16 heads,
+    # L 4096) and at a rel grid the bias3d kernel cannot take (50 x 50, 128
+    # % 50 != 0). bfloat16 runs the TMA tensor-core body, float32 the
+    # CUDA-core one. The first case of each counter is its JSON row. Each
     # case also reads a wrong output, the plain version with the last key
     # tile (L % 64 keys, or 64) left out of p.v, and fails if the bound
     # takes it.

@@ -28,22 +28,28 @@
 // rel-less ViT-H global shape (BH 16, L 4096, hd 80) is 85.9 GFLOP, bound
 // by operations (87 us in bf16).
 //
-// Two bodies, chosen by the caller (ops/flash_attention.py's route()):
-// - bfloat16 flash_rowblock (the long-L rows, rel-less at ViT-H's global
-//   blocks, or with a rel grid the bias3d kernel does not take) runs
-//   probe_tc.cuh's FLASH mode: q, K and V by TMA from a producer warp into a
-//   ring of 128-byte-swizzled tiles, q.k and p.v on wgmma, qs and rel'
-//   formed in shared memory as above, p carried times 2^64. hd stays
-//   unpadded in device memory (TMA reads zeros past hd: hd 80 is five k16
-//   steps of q.k and one m64n64k16 plus one m64n16k16 of p.v); the wrapper
-//   pads hd to a multiple of 8 and copies unaligned operands for TMA. The
-//   ptxas pitfalls it avoids are in probe_tc.cuh's header; FLASH met no
-//   new diagnostic.
-// - flash_whole (L <= 512, the windowed training forward, both dtypes) and
-//   float32 flash_rowblock run flash_common.cuh's attend_rows: 64 query
-//   rows of one problem a block, K and V streamed in 64-key tiles, both
-//   products on the CUDA cores in float32 (tensor cores would mean TF32).
-//   The rel-less path is a compile-time branch that touches no bias tile.
+// Two bodies, one for each dtype (ops/flash_attention.py's body() names them):
+// - bfloat16, both counters (flash_whole: the rel-less encode's windowed
+//   blocks and any short problem; flash_rowblock: the long-L rows, rel-less
+//   at ViT-H's global blocks, or with a rel grid the bias3d kernel does not
+//   take), runs probe_tc.cuh's FLASH mode: q, K and V by TMA from a
+//   producer warp into a ring of 128-byte-swizzled tiles, q.k and p.v on
+//   wgmma, qs and rel' formed in shared memory as above, p carried times
+//   2^64. hd stays unpadded in device memory (TMA reads zeros past hd: hd
+//   80 is five k16 steps of q.k and one m64n64k16 plus one m64n16k16 of
+//   p.v); the wrapper pads hd to a multiple of 8 and copies unaligned
+//   operands for TMA. The ptxas pitfalls it avoids are in probe_tc.cuh's
+//   header; FLASH met no new diagnostic. At flash_whole's L 196 a block
+//   computes 128 rows against four key tiles, the last holding 4 real keys,
+//   one block an SM; flash_tc.cuh's body (flash_windowed's: a cp.async ring
+//   and a block barrier a tile, the last 4 keys as a 16-key tile, two blocks
+//   an SM) took as long with 14 + 14 rel tiles and 1.2x as long rel-less
+//   (PERF.md), so the TMA body serves both counters.
+// - float32 (flash_whole, the windowed training forward, and
+//   flash_rowblock) runs flash_common.cuh's attend_rows: 64 query rows of
+//   one problem a block, K and V streamed in 64-key tiles, both products on
+//   the CUDA cores in float32 (tensor cores would mean TF32). The rel-less
+//   path is a compile-time branch that touches no bias tile.
 // The TPU's whole-problem batching (bw problems per program, all of K and
 // V in VMEM) buys nothing here, since a problem's K and V come from L2 for
 // each of its row blocks.
@@ -76,24 +82,24 @@ __global__ void __launch_bounds__(NTHREADS)
   attend_rows<T, T, REL>(P, blockIdx.x * BQ, out + off, hd, 0.f);
 }
 
-template <typename T, bool REL>
+template <bool REL>
 static int run(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                void* out, int BH, int L, int hd, int kh, int kw, float q_scale,
                cudaStream_t stream) {
   const dim3 grid((L + BQ - 1) / BQ, BH);
-  return launch(flash_attn_kernel<T, REL>, grid, smem_bytes(hd, kh, kw), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(rh), static_cast<const T*>(rw), static_cast<T*>(out), L, hd,
-                kh, kw, q_scale);
+  return launch(flash_attn_kernel<float, REL>, grid, smem_bytes(hd, kh, kw), stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(rh),
+                static_cast<const float*>(rw), static_cast<float*>(out), L, hd, kh, kw, q_scale);
 }
 
 }  // namespace samq
 
 // dtype: 0 float32, 1 bfloat16. has_rel: 0 for no bias (kh, kw ignored).
-// tc: 1 runs the TMA tensor-core body (bfloat16 only; D a multiple of 8, q,
-// k, v 16-byte aligned), 0 attend_rows. Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int samq_flash_attn(int dtype, int has_rel, int tc, const void* q, const void* k,
+// body: 0 attend_rows on the CUDA cores (float32), 1 the TMA tensor-core
+// body (bfloat16; hd a multiple of 8, q, k, v 16-byte aligned). Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int samq_flash_attn(int dtype, int has_rel, int body, const void* q, const void* k,
                                const void* v, const void* rel_h, const void* rel_w, void* out,
                                int BH, int L, int hd, int kh, int kw, float q_scale,
                                void* stream) {
@@ -102,20 +108,13 @@ extern "C" int samq_flash_attn(int dtype, int has_rel, int tc, const void* q, co
   if (has_rel && (kh < 1 || kw < 1 || kh * kw != L)) return (int)cudaErrorInvalidValue;
   if (!has_rel) kh = kw = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tc) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (body == 1 && dtype == 1)
     return has_rel ? ptc::run<FLASH_CLIP, true, true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh,
                                                       kw, q_scale, s)
                    : ptc::run<FLASH_CLIP, true, false>(q, k, v, nullptr, nullptr, out, BH, L, hd,
                                                        0, 0, q_scale, s);
-  }
-  if (dtype == 0)
-    return has_rel ? run<float, true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s)
-                   : run<float, false>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s);
-  if (dtype == 1)
-    return has_rel ? run<__nv_bfloat16, true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
-                                              q_scale, s)
-                   : run<__nv_bfloat16, false>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
-                                               q_scale, s);
+  if (body == 0 && dtype == 0)
+    return has_rel ? run<true>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s)
+                   : run<false>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, s);
   return (int)cudaErrorInvalidValue;
 }

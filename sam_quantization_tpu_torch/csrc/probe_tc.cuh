@@ -1,15 +1,17 @@
-// Tensor-core body of the long-L attention kernels whose K and V arrive by
-// TMA: both products on Hopper's warpgroup MMA (wgmma), built from
-// flash_tc.cuh's primitives. Compile-time policy picks the softmax, the bias
-// and whether q is scaled; each instantiation computes its plain version's
+// Tensor-core body of the attention kernels whose K and V arrive by TMA:
+// both products on Hopper's warpgroup MMA (wgmma), built from flash_tc.cuh's
+// primitives. Compile-time policy picks the softmax (or none), the bias and
+// whether q is scaled; each instantiation computes its plain version's
 // function. It replaces
+//   P2 _kernel_dots_floor (tools/packed_probe.py:97)        NONE, no bias
 //   P3 _kernel_presplit  (tools/packed_probe.py:111)        ROWMAX, no bias
 //   P4 _k_pair           (tools/global_stage_probe.py:183)  ROWMAX or CLAMP
 //   P5 _k_pair_bias      (tools/global_stage_probe.py:316)  the same, BIAS
 // through probe_heads.cu, and
 //   _attn_kernel_rowblock (sam_quantization_tpu/ops/flash_attention.py:680)
+//   _attn_kernel          (sam_quantization_tpu/ops/flash_attention.py:213)
 //                        FLASH, with or without BIAS (flash_attn.cu's
-//                        bfloat16 flash_rowblock)
+//                        bfloat16 flash_rowblock and flash_whole)
 //
 // Numerics, step for step those of the plain versions (ops/probes.py,
 // ops/flash_attention.py):
@@ -22,9 +24,13 @@
 //   CLAMP:  p = exp2(min(s, 40) - 40)      (no floor)
 //   FLASH:  p = exp2(clip(s, -60, 64) - 64)
 //   o   = f32 sum_n round_bf16(p) v;  out = round_bf16(o * (1 / sum_n p))
-// with sum p over the unrounded f32 p. Only the summation order inside the
-// two products and the row sums differs (and, for exp, the rounding of its
-// argument times log2 e). What keeps it exact where the plain version is:
+// with sum p over the unrounded f32 p; and
+//   NONE:   p = s (not a probability: any sign and size, no carry below);
+//           out = round_bf16(f32 sum_n round_bf16(s) v), no row sum.
+// Only the summation order inside the two products and the row sums differs
+// (and, for exp, the rounding of its argument times log2 e; for NONE it can
+// move a rounded s near a tie by one bf16 step). What keeps it exact where
+// the plain version is:
 // - The row max is exact: a first pass streams the K tiles through q.k (and
 //   the bias) and keeps each row's max of s; the second pass recomputes the
 //   same s and takes exp2(s - m) against it, so every p is the plain
@@ -48,10 +54,12 @@
 // product work is 137 GFLOP, 139 us at 989 TFLOP/s bf16 (operations); the
 // row-max mode's second q.k pass makes it 206 GFLOP, 208 us. At flash_rowblock's
 // rel-less ViT-H global shape (16, 4096, 80) it is 85.9 GFLOP, 87 us
-// (operations). At P3's (400, 256, 128) the 105 MB of bf16 traffic take
-// 31 us (bytes), above 13.4 (20.1) GFLOP. Every block reads its head's whole
-// K and V (from L2: 32 times at L 4096), so the copies have to keep pace
-// with the products, and the bias and softmax with both.
+// (operations). At P2's and P3's (400, 256, 128) the 105 MB of bf16
+// traffic take 31 us (bytes), above 13.4 (P3: 20.1) GFLOP; at flash_whole's
+// (400, 196, 80) with rel 14 + 14 the 54 MB take 16 us (bytes). Every block
+// reads its head's whole K and V (from L2: 32 times at L 4096), so the
+// copies have to keep pace with the products, and the bias and softmax
+// with both.
 //
 // Layout. A block is two consumer warpgroups, each 64 query rows of one
 // (batch, head) (BQ = 128 rows a block), and one producer warp; keys are
@@ -88,8 +96,9 @@
 // - p.v: wgmma.m64n128k16 at HDP 128, else m64n64k16 per 64 output columns
 //   and m64n16k16 for the rest (one of each at HDP 80); B = the V tile,
 //   MN-major.
-// - The softmax pass issues q.k of tile t and p.v of tile t - 1 together,
-//   waits for both, then forms tile t's p with no product in flight.
+// - The softmax pass (NONE's one pass too) issues q.k of tile t and p.v of
+//   tile t - 1 together, waits for both, then forms tile t's p with no
+//   product in flight.
 // What ptxas needs (-Xptxas -v names each case): the producer/consumer
 // split is taken on a warp-uniform value, else it serializes every wgmma
 // (C7520); no accumulator is written or read outside its chain while
@@ -241,12 +250,12 @@ template <int MODE, bool EXP2, bool BIAS, int HDP>
 __global__ void __launch_bounds__(THREADS, 1)
     probe_tc_kernel(const __grid_constant__ Maps maps, const Args args) {
   using bf16 = __nv_bfloat16;
-  constexpr bool ROWMAX = MODE == PROBE_ROWMAX, FLASH = MODE == FLASH_CLIP;
+  constexpr bool ROWMAX = MODE == PROBE_ROWMAX, FLASH = MODE == FLASH_CLIP, NONE = MODE == PROBE_NONE;
   constexpr int NA = atoms(HDP);    // 64-column atoms of a row
   constexpr int KS = HDP / 16;      // q.k depth steps
   constexpr int TILE = NA * BK * ATOM_ROW;  // bytes of one K or V tile
   constexpr int N64 = HDP / 64, N16 = HDP % 64 / 16;  // p.v column chunks of 64 and 16
-  static_assert(ROWMAX || MODE == PROBE_CLAMP || FLASH, "softmax modes only");
+  static_assert(!(NONE && BIAS), "the dot-only mode takes no bias");
   static_assert(HDP % 16 == 0 && HDP <= MAX_HD, "HDP: a multiple of 16 up to MAX_HD");
   extern __shared__ __align__(1024) unsigned char ptc_smem[];
   const int L = args.L, D = args.D, kh = args.kh, kw = args.kw, stages = args.stages;
@@ -526,7 +535,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int i = 8 * kk + 2 * f + h;
           float p;
-          if constexpr (FLASH)
+          if constexpr (NONE)
+            p = sp[i];
+          else if constexpr (FLASH)
             p = tc::ex2(fminf(fmaxf(sp[i], CLAMP_FLOOR), CLAMP_CAP) - CLAMP_CAP);
           else if constexpr (MODE == PROBE_CLAMP)
             p = ex2_sub(fminf(sp[i], PAIR_CAP) - PAIR_CAP);
@@ -535,10 +546,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           else
             p = ex2_sub((sp[i] - ((i & 2) ? mx1 : mx0)) * LOG2E_F);
           if (tail && absent(n0, i)) p = 0.f;
-          if (i & 2) ls1 += p; else ls0 += p;
+          if constexpr (!NONE) ((i & 2) ? ls1 : ls0) += p;
           p2[h] = p;
         }
-        pa[kk][f] = pack_carried(p2[0], p2[1]);
+        pa[kk][f] = NONE ? tc::pack_bf16(p2[0], p2[1]) : pack_carried(p2[0], p2[1]);
       }
   }
   fence_o();
@@ -548,21 +559,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   tc::fence_u32(pa);
   fence_o();
 
-  // A row's sum is spread over the four lanes of a quad.
+  // A row's sum is spread over the four lanes of a quad (NONE has none).
 #pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
+  for (int sh = 1; sh <= (NONE ? 0 : 2); sh <<= 1) {
     ls0 += __shfl_xor_sync(0xffffffffu, ls0, sh);
     ls1 += __shfl_xor_sync(0xffffffffu, ls1, sh);
   }
   const float r0 = 1.f / ls0, r1 = 1.f / ls1;
-  // out = round_bf16((o' * r) * 2^-64), a pair of columns at a time.
+  // out = round_bf16((o' * r) * 2^-64), NONE's round_bf16(o), a pair of
+  // columns at a time.
   auto store = [&](const auto& acc, int c0) {
     constexpr int NACC = std::extent<std::remove_reference_t<decltype(acc)>>::value;
 #pragma unroll
     for (int i = 0; i < NACC; i += 2) {
       const int m = m0 + lr0 + ((i & 2) ? 8 : 0), c = c0 + 8 * (i >> 2) + cq;
       const float r = (i & 2) ? r1 : r0;
-      const float y0 = acc[i] * r * (1.f / tc::P_SCALE), y1 = acc[i + 1] * r * (1.f / tc::P_SCALE);
+      const float y0 = NONE ? acc[i] : acc[i] * r * (1.f / tc::P_SCALE);
+      const float y1 = NONE ? acc[i + 1] : acc[i + 1] * r * (1.f / tc::P_SCALE);
       if (m >= L || c >= D) continue;
       *reinterpret_cast<__nv_bfloat162*>(out + (long)m * D + c) = __floats2bfloat162_rn(y0, y1);
     }

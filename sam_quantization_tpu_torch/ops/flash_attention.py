@@ -22,12 +22,13 @@ log2(e) so the softmax is a raw ``exp2``, a static clamp shift
 past the p.v product, and (windowed and bias3d global only) an optional int8
 epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 
-In bfloat16 the windowed and bias3d global kernels run both products on
-Hopper's tensor cores (wgmma, ``csrc/flash_tc.cuh``), and so does
-``flash_rowblock`` (``csrc/probe_tc.cuh``: K and V by TMA from a producer
-warp; the wrapper pads hd to a multiple of 8 and copies operands that do
-not start on 16 bytes, as TMA needs). Their float32 instantiations and
-``flash_whole`` run them on the CUDA cores.
+In bfloat16 every kernel runs both products on Hopper's tensor cores
+(wgmma): the windowed and bias3d global kernels on ``csrc/flash_tc.cuh``'s
+body, ``flash_whole`` and ``flash_rowblock`` on ``csrc/probe_tc.cuh``'s (K
+and V by TMA from a producer warp; the wrapper pads hd to a multiple of 8
+and copies operands that do not start on 16 bytes, as TMA needs).
+:func:`body` names the body of each route and dtype. The float32
+instantiations run both products on the CUDA cores.
 
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
@@ -200,6 +201,25 @@ def route(L: int, kv_size: Optional[Tuple[int, int]], bias3d: Optional[bool] = N
     return "flash_whole" if L <= WHOLE_MAX_L else "flash_rowblock"
 
 
+# The bodies of the attention kernels; the first two are csrc/flash_attn.cu's
+# `body` argument.
+ATTEND_ROWS = 0  # flash_common.cuh's attend_rows: both products on the CUDA cores
+TMA_BODY = 1  # probe_tc.cuh: q, K and V by TMA, both products on wgmma
+TC_BODY = 2  # flash_tc.cuh's attend_rows_tc: K and V by cp.async, both products on wgmma
+
+
+def body(name: str, dtype: torch.dtype) -> int:
+    """The body that runs a head-split problem :func:`route` sends to
+    ``name``, in ``dtype``. float32 keeps the CUDA cores (tensor cores would
+    mean TF32). In bfloat16 ``flash_global`` runs flash_tc.cuh's body, and
+    both counters of csrc/flash_attn.cu the TMA body: at flash_whole's
+    ViT-H shape it took as long as flash_tc.cuh's with rel tiles and less
+    time without (PERF.md)."""
+    if dtype != torch.bfloat16:
+        return ATTEND_ROWS
+    return TC_BODY if name == "flash_global" else TMA_BODY
+
+
 def flash_attention_relpos(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: Optional[torch.Tensor],
     rel_w: Optional[torch.Tensor], scale: float, *, out_inv_scale: Optional[float] = None,
@@ -247,11 +267,8 @@ def flash_attention_relpos(
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
     quant = out_inv_scale is not None
-    # bfloat16 row blocks run the TMA tensor-core body (csrc/probe_tc.cuh),
-    # which takes q, k and v as tma_operands gives them; float32 ones and
-    # flash_whole keep the CUDA-core body.
-    tc = name == "flash_rowblock" and q.dtype == torch.bfloat16
-    if tc:
+    kernel_body = body(name, q.dtype)
+    if kernel_body == TMA_BODY:  # its TMA copies take q, k, v as tma_operands gives them
         q, k, v = _build.tma_operands(q, k, v)
     out = torch.empty(q.shape, dtype=torch.int8 if quant else q.dtype, device=q.device)
     kh, kw = kv_size or (0, 0)
@@ -266,7 +283,7 @@ def flash_attention_relpos(
             )
         else:
             _build.launch(
-                "flash_attn", _build.DTYPE_CODE[q.dtype], int(kv_size is not None), int(tc),
+                "flash_attn", _build.DTYPE_CODE[q.dtype], int(kv_size is not None), kernel_body,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L,
                 q.shape[-1], kh, kw, float(scale * LOG2E), stream,
             )

@@ -18,21 +18,22 @@ probes, which strip the serving attention kernels down to their parts
   bias ``rw[n % kw] + rh[n // kw]`` of raw tiles added in float32 (replaces
   ``_k_pair_bias``).
 
-The last four are one entry point of ``csrc/probe_heads.cu`` with two
-bodies. :func:`probe_presplit`, :func:`probe_pair` and
-:func:`probe_pair_bias` (the row-max and clamp-40 softmax, with and without
-the bias) run ``csrc/probe_tc.cuh``: both products on the tensor cores
-(``wgmma``), the row max exact by a first q.k pass (the bias added in both
-passes), and IEEE gradual underflow in p as the plain version has it, so a
-clamp-40 row whose logits all lie in (-109, -86) stays finite on both; the
-wrapper pads a head dim that is not a multiple of 8 with zeros and copies
-an operand that is not 16-byte aligned, as its TMA copies need. P2 runs a
-body with both products on the CUDA cores in float32. None of them scales
-q: the callers prescale it where they want a scale (the probes pass
-``q * hd**-0.5 * log2(e)`` to the pair kernels), and a key padded with
-zeros is a key like any other. ``halves`` and ``block_q`` of the TPU
-kernels split rows between independent chains for the TPU's scheduler;
-rows are independent, so they change no number and have no counterpart.
+The last four are one entry point of ``csrc/probe_heads.cu`` with one
+body, ``csrc/probe_tc.cuh``: both products on the tensor cores (``wgmma``),
+q, K and V by TMA; the wrapper pads a head dim that is not a multiple of 8
+with zeros and copies an operand that is not 16-byte aligned, as those
+copies need. :func:`probe_dots_floor` makes one pass and rounds s to bf16
+straight into the p.v operand. :func:`probe_presplit`, :func:`probe_pair`
+and :func:`probe_pair_bias` (the row-max and clamp-40 softmax, with and
+without the bias) take the row max exact by a first q.k pass (the bias
+added in both passes), and IEEE gradual underflow in p as the plain version
+has it, so a clamp-40 row whose logits all lie in (-109, -86) stays finite
+on both. None of them scales q: the callers prescale it where they want a
+scale (the probes pass ``q * hd**-0.5 * log2(e)`` to the pair kernels),
+and a key padded with zeros is a key like any other. ``halves`` and
+``block_q`` of the TPU kernels split rows between independent chains for
+the TPU's scheduler; rows are independent, so they change no number and
+have no counterpart.
 
 Each wrapper launches its kernel for a CUDA tensor (bfloat16, as the probes
 run) and uses the plain version only for a CPU tensor. ``LAUNCHES`` counts
@@ -196,10 +197,9 @@ def _heads(name: str, mode: int, exp2: bool, q, k, v, rh=None, rw=None) -> torch
         raise ValueError(f"{name}: operands must be contiguous")
     if D > 128:
         raise ValueError(f"{name}: head dim {D} > 128")
-    if mode != _NONE:
-        # csrc/probe_tc.cuh takes q, k and v by TMA (rh and rw are read a
-        # value at a time and need neither).
-        q, k, v = _build.tma_operands(q, k, v)
+    # csrc/probe_tc.cuh takes q, k and v by TMA (rh and rw are read a value
+    # at a time and need neither).
+    q, k, v = _build.tma_operands(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.launch(

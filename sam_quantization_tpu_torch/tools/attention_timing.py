@@ -4,15 +4,19 @@
 
 Times ``flash_windowed`` (25 windows of 14 x 14, 16 heads, hd 80) and
 ``flash_global`` (a 64 x 64 grid, 16 heads, hd 80) at one image's shapes,
-bf16 out and int8 out; ``flash_rowblock`` in bf16 at the rel-less global
-shape (1, 16, 4096, 80), scale hd**-0.5, beside
-``scaled_dot_product_attention`` at the same scale; and the stage probes'
-softmax kernels at the probes' shapes: ``probe_presplit`` (P3, exp2 and
-exp) on (400, 256, 128), ``probe_pair`` (P4, row max and clamp 40) and
-``probe_pair_bias`` (P5, the same with raw 64 x 64 rel tiles) on (16,
-4096, 128), q scaled by hd**-0.5 * log2(e) as the probes scale it, each
-beside its yardstick ``scaled_dot_product_attention`` with scale ln 2 (the
-exp2 softmax; P5's bias times ln 2 as ``attn_mask``). Inputs
+bf16 out and int8 out; ``flash_whole`` in bf16 at the same windows split
+into heads, (25, 16, 196, 80), with 14 + 14 rel tiles and rel-less;
+``flash_rowblock`` in bf16 at the rel-less global shape (1, 16, 4096, 80);
+all at scale hd**-0.5, each beside ``scaled_dot_product_attention`` at the
+same scale (the rel bias as ``attn_mask``). And the stage probes' kernels
+at the probes' shapes: ``probe_dots_floor`` (P2) on ``packed_probe``'s
+unscaled (400, 256, 128) heads beside two ``torch.bmm``;
+``probe_presplit`` (P3, exp2 and exp) on (400, 256, 128), ``probe_pair``
+(P4, row max and clamp 40) and ``probe_pair_bias`` (P5, the same with raw
+64 x 64 rel tiles) on (16, 4096, 128), q scaled by hd**-0.5 * log2(e) as
+the probes scale it, each beside its yardstick
+``scaled_dot_product_attention`` with scale ln 2 (the exp2 softmax; P5's
+bias times ln 2 as ``attn_mask``). Inputs
 are random, made from ``--seed``. It prints one JSON line with the card's
 name, its power limit and the ms per call
 (:func:`sam_quantization_tpu_torch.tools.timing.timed_ms`). Run it from two
@@ -63,6 +67,10 @@ def main(argv=None) -> int:
     qkv, rel = randn(nw, Lw, 3 * C), randn(nw, nh, Lw, 2 * ws)
     q, k, v = (randn(1, nh, Lg, hd) for _ in range(3))
     rh, rw = randn(1, nh, Lg, g), randn(1, nh, Lg, g)
+    wq, wk, wv = (randn(nw, nh, Lw, hd) for _ in range(3))
+    wrh, wrw = randn(nw, nh, Lw, ws), randn(nw, nh, Lw, ws)
+    n = torch.arange(Lw, device=dev)
+    wmask = (wrh[..., n // ws] + wrw[..., n % ws]).contiguous()
     win = dict(nh=nh, hd=hd, kh=ws, kw=ws)
     ois = 127.0 / 4.0
     cases = {
@@ -72,12 +80,19 @@ def main(argv=None) -> int:
         "flash_global": lambda: fa.flash_attention_relpos(q, k, v, rh, rw, scale),
         "flash_global_int8": lambda: fa.flash_attention_relpos(
             q, k, v, rh, rw, scale, out_inv_scale=ois),
+        "flash_whole": lambda: fa.flash_attention_relpos(wq, wk, wv, wrh, wrw, scale),
+        "flash_whole_norel": lambda: fa.flash_attention_relpos(wq, wk, wv, None, None, scale),
+        "sdpa_whole": lambda: F.scaled_dot_product_attention(wq, wk, wv, attn_mask=wmask,
+                                                             scale=scale),
+        "sdpa_whole_norel": lambda: F.scaled_dot_product_attention(wq, wk, wv, scale=scale),
         "flash_rowblock": lambda: fa.flash_attention_relpos(q, k, v, None, None, scale),
         "sdpa_rowblock": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }
-    # The probes' head shapes (hd 80 padded to 128 lanes; random in all 128).
+    # The probes' head shapes (hd 80 padded to 128 lanes; random in all 128);
+    # P2 takes q unscaled, as tools/packed_probe.py does.
     pq, pk, pv = (randn(400, 256, 128) for _ in range(3))
     gq, gk, gv = (randn(16, Lg, 128) for _ in range(3))
+    pq_raw = pq
     pq, gq = ((t.float() * (scale * fa.LOG2E)).to(bf) for t in (pq, gq))
 
     # P5's raw rel tiles, at the probe's scale, and their bias as SDPA's mask.
@@ -92,6 +107,8 @@ def main(argv=None) -> int:
                                                       scale=math.log(2.0))
 
     cases.update({
+        "probe_dots_floor": lambda: probes.probe_dots_floor(pq_raw, pk, pv),
+        "bmm2_dots_floor": lambda: torch.bmm(torch.bmm(pq_raw, pk.transpose(1, 2)), pv),
         "probe_presplit_exp2": lambda: probes.probe_presplit(pq, pk, pv, True),
         "probe_presplit_exp": lambda: probes.probe_presplit(pq, pk, pv, False),
         "sdpa_presplit": sdpa(pq, pk, pv),

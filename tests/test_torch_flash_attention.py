@@ -243,6 +243,21 @@ def test_route_matches_jax_dispatch(L, kv, monkeypatch):
     assert seen == [tfa.route(L, kv)]
 
 
+# The body each route runs: float32 on the CUDA cores (the tensor cores
+# would mean TF32); bfloat16 flash_global on csrc/flash_tc.cuh's, both
+# counters of csrc/flash_attn.cu on the TMA body (csrc/probe_tc.cuh).
+ROUTE_BODY = {"flash_global": tfa.TC_BODY, "flash_whole": tfa.TMA_BODY,
+              "flash_rowblock": tfa.TMA_BODY}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,kv", ROUTE_CASES)
+def test_body_of_each_route(L, kv, dtype):
+    name = tfa.route(L, kv)
+    want = ROUTE_BODY[name] if dtype == torch.bfloat16 else tfa.ATTEND_ROWS
+    assert tfa.body(name, dtype) == want
+
+
 @pytest.mark.parametrize("rel", [True, False])
 def test_trainable_grads_match_jax(rel):
     """flash_attention_relpos_trainable: gradients within 1e-5 of JAX's

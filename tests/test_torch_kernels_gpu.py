@@ -280,21 +280,81 @@ def test_rowblock_all_below_floor_rows_on_card(cuda, hd):
     _hs_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), None, None, hd**-0.5), ref)
 
 
+# bfloat16 flash_whole runs the TMA tensor-core body (csrc/probe_tc.cuh) on
+# short problems: head dims 16 (one depth step), 20 (rows TMA cannot
+# address: the wrapper pads them to 24), 64, 80 and 128 (one m64n128k16 of
+# p.v); L 196 = 3 x 64 + 4 (a last key tile of 4 real keys) with a 14 x 14
+# rel grid (the per-stage index table) and without, L 25 (one short tile),
+# and rel grids of kw 64 (rel_w pairs in registers, rh once a tile: L 512
+# = 8 x 64, L 192 = 3 x 64).
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 20, 64, 80, 128])
+@pytest.mark.parametrize("L,kv", [(196, (14, 14)), (196, None), (25, None), (512, (8, 64)),
+                                  (192, (3, 64))])
+def test_whole_bf16_body_matches_plain(cuda, hd, L, kv):
+    bf = torch.bfloat16
+    q, k, v = (_randn(s, 1, 3, L, hd).to(cuda, bf) for s in (104, 105, 106))
+    rel = (None, None) if kv is None else tuple(
+        _randn(s, 1, 3, L, n).to(cuda, bf) for s, n in zip((107, 108), kv))
+    assert tfa.route(L, kv) == "flash_whole"
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention_relpos(q, k, v, *rel, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**before, "flash_whole": before["flash_whole"] + 1}
+    assert out.dtype == bf and out.shape == q.shape
+    ref = tfa.flash_attention_plain(q, k, v, *rel, hd**-0.5)
+    _check_hs(out, ref)
+    _hs_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), *rel, hd**-0.5), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rel", [False, True])
+@pytest.mark.parametrize("hd", [80, 20])
+def test_whole_all_below_floor_rows_on_card(cuda, hd, rel):
+    """bfloat16 flash_whole rows whose logits all lie below the clamp floor:
+    rel-less, |q|, |k| >= 8 with opposite signs (s <= -64 hd**0.5 log2 e);
+    with a 14 x 14 rel grid, tiles of -50 (-72 each after log2 e). Every
+    real key gets p = 2^-124, absent keys none, so each row is the mean of
+    the L = 196 real values; |v| < 1/4 makes 2^-124 v subnormal, which the
+    2^64 carry keeps off the tensor cores. hd 20 also takes the wrapper's
+    padding to 24 columns."""
+    bf, L, ws = torch.bfloat16, 196, 14
+    if rel:
+        q, k = (_randn(s, 1, 2, L, hd).to(cuda, bf) for s in (109, 110))
+        rh, rw = (torch.full((1, 2, L, ws), -50.0, device=cuda, dtype=bf) for _ in range(2))
+    else:
+        q = (-(1 + _randn(109, 1, 2, L, hd).abs()) * 8).to(cuda, bf)
+        k = ((1 + _randn(110, 1, 2, L, hd).abs()) * 8).to(cuda, bf)
+        rh = rw = None
+    v = (_randn(111, 1, 2, L, hd).clamp(-1, 1) * 0.2).to(cuda, bf)
+    ref = tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5)
+    mean = v.float().mean(dim=-2, keepdim=True)
+    assert float((ref.float() - mean).abs().max()) <= 2.0**-8 * float(mean.abs().max())
+    before = tfa.LAUNCHES["flash_whole"]
+    out = tfa.flash_attention_relpos(q, k, v, rh, rw, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_whole"] == before + 1 and out.shape == q.shape
+    _check_hs(out, ref)
+    _hs_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), rh, rw, hd**-0.5), ref)
+
+
 @pytest.mark.gpu
 def test_head_split_routes_pick_their_body_on_card(cuda, monkeypatch):
-    """The wrapper passes the body to csrc/flash_attn.cu: the TMA tensor-core
-    one (tc 1) for bfloat16 flash_rowblock only; flash_whole in both dtypes
-    and float32 flash_rowblock keep the CUDA-core flash_attn_kernel (tc 0)."""
+    """The wrapper passes the body to csrc/flash_attn.cu: in bfloat16 the TMA
+    tensor-core one for both routes (flash_whole since it left the CUDA
+    cores); float32 keeps the CUDA-core flash_attn_kernel in both."""
     from sam_quantization_tpu_torch.ops import _build
 
     seen, launch = [], _build.launch
     monkeypatch.setattr(_build, "launch", lambda name, *a: (seen.append((name, a[2])),
                                                             launch(name, *a))[1])
-    for L, dtype, tc in ((196, torch.float32, 0), (196, torch.bfloat16, 0),
-                         (1000, torch.float32, 0), (1000, torch.bfloat16, 1)):
+    for L, dtype, body in ((196, torch.float32, tfa.ATTEND_ROWS),
+                           (196, torch.bfloat16, tfa.TMA_BODY),
+                           (1000, torch.float32, tfa.ATTEND_ROWS),
+                           (1000, torch.bfloat16, tfa.TMA_BODY)):
         q = _randn(88, 1, 2, L, 80).to(cuda, dtype)
         tfa.flash_attention_relpos(q, q, q, None, None, 0.125)
-        assert seen.pop() == ("flash_attn", tc), (L, dtype)
+        assert seen.pop() == ("flash_attn", body), (L, dtype)
     torch.cuda.synchronize()
 
 
@@ -723,7 +783,29 @@ def test_probe_heads_kernel_matches_plain(cuda, case, BH, L, D, kh, kw):
     out = kernel(q, k, v, rh, rw)
     torch.cuda.synchronize()
     assert tpr.LAUNCHES[name] == before + 1 and out.dtype == torch.bfloat16
-    _check_hs(out, plain(q, k, v, rh, rw))
+    ref = plain(q, k, v, rh, rw)
+    _check_hs(out, ref)
+    if name == "probe_dots_floor":  # P2's negative control: the last key tile left out
+        _hs_fails(plain(q, k, _last_tile_skipped(v, L), rh, rw), ref)
+
+
+@pytest.mark.gpu
+def test_probe_dots_floor_at_the_probe_shape_on_card(cuda):
+    """P2 as tools/packed_probe.py runs it at ViT-H: 25 windows x 16 heads
+    of 196 rows and hd 80, zero-padded to (400, 256, 128), q unscaled
+    (logits of std ~9, any sign: round(s) is coarse and no probability).
+    The padded keys take part with s = 0. One launch, the head-split bound,
+    and the last real key tile (4 keys) left out rejected."""
+    L, hd = 196, 80
+    q, k, v = (torch.nn.functional.pad(_randn(s, 400, L, hd), (0, 128 - hd, 0, 256 - L))
+               .to(cuda, torch.bfloat16) for s in (101, 102, 103))
+    before = tpr.LAUNCHES["probe_dots_floor"]
+    out = tpr.probe_dots_floor(q, k, v)
+    torch.cuda.synchronize()
+    assert tpr.LAUNCHES["probe_dots_floor"] == before + 1 and out.shape == q.shape
+    ref = tpr.probe_dots_floor_plain(q, k, v)
+    _check_hs(out, ref)
+    _hs_fails(tpr.probe_dots_floor_plain(q, k, _last_tile_skipped(v, L)), ref)
 
 
 def _probe_operands(seed, BH, L, D=128):

@@ -111,29 +111,35 @@ def test_no_softmax_plain_matches_tpu_kernel(dtype):
     assert torch.equal(sliced, out)
 
 
-def _presplit_operands(seed, dtype):
-    """Heads split and zero-padded to (NW, nh, Lp, 128), as the probe's
-    ``presplit_prep`` lays them out."""
+def _presplit_operands(seed, dtype, rows=L, d=HD, padded=True):
+    """Heads of ``rows`` rows and ``d`` columns, split and, as the probe's
+    ``presplit_prep`` lays them out, zero-padded to (NW, nh, Lp, 128)."""
     r = np.random.default_rng(seed)
     jdt, tdt = DTYPES[dtype]
-    ops = [np.pad(r.standard_normal((NW, NH, L, HD)).astype(np.float32) * 0.5,
-                  ((0, 0), (0, 0), (0, LP - L), (0, 128 - HD))) for _ in range(3)]
+    pad = ((0, 0), (0, 0), (0, LP - rows), (0, 128 - d)) if padded else ((0, 0),) * 4
+    ops = [np.pad(r.standard_normal((NW, NH, rows, d)).astype(np.float32) * 0.5, pad)
+           for _ in range(3)]
     return [jnp.asarray(a, jdt) for a in ops], [torch.from_numpy(a).to(tdt) for a in ops]
 
 
 def _call_heads(kernel, ops, jdt):
-    spec = pl.BlockSpec((1, NH, LP, 128), lambda i: (i, 0, 0, 0))
-    return pl.pallas_call(kernel, grid=(NW,), in_specs=[spec] * 3, out_specs=spec,
-                          out_shape=jax.ShapeDtypeStruct((NW, NH, LP, 128), jdt),
-                          interpret=True)(*ops)
+    shape = tuple(ops[0].shape)
+    spec = pl.BlockSpec((1, *shape[1:]), lambda i: (i, 0, 0, 0))
+    return pl.pallas_call(kernel, grid=(shape[0],), in_specs=[spec] * 3, out_specs=spec,
+                          out_shape=jax.ShapeDtypeStruct(shape, jdt), interpret=True)(*ops)
 
 
+# P2 as the probe lays its heads out (L 16 padded to (128, 128)), and at the
+# card tests' ragged shapes, unpadded: L 200 with D 80 (a ragged last key
+# tile), L 70 with D 20 (rows the kernel's TMA copies take padded to 24).
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_dots_floor_plain_matches_tpu_kernel(dtype):
-    jops, tops = _presplit_operands(1, dtype)
+@pytest.mark.parametrize("rows,d,padded", [(L, HD, True), (200, 80, False), (70, 20, False)],
+                         ids=["probe-layout", "L200-D80", "L70-D20"])
+def test_dots_floor_plain_matches_tpu_kernel(dtype, rows, d, padded):
+    jops, tops = _presplit_operands(1, dtype, rows, d, padded)
     ref = _call_heads(TPU_PROBE._kernel_dots_floor, jops, DTYPES[dtype][0])
     out = probes.probe_dots_floor(*tops)
-    assert out.dtype == DTYPES[dtype][1]
+    assert out.dtype == DTYPES[dtype][1] and out.shape == tops[0].shape
     _close(out, ref, dtype)
 
 
