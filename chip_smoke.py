@@ -15,10 +15,11 @@ Run from the repository root on a machine with one CUDA card. It
    kernels' being their plain version with x's last K tile left out, also at
    pack blocks of 48 and 96 rows, which are not powers of two; the bfloat16
    serving attention kernels, packed-weight kernels and the TMA attention
-   body (P2-P5, bfloat16 ``flash_whole`` and ``flash_rowblock``) also show
+   body (P1-P5, bfloat16 ``flash_whole`` and ``flash_rowblock``) also show
    their tensor-core instructions, the HGMMA count that ``cuobjdump -sass``
-   finds in each instantiation (and no CUDA-core kernel in the probes'
-   library, and only float32 ones in ``flash_attn``'s), and the W-A8 kernels
+   finds in each instantiation (and no other kernel in the probes'
+   libraries; in ``flash_attn``'s, float32 kernels of FFMA and no
+   tensor-core instruction beside them), and the W-A8 kernels
    their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
@@ -119,11 +120,11 @@ QUANT_RANGE = "quantize_activations_int8"  # profiler range around the quantize 
 # kernel, the probes, and the tensor-core windowed and global kernels): both
 # round p and the output to bf16 from float32 sums taken in another order, so
 # an output may sit one bf16 step away: |d| <= 2**-7 |ref| + HS_BF16_C
-# max|ref|. On an H100 the CUDA-core P1 reads c <= 0 (each difference a
-# flipped output rounding), the tensor-core kernels 1e-4 to 5e-4 (a flipped
-# p or s rounding, or the wgmma sum order moving an output across a
-# rounding point), and the plain version with its last key tile skipped in
-# p.v reads 0.16 to 1.05; HS_BF16_C leaves room for both.
+# max|ref|. On an H100 the tensor-core kernels (P1 among them since it left
+# the CUDA cores, where it read c <= 0) read 1e-4 to 6e-4 (a flipped p or s
+# rounding, or the wgmma sum order moving an output across a rounding
+# point), and the plain version with its last key tile skipped in p.v reads
+# 0.16 to 1.05; HS_BF16_C leaves room for both.
 HS_BF16_C = 2.0**-10
 # P3 on the probe driver's own unscaled q (logits of std ~9): a p near 1
 # that rounds to bf16 on either side with the last bit of s moves a row by
@@ -382,15 +383,19 @@ def main() -> int:
     # The TMA tensor-core body (probe_tc_kernel<MODE, EXP2, BIAS, HDP>, hd
     # tiles 16..128): in probe_heads, the dot-only mode (P2), the row-max
     # and clamp-40 softmax without a bias (P3 row max exp2 and exp, P4 both)
-    # and with one (P5 both), 48 instantiations and no other kernel; in
-    # flash_attn, the FLASH mode of bfloat16 flash_whole and flash_rowblock,
-    # with and without a rel grid, 16, beside the CUDA-core
-    # flash_attn_kernel<T, REL> for float32 alone. Each holds HGMMA, so no
-    # bfloat16 launch of those kernels can reach an FFMA product loop.
+    # and with one (P5 both), 48 instantiations; in probe_packed, P1's AUG
+    # mode (4), 8; in flash_attn, the FLASH mode of bfloat16 flash_whole and
+    # flash_rowblock, with and without a rel grid, 16. Each holds HGMMA, so
+    # no bfloat16 launch of those kernels can reach an FFMA product loop.
+    # Beside them flash_attn holds only the float32 register-tiled body
+    # (flash_attn_f32_kernel<HDP, REL>, 16): FFMA, and no HGMMA or HMMA
+    # (tensor cores would mean TF32); the probes' libraries hold no other
+    # kernel.
     hdps = [str(h) for h in range(16, 129, 16)]
     for name, want in (("probe_heads", {(m, e, b, h) for m, e, b in (
             ("0", "1", "0"), ("1", "1", "0"), ("1", "0", "0"), ("2", "1", "0"), ("1", "1", "1"),
             ("2", "1", "1")) for h in hdps}),
+            ("probe_packed", {("4", "1", "0", h) for h in hdps}),
             ("flash_attn", {("3", "1", b, h) for b in "01" for h in hdps})):
         lib = _build.library_path(name)
         tc_counts = tensor_core_counts(lib, _build._nvcc(),
@@ -401,16 +406,19 @@ def main() -> int:
               f"{max((c[0] for c in tc_counts.values()), default=0)} each, FFMA "
               f"{min((c[4] for c in tc_counts.values()), default=0)}-"
               f"{max((c[4] for c in tc_counts.values()), default=0)}")
-        if name == "probe_heads":
-            others = sorted(k[0] for k in tensor_core_counts(lib, _build._nvcc(),
-                                                             r"Function : (\w+)")
-                            if "probe_tc_kernel" not in k[0])
-            check(not others, f"probe_heads: no kernel but probe_tc_kernel ({others})")
+        cuda_core = tensor_core_counts(lib, _build._nvcc(), r"flash_attn_f32_kernelILi(\d+)ELb(\d)E")
+        others = sorted(k[0] for k in tensor_core_counts(lib, _build._nvcc(), r"Function : (\w+)")
+                        if "probe_tc_kernel" not in k[0] and "flash_attn_f32_kernel" not in k[0])
+        check(not others, f"{name}: no kernel but probe_tc_kernel and flash_attn_f32_kernel "
+                          f"({others})")
+        if name == "flash_attn":
+            check(set(cuda_core) == {(h, r) for h in hdps for r in "01"}
+                  and all(c[4] > 0 and c[0] == c[1] == 0 for c in cuda_core.values()),
+                  "flash_attn: float32 flash_attn_f32_kernel (HDP, rel), FFMA and no HGMMA/HMMA: "
+                  + ", ".join(f"{h}/{r} {c[4]}/{c[0] + c[1]}"
+                              for (h, r), c in sorted(cuda_core.items(), key=lambda x: int(x[0][0]))))
         else:
-            cuda_core = tensor_core_counts(lib, _build._nvcc(), r"flash_attn_kernelI(\w+?)Lb(\d)E")
-            check(set(cuda_core) == {("f", "0"), ("f", "1")},
-                  "flash_attn: flash_attn_kernel built for float32 alone: " + ", ".join(
-                      f"{t} rel {r} FFMA {c[4]}" for (t, r), c in sorted(cuda_core.items())))
+            check(not cuda_core, f"{name}: no float32 head-split kernel")
 
     gen = torch.Generator(device=dev)
 
@@ -569,7 +577,8 @@ def main() -> int:
     # rel-less; flash_rowblock at the rel-less ViT-H global shape (16 heads,
     # L 4096) and at a rel grid the bias3d kernel cannot take (50 x 50, 128
     # % 50 != 0). bfloat16 runs the TMA tensor-core body, float32 the
-    # CUDA-core one. The first case of each counter is its JSON row. Each
+    # register-tiled CUDA-core one. The first case of each counter is its
+    # JSON row (flash_whole's in float32, JSON_DTYPE). Each
     # case also reads a wrong output, the plain version with the last key
     # tile (L % 64 keys, or 64) left out of p.v, and fails if the bound
     # takes it.
@@ -944,6 +953,14 @@ def main() -> int:
             del x, xq, xs, out, ref
         del p, w8
     torch.cuda.empty_cache()
+
+    # Every float32 build beside its library call and bound (the JSON line
+    # carries the bfloat16 rows, and flash_whole's float32 one).
+    for (name, tag), r in report.items():
+        if tag == "float32":
+            print(f"float32 {name}: kernel {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+                  f"(x lib {r['ms'] / r['library_ms']:.2f}), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms  [{card}]")
 
     # --------------------------------------------------------------- main path
     def vit_h():

@@ -20,144 +20,87 @@
 // 16 us of memory at 3.35 TB/s against 6 us of bf16 tensor-core time, so it
 // is bound by bytes.
 //
-// Design: flash_windowed's (flash_common.cuh): one block per (64 query rows,
-// head, window) reads its q rows once and streams the head's k, v and rel
-// rows in 64-key tiles through shared memory, where the augmented rows are
-// assembled; both products run on the CUDA cores in float32. Output is at
-// head columns, as the TPU kernel writes it.
-#include "flash_common.cuh"
+// Design: probe_tc.cuh's AUG policy, the dot-only pass of P2 (round(s)
+// packed straight into p.v's register operand, no carry, no row sum) with
+// FLASH's in-place q scale (q_scale = scale, no log2 e) and two changes:
+// - Heads in place: TMA reads zeros only past a tensor's own edge, and
+//   column h*hd + hd is the next head's first column. So q, k and v are 4D
+//   tensor maps (hd, nh, L, NW) with element strides 1 and hd, then the row
+//   and the window stride; a box of 64 columns of one head ends at hd. The
+//   wrapper copies q, k and v (hd padded to a multiple of 8) where hd or a
+//   stride is not a multiple of 8 elements or a start not of 16 bytes.
+// - The rel columns are extra depth of q.k: a rel tile of the block's 128
+//   rows comes with q and one of the step's 64 keys with each K tile (3D
+//   maps of boxes of 64 rows), and R' / 16 more k16 steps of wgmma join the
+//   hd steps' accumulator chain. rel rows of R = 28 are 56 bytes, which TMA
+//   cannot stride, so the wrapper pads R to R' = round_up(R, 8) with zeros,
+//   which add nothing to s. The padding (and any copy) is part of the call.
+// Output is at head columns (row stride nh*hd), stored a pair of columns at
+// a time from the accumulators; rows m >= L are not stored, keys n >= L
+// give round(s) = 0.
+#include "probe_tc.cuh"
 
 namespace samq {
+namespace ptc {
 
-constexpr int PROBE_MAX_R = 128;  // rel columns (kh + kw) the tiles take
-
-inline size_t packed_smem_bytes(int hd, int R) {
-  const int ld = hd + R + 1;
-  return 4 * ((size_t)BQ * ld + (size_t)BK * ld + (size_t)BK * hd + (size_t)BQ * (BK + 1));
+// The heads of a (NW, L, nh * D) operand read in place (rows row_stride and
+// windows win_stride elements apart) as a 4D tensor map (D, nh, L, NW) of
+// boxes of 64 columns by `rows` rows of one head: past D (the next head's
+// columns) and past L the box reads zeros.
+inline bool encode_heads(CUtensorMap* map, const void* x, int NW, int L, int nh, int D,
+                         long long row_stride, long long win_stride, int rows) {
+  const auto fn = samq_tma::encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)nh, (cuuint64_t)L, (cuuint64_t)NW};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)win_stride * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    probe_no_softmax_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ rel, __nv_bfloat16* __restrict__ out,
-                            int L, int nh, int hd, int R, long long row_stride,
-                            long long win_stride, float scale) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int h = blockIdx.y, m0 = blockIdx.x * BQ, Da = hd + R, ld = Da + 1;
-  const long long w = blockIdx.z, C = (long long)nh * hd;
-  const long long base = w * win_stride + (long long)h * hd;
-  const __nv_bfloat16* rel_w = rel + (w * nh + h) * L * R;
-  float* Qa = smem;             // BQ x ld: round(q * scale) | rel
-  float* Ka = Qa + BQ * ld;     // BK x ld: k | rel
-  float* Vs = Ka + BK * ld;     // BK x hd
-  float* Ps = Vs + BK * hd;     // BQ x (BK + 1), round(s)
-
-  for (int i = tid; i < BQ * Da; i += NTHREADS) {
-    const int r = i / Da, c = i - r * Da, m = m0 + r;
-    float x = 0.f;
-    if (m < L)
-      x = c < hd ? round_to<__nv_bfloat16>(__bfloat162float(q[base + m * row_stride + c]) * scale)
-                 : __bfloat162float(rel_w[(long long)m * R + c - hd]);
-    Qa[r * ld + c] = x;
-  }
-
-  float acc[4][MAX_HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < MAX_HD / 16; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < L; n0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BK * Da; i += NTHREADS) {
-      const int r = i / Da, c = i - r * Da, n = n0 + r;
-      float x = 0.f;
-      if (n < L)
-        x = c < hd ? __bfloat162float(k[base + n * row_stride + c])
-                   : __bfloat162float(rel_w[(long long)n * R + c - hd]);
-      Ka[r * ld + c] = x;
-    }
-    for (int i = tid; i < BK * hd; i += NTHREADS) {
-      const int r = i / hd, c = i - r * hd, n = n0 + r;
-      Vs[i] = n < L ? __bfloat162float(v[base + n * row_stride + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < Da; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qa[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ka[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        Ps[(ty + 16 * i) * (BK + 1) + c] = n0 + c < L ? round_to<__nv_bfloat16>(s[i][j]) : 0.f;
-      }
-    __syncthreads();
-
-    const int nk = min(BK, L - n0);
-    for (int n = 0; n < nk; ++n) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + n];
-#pragma unroll
-      for (int j = 0; j < MAX_HD / 16; ++j) {
-        const int c = tx + 16 * j;
-        if (c < hd) {
-          const float vv = Vs[n * hd + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= L) continue;
-#pragma unroll
-    for (int j = 0; j < MAX_HD / 16; ++j) {
-      const int c = tx + 16 * j;
-      if (c < hd) out[(w * L + m) * C + (long long)h * hd + c] = __float2bfloat16(acc[i][j]);
-    }
-  }
+// Launch AUG (P1) on q, k, v of shape (NW, L, nh * D) read in place (rows
+// row_stride and windows win_stride elements apart, the same for all three;
+// D <= MAX_HD, both strides and D multiples of 8, q, k and v 16-byte
+// aligned) with rel (NW, nh, L, R) contiguous, R <= PROBE_MAX_R a multiple
+// of 8 (zero columns add nothing), 16-byte aligned; out (NW, L, nh * D)
+// contiguous. Anything else is refused.
+inline int run_aug(const void* q, const void* k, const void* v, const void* rel, void* out,
+                   int NW, int L, int nh, int D, int R, long long row_stride,
+                   long long win_stride, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if (D % 8 != 0 || R < 0 || R % 8 != 0 || R > PROBE_MAX_R || row_stride % 8 != 0 ||
+      win_stride % 8 != 0 || (long)NW * nh > 65535 || !aligned(q, 16) || !aligned(k, 16) ||
+      !aligned(v, 16) || !aligned(rel, 16) || !aligned(out, 4))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!(encode_heads(&maps.q, q, NW, L, nh, D, row_stride, win_stride, BQ) &&
+        encode_heads(&maps.k, k, NW, L, nh, D, row_stride, win_stride, BK) &&
+        encode_heads(&maps.v, v, NW, L, nh, D, row_stride, win_stride, BK) &&
+        (R == 0 || encode(&maps.r, rel, NW * nh, L, R, BK))))
+    return (int)cudaErrorNotSupported;
+  const Args a{static_cast<bf16*>(out), nullptr, nullptr, L, D, 0, 0, 0, scale, nh,
+               atoms(R), (R + 15) / 16};
+  return launch_body<PROBE_AUG, true, false>(maps, a, NW * nh, stream);
 }
 
+}  // namespace ptc
 }  // namespace samq
 
 // q, k, v: bfloat16 (NW, L, nh*hd) with rows row_stride and windows
 // win_stride elements apart (the same for all three), last dim contiguous;
 // rel: bfloat16 (NW, nh, L, R), contiguous; out: bfloat16 (NW, L, nh*hd),
-// contiguous. Returns the CUDA error of the launch (0 on success).
+// contiguous. hd, R and both strides multiples of 8, q, k, v and rel
+// 16-byte aligned (ptc::run_aug). Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int samq_probe_no_softmax(const void* q, const void* k, const void* v, const void* rel,
                                      void* out, int NW, int L, int nh, int hd, int R,
                                      long long row_stride, long long win_stride, float scale,
                                      void* stream) {
   using namespace samq;
-  if (hd < 1 || hd > MAX_HD || R < 0 || R > PROBE_MAX_R || L < 1 || NW < 1 || NW > 65535 ||
-      nh < 1 || nh > 65535)
-    return (int)cudaErrorInvalidValue;
-  using T = __nv_bfloat16;
-  const dim3 grid((L + BQ - 1) / BQ, nh, NW);
-  return launch(probe_no_softmax_kernel, grid, packed_smem_bytes(hd, R),
-                static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(rel),
-                static_cast<T*>(out), L, nh, hd, R, row_stride, win_stride, scale);
+  if (hd < 1 || hd > MAX_HD || L < 1 || NW < 1 || nh < 1) return (int)cudaErrorInvalidValue;
+  return ptc::run_aug(q, k, v, rel, out, NW, L, nh, hd, R, row_stride, win_stride, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,9 @@
 //   P3 _kernel_presplit  (tools/packed_probe.py:111)        ROWMAX, no bias
 //   P4 _k_pair           (tools/global_stage_probe.py:183)  ROWMAX or CLAMP
 //   P5 _k_pair_bias      (tools/global_stage_probe.py:316)  the same, BIAS
-// through probe_heads.cu, and
+// through probe_heads.cu,
+//   P1 _kernel_no_softmax (tools/packed_probe.py:71)        AUG
+// through probe_packed.cu, and
 //   _attn_kernel_rowblock (sam_quantization_tpu/ops/flash_attention.py:680)
 //   _attn_kernel          (sam_quantization_tpu/ops/flash_attention.py:213)
 //                        FLASH, with or without BIAS (flash_attn.cu's
@@ -27,6 +29,8 @@
 // with sum p over the unrounded f32 p; and
 //   NONE:   p = s (not a probability: any sign and size, no carry below);
 //           out = round_bf16(f32 sum_n round_bf16(s) v), no row sum.
+//   AUG:    NONE on s = f32 [qs | rel] . [k | rel], qs = round_bf16(q *
+//           q_scale): the rel rows (R columns) are R more q.k depth.
 // Only the summation order inside the two products and the row sums differs
 // (and, for exp, the rounding of its argument times log2 e; for NONE it can
 // move a rounded s near a tie by one bf16 step). What keeps it exact where
@@ -76,10 +80,15 @@
 //   all 256 consumer threads have arrived on its empty mbarrier. The
 //   consumers meet no block barrier, so the two warpgroups drift apart and
 //   one's softmax runs beside the other's products.
+// - AUG (P1): q, K and V are heads read in place from (NW, L, nh * hd)
+//   through 4D tensor maps (probe_packed.cu says why); the rel rows of the
+//   block's 128 rows come with q and those of the step's 64 keys with each
+//   K tile (the ring's stages grow by one rel tile), and R' / 16 k16 steps
+//   of wgmma join the hd steps' chain. The output is at head columns.
 // - FLASH: each warpgroup scales its own 64 q rows in shared memory once q
 //   has landed (element-wise, so the swizzle does not matter), then fences
 //   them to the tensor cores' proxy and meets its 128 threads at a named
-//   barrier before its first wgmma.
+//   barrier before its first wgmma. AUG scales q the same way.
 // - BIAS: each warpgroup copies the rh and rw rows of its 64 rows into
 //   shared memory as bf16 before q.k (128 x (kh + kw) values a block; the
 //   ring has two stages where four do not fit beside them, and a shape
@@ -120,7 +129,7 @@
 
 namespace samq {
 
-enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2, FLASH_CLIP = 3 };
+enum ProbeMode { PROBE_NONE = 0, PROBE_ROWMAX = 1, PROBE_CLAMP = 2, FLASH_CLIP = 3, PROBE_AUG = 4 };
 constexpr float PAIR_CAP = 40.f;  // _k_pair's static shift
 
 namespace ptc {
@@ -128,19 +137,24 @@ namespace ptc {
 using tc::BK;
 using tc::BQ;
 constexpr int MAX_STAGES = 4;           // K/V stages of the ring, at most
+constexpr int PROBE_MAX_R = 128;        // AUG's rel columns: two atoms
 constexpr int CONSUMERS = 2 * tc::WG;   // two warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int ATOM_ROW = 128;           // bytes of a row of a 128-byte-swizzle atom: 64 values
 constexpr int BAR_BYTES = 80;           // full and empty per stage, q's: 9 mbarriers, 16-aligned
 
 // Shared memory: per stage, the K tile then the V tile, each NA atoms of
-// BK rows x 128 bytes (NA = HDP / 64 rounded up: the 64 columns of an atom);
-// then q, NA atoms of BQ rows; the barriers; a 64-entry key index table per
-// stage; and the bias rows, BQ x kh then BQ x kw bf16.
+// BK rows x 128 bytes (NA = HDP / 64 rounded up: the 64 columns of an atom),
+// and with AUG the keys' rel tile, RA atoms of BK rows; then q, NA atoms of
+// BQ rows, and with AUG the rows' rel tile, RA atoms of BQ rows; the
+// barriers; a 64-entry key index table per stage; and the bias rows, BQ x kh
+// then BQ x kw bf16.
 __host__ __device__ constexpr int atoms(int hdp) { return (hdp + 63) / 64; }
-inline size_t stage_bytes(int hdp) { return (size_t)2 * atoms(hdp) * BK * ATOM_ROW; }
-inline size_t fixed_bytes(int hdp, int kh, int kw) {
-  return (size_t)atoms(hdp) * BQ * ATOM_ROW + BAR_BYTES + MAX_STAGES * BK * 4 +
+inline size_t stage_bytes(int hdp, int ra) {
+  return (size_t)(2 * atoms(hdp) + ra) * BK * ATOM_ROW;
+}
+inline size_t fixed_bytes(int hdp, int kh, int kw, int ra) {
+  return (size_t)(atoms(hdp) + ra) * BQ * ATOM_ROW + BAR_BYTES + MAX_STAGES * BK * 4 +
          (size_t)BQ * (kh + kw) * 2;
 }
 
@@ -182,6 +196,18 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(tc::smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bh), "r"(tc::smem_u32(bar))
+      : "memory");
+}
+
+// Box (64 columns from col, head h, rows from row, window w) of a 4D map of
+// heads read in place (AUG) into dst, counted on bar.
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map, int col, int h,
+                                         int row, int w, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(tc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(h), "r"(row), "r"(w),
+      "r"(tc::smem_u32(bar))
       : "memory");
 }
 
@@ -229,19 +255,21 @@ __device__ __forceinline__ void mma_pv128(float (&d0)[32], float (&d1)[32], cons
 }
 
 struct Maps {
-  CUtensorMap q, k, v;
+  CUtensorMap q, k, v, r;  // r: AUG's rel rows, boxes of BK rows
 };
 
 // What a launch takes besides the tensor maps: out (D a multiple of 8,
 // 4-byte aligned), written a pair of columns at a time; with BIAS the rows
 // rh (BH, L, kh) and rw (BH, L, kw), kh * kw == L; the ring's stage count;
-// FLASH's q scale.
+// the q scale of FLASH and AUG; and AUG's heads a window (out is (NW, L,
+// nh * D), blockIdx.y = w * nh + h), rel atoms and rel depth steps.
 struct Args {
   __nv_bfloat16* out;
   const __nv_bfloat16* rh;
   const __nv_bfloat16* rw;
   int L, D, kh, kw, stages;
   float q_scale;
+  int nh, ra, rs;
 };
 
 // One (batch, head) of (BH, L, D) operands a blockIdx.y, rows blockIdx.x *
@@ -251,25 +279,32 @@ __global__ void __launch_bounds__(THREADS, 1)
     probe_tc_kernel(const __grid_constant__ Maps maps, const Args args) {
   using bf16 = __nv_bfloat16;
   constexpr bool ROWMAX = MODE == PROBE_ROWMAX, FLASH = MODE == FLASH_CLIP, NONE = MODE == PROBE_NONE;
+  constexpr bool AUG = MODE == PROBE_AUG;  // P1: NONE's pass on heads in place, rel on both sides
+  constexpr bool DOTS = NONE || AUG;       // no softmax: p = s, no carry, no row sum
   constexpr int NA = atoms(HDP);    // 64-column atoms of a row
   constexpr int KS = HDP / 16;      // q.k depth steps
   constexpr int TILE = NA * BK * ATOM_ROW;  // bytes of one K or V tile
   constexpr int N64 = HDP / 64, N16 = HDP % 64 / 16;  // p.v column chunks of 64 and 16
-  static_assert(!(NONE && BIAS), "the dot-only mode takes no bias");
+  static_assert(!(DOTS && BIAS), "the dot-only modes take no bias");
   static_assert(HDP % 16 == 0 && HDP <= MAX_HD, "HDP: a multiple of 16 up to MAX_HD");
   extern __shared__ __align__(1024) unsigned char ptc_smem[];
   const int L = args.L, D = args.D, kh = args.kh, kw = args.kw, stages = args.stages;
+  const int ra = AUG ? args.ra : 0;  // rel atoms of a row (AUG)
   const int smask = stages - 1, sshift = stages == 4 ? 2 : 1;  // u % stages, u / stages
-  unsigned char* KV = ptc_smem;                      // [stage][K, V][TILE]
-  unsigned char* Qs = KV + 2 * stages * TILE;        // NA atoms of BQ rows
-  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + NA * BQ * ATOM_ROW);  // [MAX_STAGES]
+  const int SB = 2 * TILE + ra * BK * ATOM_ROW;      // bytes of a stage
+  unsigned char* KV = ptc_smem;                      // [stage][K, V, rel]
+  unsigned char* Qs = KV + stages * SB;              // NA atoms of BQ rows
+  unsigned char* Qr = Qs + NA * BQ * ATOM_ROW;       // AUG: ra atoms of BQ rel rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qr + ra * BQ * ATOM_ROW);  // [MAX_STAGES]
   uint64_t* empty = full + MAX_STAGES;                                    // [MAX_STAGES]
   uint64_t* qbar = empty + MAX_STAGES;
-  int* idx = reinterpret_cast<int*>(Qs + NA * BQ * ATOM_ROW + BAR_BYTES);  // [stage][BK]
+  int* idx = reinterpret_cast<int*>(Qr + ra * BQ * ATOM_ROW + BAR_BYTES);  // [stage][BK]
   bf16* Rh = reinterpret_cast<bf16*>(idx + MAX_STAGES * BK);  // BQ x kh
   bf16* Rw = Rh + BQ * kh;                                    // BQ x kw
 
   const int bh = blockIdx.y, m0 = blockIdx.x * BQ, tid = threadIdx.x, lane = tid & 31;
+  // AUG: window w, head h of a (NW, L, nh * D) layout; else bh's own (L, D).
+  const int head = AUG ? bh % args.nh : 0, win = AUG ? bh / args.nh : bh;
   const int tiles = (L + BK - 1) / BK, steps = ROWMAX ? 2 * tiles : tiles;
   // kw == BK: n // kw is the tile and n % kw the column (every tile whole);
   // any other kw takes a table of (n // kw, n % kw) per stage.
@@ -296,12 +331,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     // 2 tiles - 1, every other step), all by TMA from lane 0. With a bias
     // table, every lane first writes two of its entries, and all 32 lanes
     // arrive on the full barrier, so the consumers' wait also acquires the
-    // table; otherwise lane 0 alone.
+    // table; otherwise lane 0 alone. AUG's q, K and V boxes are of one head
+    // of the 4D maps, and its rel tiles come with q (BQ rows, two boxes an
+    // atom) and with each K tile.
+    auto box = [&](void* dst, const CUtensorMap* map, int col, int row, uint64_t* bar) {
+      if constexpr (AUG)
+        tma_box4(dst, map, col, head, row, win, bar);
+      else
+        tma_box(dst, map, col, row, bh, bar);
+    };
     if (lane == 0) {
-      mbar_expect(qbar, NA * BQ * ATOM_ROW);
+      mbar_expect(qbar, (NA + ra) * BQ * ATOM_ROW);
 #pragma unroll
-      for (int a = 0; a < NA; ++a)
-        tma_box(Qs + a * BQ * ATOM_ROW, &maps.q, 64 * a, m0, bh, qbar);
+      for (int a = 0; a < NA; ++a) box(Qs + a * BQ * ATOM_ROW, &maps.q, 64 * a, m0, qbar);
+      for (int a = 0; a < ra; ++a)
+        for (int r = 0; r < BQ; r += BK)
+          tma_box(Qr + (a * BQ + r) * ATOM_ROW, &maps.r, 64 * a, m0 + r, bh, qbar);
     }
     if (lane != 0 && !table) return;
     for (int u = 0; u < steps; ++u) {
@@ -317,13 +362,15 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       if (lane == 0) {
-        unsigned char* dst = KV + 2 * st * TILE;
-        mbar_expect(full + st, (pv ? 2 : 1) * TILE);
+        unsigned char* dst = KV + st * SB;
+        mbar_expect(full + st, (pv ? 2 : 1) * TILE + ra * BK * ATOM_ROW);
 #pragma unroll
         for (int a = 0; a < NA; ++a) {
-          tma_box(dst + a * BK * ATOM_ROW, &maps.k, 64 * a, n0, bh, full + st);
-          if (pv) tma_box(dst + TILE + a * BK * ATOM_ROW, &maps.v, 64 * a, n0, bh, full + st);
+          box(dst + a * BK * ATOM_ROW, &maps.k, 64 * a, n0, full + st);
+          if (pv) box(dst + TILE + a * BK * ATOM_ROW, &maps.v, 64 * a, n0, full + st);
         }
+        for (int a = 0; a < ra; ++a)
+          tma_box(dst + 2 * TILE + a * BK * ATOM_ROW, &maps.r, 64 * a, n0, bh, full + st);
       } else {
         mbar_arrive(full + st);
       }
@@ -331,8 +378,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
-  // The two consumer warpgroups.
-  bf16* out = args.out + (long)bh * L * D;
+  // The two consumer warpgroups. AUG writes head h's columns of rows nh * D
+  // apart.
+  bf16* out = args.out + (AUG ? ((long)win * L * args.nh + head) * D : (long)bh * L * D);
+  const long ostride = AUG ? (long)args.nh * D : D;
   const int wt = tid & (tc::WG - 1);  // thread of the warpgroup
   const int lr0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows lr0, lr0 + 8
   const int cq = 2 * (lane & 3);  // first column (key) of each of the thread's pairs
@@ -355,9 +404,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     copy_rows(Rw, args.rw, kw);
   }
   mbar_wait(qbar, 0);
-  if constexpr (FLASH) {
+  if constexpr (FLASH || AUG) {
     // qs = round_bf16(q * q_scale), in place in this warpgroup's rows of
-    // each atom, then made visible to the tensor cores (async proxy).
+    // each atom (AUG's rel rows stay as they are), then made visible to the
+    // tensor cores (async proxy).
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       uint4* rows = reinterpret_cast<uint4*>(Qs + a * BQ * ATOM_ROW + wg * 64 * ATOM_ROW);
@@ -375,7 +425,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  if constexpr (BIAS || FLASH)  // the warpgroup's 128 threads, named barrier 1 or 2
+  if constexpr (BIAS || FLASH || AUG)  // the warpgroup's 128 threads, named barrier 1 or 2
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(tc::WG) : "memory");
 
   const bf16 *rh0 = Rh + lr0 * kh, *rh1 = rh0 + 8 * kh;
@@ -411,10 +461,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   // softmax pass.
   auto begin_step = [&](int u) { mbar_wait(full + (u & smask), (u >> sshift) & 1); };
   auto release = [&](int u) { mbar_arrive(empty + (u & smask)); };
-  auto kaddr = [&](int u) { return tc::smem_u32(KV + 2 * (u & smask) * TILE); };
+  auto kaddr = [&](int u) { return tc::smem_u32(KV + (u & smask) * SB); };
+  // AUG: this warpgroup's rel rows, and the rel depth steps (R' / 16 up).
+  const uint32_t raddr = tc::smem_u32(Qr) + wg * 64 * ATOM_ROW;
+  const int rsteps = AUG ? args.rs : 0;
   // Issue q.k of the K tile of step u into sp (committed). Step ks of both
   // operands starts 32 bytes into the rows of atom ks / 4 (the hardware
-  // applies the swizzle to the sum); 8-row groups 1 KB apart (SBO).
+  // applies the swizzle to the sum); 8-row groups 1 KB apart (SBO). AUG adds
+  // the rel depth steps to the same chain: rows' rel tile against keys' rel
+  // tile.
   auto issue_qk = [&](float (&sp)[32], int u) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) sp[i] = 0.f;
@@ -424,6 +479,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int ks = 0; ks < KS; ++ks)
       tc::mma_qk(sp, desc128(qaddr + (ks >> 2) * BQ * ATOM_ROW + (ks & 3) * 32, 16, 1024),
                  desc128(kaddr(u) + (ks >> 2) * BK * ATOM_ROW + (ks & 3) * 32, 16, 1024), ks);
+    if constexpr (AUG) {
+      const uint32_t kr = kaddr(u) + 2 * TILE;
+#pragma unroll
+      for (int rs = 0; rs < PROBE_MAX_R / 16; ++rs)
+        if (rs < rsteps)
+          tc::mma_qk(sp, desc128(raddr + (rs >> 2) * BQ * ATOM_ROW + (rs & 3) * 32, 16, 1024),
+                     desc128(kr + (rs >> 2) * BK * ATOM_ROW + (rs & 3) * 32, 16, 1024), 1);
+    }
     tc::wg_commit();
   };
   // Issue p.v of the V tile of step u with the packed p (committed). The V
@@ -535,7 +598,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int i = 8 * kk + 2 * f + h;
           float p;
-          if constexpr (NONE)
+          if constexpr (DOTS)
             p = sp[i];
           else if constexpr (FLASH)
             p = tc::ex2(fminf(fmaxf(sp[i], CLAMP_FLOOR), CLAMP_CAP) - CLAMP_CAP);
@@ -546,10 +609,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           else
             p = ex2_sub((sp[i] - ((i & 2) ? mx1 : mx0)) * LOG2E_F);
           if (tail && absent(n0, i)) p = 0.f;
-          if constexpr (!NONE) ((i & 2) ? ls1 : ls0) += p;
+          if constexpr (!DOTS) ((i & 2) ? ls1 : ls0) += p;
           p2[h] = p;
         }
-        pa[kk][f] = NONE ? tc::pack_bf16(p2[0], p2[1]) : pack_carried(p2[0], p2[1]);
+        pa[kk][f] = DOTS ? tc::pack_bf16(p2[0], p2[1]) : pack_carried(p2[0], p2[1]);
       }
   }
   fence_o();
@@ -559,14 +622,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   tc::fence_u32(pa);
   fence_o();
 
-  // A row's sum is spread over the four lanes of a quad (NONE has none).
+  // A row's sum is spread over the four lanes of a quad (DOTS has none).
 #pragma unroll
-  for (int sh = 1; sh <= (NONE ? 0 : 2); sh <<= 1) {
+  for (int sh = 1; sh <= (DOTS ? 0 : 2); sh <<= 1) {
     ls0 += __shfl_xor_sync(0xffffffffu, ls0, sh);
     ls1 += __shfl_xor_sync(0xffffffffu, ls1, sh);
   }
   const float r0 = 1.f / ls0, r1 = 1.f / ls1;
-  // out = round_bf16((o' * r) * 2^-64), NONE's round_bf16(o), a pair of
+  // out = round_bf16((o' * r) * 2^-64), DOTS' round_bf16(o), a pair of
   // columns at a time.
   auto store = [&](const auto& acc, int c0) {
     constexpr int NACC = std::extent<std::remove_reference_t<decltype(acc)>>::value;
@@ -574,10 +637,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < NACC; i += 2) {
       const int m = m0 + lr0 + ((i & 2) ? 8 : 0), c = c0 + 8 * (i >> 2) + cq;
       const float r = (i & 2) ? r1 : r0;
-      const float y0 = NONE ? acc[i] : acc[i] * r * (1.f / tc::P_SCALE);
-      const float y1 = NONE ? acc[i + 1] : acc[i + 1] * r * (1.f / tc::P_SCALE);
+      const float y0 = DOTS ? acc[i] : acc[i] * r * (1.f / tc::P_SCALE);
+      const float y1 = DOTS ? acc[i + 1] : acc[i + 1] * r * (1.f / tc::P_SCALE);
       if (m >= L || c >= D) continue;
-      *reinterpret_cast<__nv_bfloat162*>(out + (long)m * D + c) = __floats2bfloat162_rn(y0, y1);
+      *reinterpret_cast<__nv_bfloat162*>(out + m * ostride + c) = __floats2bfloat162_rn(y0, y1);
     }
   };
 #pragma unroll
@@ -600,6 +663,31 @@ inline bool encode(CUtensorMap* map, const void* x, int BH, int L, int D, int ro
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+inline bool aligned(const void* p, int a) { return reinterpret_cast<uintptr_t>(p) % a == 0; }
+
+// Launch probe_tc_kernel<MODE, EXP2, BIAS, HDP> with HDP = D rounded up to 16
+// on a grid of (L / BQ up, BH) blocks: four ring stages where they fit
+// beside the fixed shared memory, else two (a power of two: the stage and
+// phase of a step are a mask and a shift); a shape that leaves no room for
+// two is refused.
+template <int MODE, bool EXP2, bool BIAS>
+inline int launch_body(const Maps& maps, Args a, int BH, cudaStream_t stream) {
+  return tc::dispatch_hdp(a.D, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const size_t fixed = fixed_bytes(HDP, a.kh, a.kw, a.ra), stage = stage_bytes(HDP, a.ra);
+    a.stages = fixed + MAX_STAGES * stage <= (size_t)MAX_SMEM ? MAX_STAGES : 2;
+    if (fixed + a.stages * stage > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const size_t bytes = fixed + a.stages * stage;
+    const auto kernel = probe_tc_kernel<MODE, EXP2, BIAS, HDP>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((a.L + BQ - 1) / BQ, BH);
+    kernel<<<grid, THREADS, bytes, stream>>>(maps, a);
+    return (int)cudaGetLastError();
+  });
+}
+
 // Launch the body on (BH, L, D) bf16 operands, D <= MAX_HD a multiple of 8,
 // q, k and v 16-byte aligned and out 4-byte aligned (what TMA and the paired
 // stores take); with BIAS, rh (BH, L, kh) and rw (BH, L, kw) with kh * kw ==
@@ -610,7 +698,6 @@ inline int run(const void* q, const void* k, const void* v, const void* rh, cons
                void* out, int BH, int L, int D, int kh, int kw, float q_scale,
                cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const auto aligned = [](const void* p, int a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; };
   if (D % 8 != 0 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) || !aligned(out, 4))
     return (int)cudaErrorInvalidValue;
   if (BIAS ? (rh == nullptr || rw == nullptr || kh < 1 || kw < 1 || (long)kh * kw != L)
@@ -621,24 +708,9 @@ inline int run(const void* q, const void* k, const void* v, const void* rh, cons
   if (!(encode(&maps.q, q, BH, L, D, BQ) && encode(&maps.k, k, BH, L, D, BK) &&
         encode(&maps.v, v, BH, L, D, BK)))
     return (int)cudaErrorNotSupported;
-  return tc::dispatch_hdp(D, [&](auto hdp) {
-    constexpr int HDP = decltype(hdp)::value;
-    // Four stages where they fit, else two (a power of two: the stage and
-    // phase of a step are a mask and a shift).
-    const size_t fixed = fixed_bytes(HDP, kh, kw), stage = stage_bytes(HDP);
-    const int stages = fixed + MAX_STAGES * stage <= (size_t)MAX_SMEM ? MAX_STAGES : 2;
-    if (fixed + stages * stage > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-    const size_t bytes = fixed + stages * stage;
-    const auto kernel = probe_tc_kernel<MODE, EXP2, BIAS, HDP>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const Args a{static_cast<bf16*>(out), static_cast<const bf16*>(rh),
-                 static_cast<const bf16*>(rw), L, D, kh, kw, stages, q_scale};
-    const dim3 grid((L + BQ - 1) / BQ, BH);
-    kernel<<<grid, THREADS, bytes, stream>>>(maps, a);
-    return (int)cudaGetLastError();
-  });
+  const Args a{static_cast<bf16*>(out), static_cast<const bf16*>(rh),
+               static_cast<const bf16*>(rw), L, D, kh, kw, 0, q_scale, 1, 0, 0};
+  return launch_body<MODE, EXP2, BIAS>(maps, a, BH, stream);
 }
 
 }  // namespace ptc

@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
         "samq_flash_global",
         (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     ),
-    # dtype, has_rel, tc, q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
+    # dtype, has_rel, body, q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw,
     # q_scale, stream
     "flash_attn": (
         "samq_flash_attn",
@@ -156,11 +156,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def tma_operands(*tensors: torch.Tensor):
-    """``tensors`` (..., D) as csrc/probe_tc.cuh's TMA copies take them: D
-    padded with zeros to a multiple of 8 (rows of whole 16-byte groups), and
-    a copy of any operand that does not start on 16 bytes. Zero columns add
-    nothing to q.k; the caller cuts the output columns they give."""
-    pad = -tensors[0].shape[-1] % 8
+    """``tensors`` (..., D) as the 16-byte copies of csrc/probe_tc.cuh (TMA)
+    and of flash_attn.cu's float32 body (cp.async) take them: D padded with
+    zeros to rows of whole 16-byte groups (a multiple of 8 in bfloat16, of 4
+    in float32), and a copy of any operand that does not start on 16 bytes.
+    Zero columns add nothing to q.k; the caller cuts the output columns they
+    give."""
+    pad = -tensors[0].shape[-1] % (16 // tensors[0].element_size())
     padded = (F.pad(t, (0, pad)) if pad else t for t in tensors)
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in padded]
 

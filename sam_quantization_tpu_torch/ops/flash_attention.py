@@ -25,10 +25,13 @@ epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 In bfloat16 every kernel runs both products on Hopper's tensor cores
 (wgmma): the windowed and bias3d global kernels on ``csrc/flash_tc.cuh``'s
 body, ``flash_whole`` and ``flash_rowblock`` on ``csrc/probe_tc.cuh``'s (K
-and V by TMA from a producer warp; the wrapper pads hd to a multiple of 8
-and copies operands that do not start on 16 bytes, as TMA needs).
-:func:`body` names the body of each route and dtype. The float32
-instantiations run both products on the CUDA cores.
+and V by TMA from a producer warp). The float32 instantiations run both
+products on the CUDA cores: ``flash_whole`` and ``flash_rowblock`` on the
+register-tiled body of ``csrc/flash_attn.cu`` (K and V by cp.async),
+``flash_windowed`` and ``flash_global`` on ``csrc/flash_common.cuh``'s
+``attend_rows``. For the TMA and register-tiled bodies the wrapper pads hd
+to whole 16-byte rows and copies operands that do not start on 16 bytes.
+:func:`body` names the body of each route and dtype.
 
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
@@ -201,23 +204,27 @@ def route(L: int, kv_size: Optional[Tuple[int, int]], bias3d: Optional[bool] = N
     return "flash_whole" if L <= WHOLE_MAX_L else "flash_rowblock"
 
 
-# The bodies of the attention kernels; the first two are csrc/flash_attn.cu's
-# `body` argument.
+# The bodies of the attention kernels; TMA_BODY and TILED_F32 are
+# csrc/flash_attn.cu's `body` argument.
 ATTEND_ROWS = 0  # flash_common.cuh's attend_rows: both products on the CUDA cores
 TMA_BODY = 1  # probe_tc.cuh: q, K and V by TMA, both products on wgmma
 TC_BODY = 2  # flash_tc.cuh's attend_rows_tc: K and V by cp.async, both products on wgmma
+TILED_F32 = 3  # flash_attn.cu's register-tiled float32 body: cp.async ring, CUDA cores
 
 
 def body(name: str, dtype: torch.dtype) -> int:
     """The body that runs a head-split problem :func:`route` sends to
     ``name``, in ``dtype``. float32 keeps the CUDA cores (tensor cores would
-    mean TF32). In bfloat16 ``flash_global`` runs flash_tc.cuh's body, and
-    both counters of csrc/flash_attn.cu the TMA body: at flash_whole's
-    ViT-H shape it took as long as flash_tc.cuh's with rel tiles and less
-    time without (PERF.md)."""
-    if dtype != torch.bfloat16:
-        return ATTEND_ROWS
-    return TC_BODY if name == "flash_global" else TMA_BODY
+    mean TF32): ``flash_global`` on attend_rows, both counters of
+    csrc/flash_attn.cu on its register-tiled body (4 x 4 logits and 4 rows
+    of the output a thread, K and V in a two-stage cp.async ring, row and key
+    groups past L skipped). In bfloat16 ``flash_global`` runs flash_tc.cuh's
+    body, and both counters of csrc/flash_attn.cu the TMA body: at
+    flash_whole's ViT-H shape it took as long as flash_tc.cuh's with rel
+    tiles and less time without (PERF.md)."""
+    if name == "flash_global":
+        return TC_BODY if dtype == torch.bfloat16 else ATTEND_ROWS
+    return TMA_BODY if dtype == torch.bfloat16 else TILED_F32
 
 
 def flash_attention_relpos(
@@ -268,7 +275,7 @@ def flash_attention_relpos(
         raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
     quant = out_inv_scale is not None
     kernel_body = body(name, q.dtype)
-    if kernel_body == TMA_BODY:  # its TMA copies take q, k, v as tma_operands gives them
+    if kernel_body in (TMA_BODY, TILED_F32):  # their 16-byte copies take tma_operands' rows
         q, k, v = _build.tma_operands(q, k, v)
     out = torch.empty(q.shape, dtype=torch.int8 if quant else q.dtype, device=q.device)
     kh, kw = kv_size or (0, 0)

@@ -18,11 +18,13 @@ probes, which strip the serving attention kernels down to their parts
   bias ``rw[n % kw] + rh[n // kw]`` of raw tiles added in float32 (replaces
   ``_k_pair_bias``).
 
-The last four are one entry point of ``csrc/probe_heads.cu`` with one
-body, ``csrc/probe_tc.cuh``: both products on the tensor cores (``wgmma``),
-q, K and V by TMA; the wrapper pads a head dim that is not a multiple of 8
-with zeros and copies an operand that is not 16-byte aligned, as those
-copies need. :func:`probe_dots_floor` makes one pass and rounds s to bf16
+All five run one body, ``csrc/probe_tc.cuh``: both products on the tensor
+cores (``wgmma``), q, K and V by TMA. The last four are one entry point of
+``csrc/probe_heads.cu``; the wrapper pads a head dim that is not a multiple
+of 8 with zeros and copies an operand that is not 16-byte aligned, as those
+copies need. :func:`probe_no_softmax` (``csrc/probe_packed.cu``) reads its
+heads in place through 4D tensor maps and adds the rel columns as more q.k
+depth; :func:`aug_operands` gives its operands as those copies take them. :func:`probe_dots_floor` makes one pass and rounds s to bf16
 straight into the p.v operand. :func:`probe_presplit`, :func:`probe_pair`
 and :func:`probe_pair_bias` (the row-max and clamp-40 softmax, with and
 without the bias) take the row max exact by a first q.k pass (the bias
@@ -92,6 +94,32 @@ def probe_no_softmax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(dt).transpose(1, 2).reshape(NW, L, C)
 
 
+def aug_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor, *,
+                 nh: int, hd: int):
+    """``(q, k, v, rel, hd')``: P1's operands as ``csrc/probe_packed.cu``'s
+    TMA copies take them. q, k and v are read in place where hd and their
+    row and window strides are multiples of 8 elements and each starts on 16
+    bytes; otherwise they are copied to (NW, L, nh*hd') with each head
+    zero-padded to hd' = hd rounded up to 8. rel's R is zero-padded to a
+    multiple of 8 (rows of whole 16-byte groups). Zero columns add nothing to
+    q.k, and the output columns of a padded head past hd are zeros, which the
+    caller cuts."""
+    NW, L, _ = q.shape
+    in_place = (hd % 8 == 0 and q.stride(0) % 8 == 0 and q.stride(1) % 8 == 0
+                and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if not in_place:
+        hdp = hd + -hd % 8
+
+        def padded(t):
+            out = t.new_zeros((NW, L, nh, hdp))
+            out[..., :hd] = t.reshape(NW, L, nh, hd)
+            return out.reshape(NW, L, nh * hdp)
+
+        q, k, v, hd = padded(q), padded(k), padded(v), hdp
+    (rel,) = _build.tma_operands(rel)
+    return q, k, v, rel, hd
+
+
 def probe_no_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor,
                      scale: float, *, nh: int, hd: int) -> torch.Tensor:
     """Per window and head, ``round(s) . v`` with
@@ -121,13 +149,18 @@ def probe_no_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: tor
         raise ValueError("probe_no_softmax: q, k, v need a contiguous last dim and equal strides")
     if not rel.is_contiguous():
         raise ValueError("probe_no_softmax: rel must be contiguous")
-    out = torch.empty((NW, L, C), dtype=q.dtype, device=q.device)
+    if hd > 128 or rel.shape[3] > 128:
+        raise ValueError(f"probe_no_softmax: head dim {hd} or rel width {rel.shape[3]} > 128")
+    q, k, v, rel, hdk = aug_operands(q, k, v, rel, nh=nh, hd=hd)
+    out = torch.empty((NW, L, nh * hdk), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _build.launch(
             "probe_packed", q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
-            out.data_ptr(), NW, L, nh, hd, rel.shape[3], q.stride(1), q.stride(0), float(scale),
+            out.data_ptr(), NW, L, nh, hdk, rel.shape[3], q.stride(1), q.stride(0), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
+    if hdk != hd:
+        out = out.reshape(NW, L, nh, hdk)[..., :hd].reshape(NW, L, C)
     LAUNCHES["probe_no_softmax"] += 1
     return out
 

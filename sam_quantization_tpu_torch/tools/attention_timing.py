@@ -1,4 +1,4 @@
-"""Device times of the bfloat16 attention kernels at ViT-H.
+"""Device times of the attention kernels at ViT-H.
 
     python -m sam_quantization_tpu_torch.tools.attention_timing [--iters 50]
 
@@ -8,8 +8,12 @@ bf16 out and int8 out; ``flash_whole`` in bf16 at the same windows split
 into heads, (25, 16, 196, 80), with 14 + 14 rel tiles and rel-less;
 ``flash_rowblock`` in bf16 at the rel-less global shape (1, 16, 4096, 80);
 all at scale hd**-0.5, each beside ``scaled_dot_product_attention`` at the
-same scale (the rel bias as ``attn_mask``). And the stage probes' kernels
-at the probes' shapes: ``probe_dots_floor`` (P2) on ``packed_probe``'s
+same scale (the rel bias as ``attn_mask``); ``flash_whole`` and
+``flash_rowblock`` also in float32 at the same shapes (the trainer's build),
+beside SDPA in float32. And the stage probes' kernels: ``probe_no_softmax``
+(P1) on 25 windows of the packed qkv, heads read in place, with 14 + 14 rel
+columns, beside two ``torch.bmm`` on the heads split beforehand; and, at
+the probes' shapes, ``probe_dots_floor`` (P2) on ``packed_probe``'s
 unscaled (400, 256, 128) heads beside two ``torch.bmm``;
 ``probe_presplit`` (P3, exp2 and exp) on (400, 256, 128), ``probe_pair``
 (P4, row max and clamp 40) and ``probe_pair_bias`` (P5, the same with raw
@@ -71,6 +75,7 @@ def main(argv=None) -> int:
     wrh, wrw = randn(nw, nh, Lw, ws), randn(nw, nh, Lw, ws)
     n = torch.arange(Lw, device=dev)
     wmask = (wrh[..., n // ws] + wrw[..., n % ws]).contiguous()
+    f32 = [t.float() for t in (wq, wk, wv, wrh, wrw, wmask, q, k, v)]
     win = dict(nh=nh, hd=hd, kh=ws, kw=ws)
     ois = 127.0 / 4.0
     cases = {
@@ -87,7 +92,24 @@ def main(argv=None) -> int:
         "sdpa_whole_norel": lambda: F.scaled_dot_product_attention(wq, wk, wv, scale=scale),
         "flash_rowblock": lambda: fa.flash_attention_relpos(q, k, v, None, None, scale),
         "sdpa_rowblock": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        "flash_whole_f32": lambda: fa.flash_attention_relpos(*f32[:5], scale),
+        "flash_whole_f32_norel": lambda: fa.flash_attention_relpos(*f32[:3], None, None, scale),
+        "sdpa_whole_f32": lambda: F.scaled_dot_product_attention(*f32[:3], attn_mask=f32[5],
+                                                                 scale=scale),
+        "sdpa_whole_f32_norel": lambda: F.scaled_dot_product_attention(*f32[:3], scale=scale),
+        "flash_rowblock_f32": lambda: fa.flash_attention_relpos(*f32[6:], None, None, scale),
+        "sdpa_rowblock_f32": lambda: F.scaled_dot_product_attention(*f32[6:], scale=scale),
     }
+    # P1 on the packed qkv of the windowed stage, 14 + 14 rel columns.
+    prel = (torch.randn((nw, nh, Lw, 2 * ws), generator=gen, device=dev) * 0.05).to(bf)
+    heads = [qkv[..., i * C:(i + 1) * C].reshape(nw, Lw, nh, hd).transpose(1, 2)
+             .reshape(nw * nh, Lw, hd).contiguous() for i in range(3)]
+    cases.update({
+        "probe_no_softmax": lambda: probes.probe_no_softmax(
+            qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], prel, scale, nh=nh, hd=hd),
+        "bmm2_no_softmax": lambda: torch.bmm(torch.bmm(heads[0], heads[1].transpose(1, 2)),
+                                             heads[2]),
+    })
     # The probes' head shapes (hd 80 padded to 128 lanes; random in all 128);
     # P2 takes q unscaled, as tools/packed_probe.py does.
     pq, pk, pv = (randn(400, 256, 128) for _ in range(3))

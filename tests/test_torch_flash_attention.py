@@ -244,18 +244,59 @@ def test_route_matches_jax_dispatch(L, kv, monkeypatch):
 
 
 # The body each route runs: float32 on the CUDA cores (the tensor cores
-# would mean TF32); bfloat16 flash_global on csrc/flash_tc.cuh's, both
-# counters of csrc/flash_attn.cu on the TMA body (csrc/probe_tc.cuh).
-ROUTE_BODY = {"flash_global": tfa.TC_BODY, "flash_whole": tfa.TMA_BODY,
-              "flash_rowblock": tfa.TMA_BODY}
+# would mean TF32), flash_global on attend_rows and both counters of
+# csrc/flash_attn.cu on its register-tiled body; bfloat16 flash_global on
+# csrc/flash_tc.cuh's, both counters of csrc/flash_attn.cu on the TMA body
+# (csrc/probe_tc.cuh).
+ROUTE_BODY = {("flash_global", torch.bfloat16): tfa.TC_BODY,
+              ("flash_whole", torch.bfloat16): tfa.TMA_BODY,
+              ("flash_rowblock", torch.bfloat16): tfa.TMA_BODY,
+              ("flash_global", torch.float32): tfa.ATTEND_ROWS,
+              ("flash_whole", torch.float32): tfa.TILED_F32,
+              ("flash_rowblock", torch.float32): tfa.TILED_F32}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,kv", ROUTE_CASES)
 def test_body_of_each_route(L, kv, dtype):
     name = tfa.route(L, kv)
-    want = ROUTE_BODY[name] if dtype == torch.bfloat16 else tfa.ATTEND_ROWS
-    assert tfa.body(name, dtype) == want
+    assert tfa.body(name, dtype) == ROUTE_BODY[name, dtype]
+
+
+@pytest.mark.parametrize("name", ["flash_whole", "flash_rowblock"])
+def test_head_split_counters_name_their_bodies(name):
+    """csrc/flash_attn.cu's two counters: the register-tiled CUDA-core body
+    in float32, the TMA tensor-core body in bfloat16; the float32 body is
+    neither of the other two."""
+    assert tfa.body(name, torch.float32) == tfa.TILED_F32
+    assert tfa.body(name, torch.bfloat16) == tfa.TMA_BODY
+    assert tfa.TILED_F32 not in (tfa.ATTEND_ROWS, tfa.TMA_BODY, tfa.TC_BODY)
+
+
+@pytest.mark.parametrize("dtype,hd,pad", [(torch.float32, 18, 2), (torch.float32, 80, 0),
+                                          (torch.bfloat16, 20, 4), (torch.bfloat16, 80, 0)])
+def test_row_operands_keep_the_function(dtype, hd, pad):
+    """_build.tma_operands pads hd to whole 16-byte rows (4 float32 or 8
+    bfloat16 values) and copies a tensor that does not start on 16 bytes;
+    the plain version on what it gives, cut to hd, is the plain version on
+    the original operands."""
+    from sam_quantization_tpu_torch.ops import _build
+
+    r = np.random.default_rng(7)
+    L, kv = 49, (7, 7)
+    base = torch.from_numpy(r.standard_normal((3 * 2 * L * hd + 1,)).astype(np.float32)).to(dtype)
+    q, k, v = (base[1 + i * 2 * L * hd:1 + (i + 1) * 2 * L * hd].view(1, 2, L, hd)
+               for i in range(3))  # starts 4 or 2 bytes past a 16-byte boundary
+    rel = [torch.from_numpy(r.standard_normal((1, 2, L, n)).astype(np.float32)).to(dtype)
+           for n in kv]
+    qp, kp, vp = _build.tma_operands(q, k, v)
+    assert qp.shape[-1] == hd + pad and qp.shape[-1] * qp.element_size() % 16 == 0
+    assert all(t.data_ptr() % 16 == 0 for t in (qp, kp, vp))
+    assert torch.equal(qp[..., :hd], q) and not qp[..., hd:].any()
+    out = tfa.flash_attention_plain(qp, kp, vp, *rel, hd**-0.5)[..., :hd]
+    ref = tfa.flash_attention_plain(q, k, v, *rel, hd**-0.5)
+    tol = 1e-6 if dtype == torch.float32 else 2.0**-8
+    assert float((out.float() - ref.float()).abs().max()) <= tol * float(ref.float().abs().max())
 
 
 @pytest.mark.parametrize("rel", [True, False])

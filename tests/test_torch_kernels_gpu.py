@@ -190,7 +190,10 @@ def test_all_below_floor_rows_on_card(cuda, kernel, quant, hd):
 # (tests/test_torch_flash_attention.py::test_route_matches_jax_dispatch holds
 # the port's route against JAX's on the CPU).
 HEAD_SPLIT_CASES = [
+    (1, (1, 1), "flash_whole"), (1, None, "flash_whole"),
+    (63, (7, 9), "flash_whole"), (63, None, "flash_whole"),
     (64, (8, 8), "flash_whole"), (64, None, "flash_whole"),
+    (197, (1, 197), "flash_whole"), (197, None, "flash_whole"),
     (196, (14, 14), "flash_whole"), (196, None, "flash_whole"),
     (512, (16, 32), "flash_whole"), (512, None, "flash_whole"),
     (800, (25, 32), "flash_rowblock"), (800, None, "flash_rowblock"),
@@ -199,12 +202,19 @@ HEAD_SPLIT_CASES = [
 ]
 
 
+# float32 runs csrc/flash_attn.cu's register-tiled body: L 1, 63 and 197
+# leave one row and key group of 16 in use in the last row block and key
+# tile (the (IN, JN) variants), L 196 four rows and keys, L 2500 four of
+# each past 39 whole tiles; hd 64 has no 16-column remainder in p.v, hd 80
+# one. Each case is held to its bound, and the plain version with its last
+# key tile left out of p.v must fail it.
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("L,kv,name", HEAD_SPLIT_CASES)
-def test_head_split_kernel_matches_plain(cuda, dtype, L, kv, name):
+def test_head_split_kernel_matches_plain(cuda, dtype, L, kv, name, hd):
     tdt = DTYPES[dtype][0]
-    nh, hd = 2, 80
+    nh = 2
     q, k, v = (_randn(s, 1, nh, L, hd).to(cuda, tdt) for s in (7, 8, 9))
     rel = (None, None)
     if kv is not None:
@@ -217,10 +227,14 @@ def test_head_split_kernel_matches_plain(cuda, dtype, L, kv, name):
         n: int(n == name) for n in tfa.LAUNCHES}
     assert out.dtype == tdt
     ref = tfa.flash_attention_plain(q, k, v, *rel, hd**-0.5)
+    wrong = tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), *rel, hd**-0.5)
     if dtype == "f32":
         _check(out, ref, dtype, False)
+        with pytest.raises(AssertionError):
+            _check(wrong, ref, dtype, False)
     else:
         _check_hs(out, ref)
+        _hs_fails(wrong, ref)
 
 
 def _last_tile_skipped(v, L):
@@ -339,18 +353,49 @@ def test_whole_all_below_floor_rows_on_card(cuda, hd, rel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rel", [False, True])
+@pytest.mark.parametrize("hd", [80, 18])
+def test_whole_all_below_floor_rows_f32_on_card(cuda, hd, rel):
+    """float32 flash_whole (the register-tiled body) on rows whose logits
+    all lie below the clamp floor, as the bfloat16 case above builds them:
+    every real key gets p = 2^-124 and absent keys none, so each row is the
+    mean of the L = 196 real values (p v lies near the subnormal range, which
+    the float32 FMAs keep). hd 18 also takes the wrapper's padding to 20."""
+    L, ws = 196, 14
+    if rel:
+        q, k = (_randn(s, 1, 2, L, hd).to(cuda) for s in (112, 113))
+        rh, rw = (torch.full((1, 2, L, ws), -50.0, device=cuda) for _ in range(2))
+    else:
+        q = (-(1 + _randn(112, 1, 2, L, hd).abs()) * 8).to(cuda)
+        k = ((1 + _randn(113, 1, 2, L, hd).abs()) * 8).to(cuda)
+        rh = rw = None
+    v = (_randn(114, 1, 2, L, hd).clamp(-1, 1) * 0.2).to(cuda)
+    ref = tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5)
+    mean = v.mean(dim=-2, keepdim=True)
+    assert float((ref - mean).abs().max()) <= 1e-6
+    before = tfa.LAUNCHES["flash_whole"]
+    out = tfa.flash_attention_relpos(q, k, v, rh, rw, hd**-0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_whole"] == before + 1 and out.shape == q.shape
+    _check(out, ref, "f32", False)
+    with pytest.raises(AssertionError):
+        _check(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), rh, rw, hd**-0.5), ref,
+               "f32", False)
+
+
+@pytest.mark.gpu
 def test_head_split_routes_pick_their_body_on_card(cuda, monkeypatch):
     """The wrapper passes the body to csrc/flash_attn.cu: in bfloat16 the TMA
     tensor-core one for both routes (flash_whole since it left the CUDA
-    cores); float32 keeps the CUDA-core flash_attn_kernel in both."""
+    cores); float32 the register-tiled CUDA-core one in both."""
     from sam_quantization_tpu_torch.ops import _build
 
     seen, launch = [], _build.launch
     monkeypatch.setattr(_build, "launch", lambda name, *a: (seen.append((name, a[2])),
                                                             launch(name, *a))[1])
-    for L, dtype, body in ((196, torch.float32, tfa.ATTEND_ROWS),
+    for L, dtype, body in ((196, torch.float32, tfa.TILED_F32),
                            (196, torch.bfloat16, tfa.TMA_BODY),
-                           (1000, torch.float32, tfa.ATTEND_ROWS),
+                           (1000, torch.float32, tfa.TILED_F32),
                            (1000, torch.bfloat16, tfa.TMA_BODY)):
         q = _randn(88, 1, 2, L, 80).to(cuda, dtype)
         tfa.flash_attention_relpos(q, q, q, None, None, 0.125)
@@ -732,18 +777,32 @@ def test_a8_groups_below_the_k_step_on_card(cuda, dtype, sym, bits, M, K, N, g):
 
 
 
+# P1 on csrc/probe_tc.cuh's AUG policy: heads read in place from slices of
+# a packed qkv through 4D tensor maps (hd 64, 80, 128; hd 16 and L 25 the
+# smallest), rel widths that are not multiples of 8 (R 28, 14, 100: padded
+# to 32, 16, 104; one and two rel atoms), L 196 = 3 x 64 + 4, 64 (one whole
+# key tile), 65 (one key past it) and 300 (three row blocks); hd 20 and a
+# qkv that starts 4 bytes past a 16-byte boundary take the wrapper's copy.
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,hd,ws", [(3, 80, 14), (4, 16, 5)])
-def test_probe_no_softmax_kernel_matches_plain(cuda, nh, hd, ws):
-    NW, L, C = 3, ws * ws, nh * hd
-    qkv = _randn(60, NW, L, 3 * C).to(cuda, torch.bfloat16)
-    rel = (_randn(61, NW, nh, L, 2 * ws) * 0.3).to(cuda, torch.bfloat16)
+@pytest.mark.parametrize("nh,hd,L,R,offset", [
+    (3, 80, 196, 28, 0), (4, 16, 25, 10, 0), (2, 64, 64, 14, 0), (2, 128, 65, 100, 0),
+    (2, 80, 300, 28, 0), (2, 80, 196, 100, 0), (3, 64, 196, 14, 2), (2, 20, 196, 28, 0)])
+def test_probe_no_softmax_kernel_matches_plain(cuda, nh, hd, L, R, offset):
+    NW, C = 3, nh * hd
+    flat = _randn(60, NW * L * 3 * C + offset).to(cuda, torch.bfloat16)
+    qkv = flat[offset:].view(NW, L, 3 * C)
+    rel = (_randn(61, NW, nh, L, R) * 0.3).to(cuda, torch.bfloat16)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]  # read in place
     before = tpr.LAUNCHES["probe_no_softmax"]
     out = tpr.probe_no_softmax(q, k, v, rel, hd**-0.5, nh=nh, hd=hd)
     torch.cuda.synchronize()
     assert tpr.LAUNCHES["probe_no_softmax"] == before + 1 and out.dtype == torch.bfloat16
-    _check_hs(out, tpr.probe_no_softmax_plain(q, k, v, rel, hd**-0.5, nh=nh, hd=hd))
+    assert out.shape == (NW, L, C)
+    ref = tpr.probe_no_softmax_plain(q, k, v, rel, hd**-0.5, nh=nh, hd=hd)
+    _check_hs(out, ref)
+    v_skip = v.clone()
+    v_skip[:, L - (L % 64 or 64):] = 0  # the last key tile left out of p.v
+    _hs_fails(tpr.probe_no_softmax_plain(q, k, v_skip, rel, hd**-0.5, nh=nh, hd=hd), ref)
 
 
 PROBE_HEADS = [  # name, call on (q, k, v, rh, rw)

@@ -111,6 +111,39 @@ def test_no_softmax_plain_matches_tpu_kernel(dtype):
     assert torch.equal(sliced, out)
 
 
+# P1's operands as csrc/probe_packed.cu's TMA copies take them
+# (probes.aug_operands): heads read in place from the packed qkv where hd, the
+# strides and the starts allow it (hd 16, 80); else copied with each head
+# zero-padded to a multiple of 8 (hd 20; hd 16 starting 2 bytes past a
+# 16-byte boundary); rel padded to R' = round_up(R, 8) (R 28, 14, 100; 32
+# needs none). The plain version on what it gives, cut to hd, is the plain
+# version on the operands as they were.
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd,R,offset,in_place", [(16, 28, 0, True), (80, 14, 0, True),
+                                                  (20, 100, 0, False), (16, 32, 1, False)])
+def test_aug_operands_keep_the_function(dtype, hd, R, offset, in_place):
+    _, tdt = DTYPES[dtype]
+    r = np.random.default_rng(3)
+    CH = NH * hd
+    flat = torch.from_numpy(r.standard_normal(NW * L * 3 * CH + offset).astype(np.float32)).to(tdt)
+    qkv = flat[offset:].view(NW, L, 3 * CH)
+    q, k, v = qkv[..., :CH], qkv[..., CH:2 * CH], qkv[..., 2 * CH:]
+    rel = torch.from_numpy((r.standard_normal((NW, NH, L, R)) * 0.3).astype(np.float32)).to(tdt)
+    qa, ka, va, rela, hdk = probes.aug_operands(q, k, v, rel, nh=NH, hd=hd)
+    if tdt == torch.bfloat16:  # the layout the kernel's TMA copies take
+        assert hdk % 8 == 0 and qa.stride(0) % 8 == 0 and qa.stride(1) % 8 == 0
+        assert all(t.data_ptr() % 16 == 0 for t in (qa, ka, va, rela))
+        assert rela.shape[-1] == R + -R % 8 and not rela[..., R:].any()
+        assert (qa.data_ptr() == q.data_ptr()) == in_place
+    assert torch.equal(rela[..., :R], rel) and ka.stride() == qa.stride() == va.stride()
+    assert torch.equal(qa.reshape(NW, L, NH, hdk)[..., :hd], q.reshape(NW, L, NH, hd))
+    assert hdk == hd or not qa.reshape(NW, L, NH, hdk)[..., hd:].any()
+    out = probes.probe_no_softmax_plain(qa, ka, va, rela, hd**-0.5, nh=NH, hd=hdk)
+    out = out.reshape(NW, L, NH, hdk)[..., :hd].reshape(NW, L, CH)
+    ref = probes.probe_no_softmax_plain(q, k, v, rel, hd**-0.5, nh=NH, hd=hd)
+    _close(out, ref.float().numpy(), dtype)
+
+
 def _presplit_operands(seed, dtype, rows=L, d=HD, padded=True):
     """Heads of ``rows`` rows and ``d`` columns, split and, as the probe's
     ``presplit_prep`` lays them out, zero-padded to (NW, nh, Lp, 128)."""
