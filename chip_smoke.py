@@ -70,7 +70,17 @@ Run from the repository root on a machine with one CUDA card. It
 11. the two stage probes (``tools/packed_probe``, ``tools/global_stage_probe``)
     run once at ViT-H: the only path of the five probe kernels (P1-P5), whose
     launch counts are read around it;
-12. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
+12. click-loop evaluation (``evaluation/``): the main-path gate, the
+    committed ``checkpoints/vit_tiny_synth`` in float32 through the kernels,
+    24 scenes x 5 clicks (click seed 123, literal layout) against
+    CROSSVAL.json's ``jax_mean_ious`` within 1e-3 (48 ``flash_windowed`` and
+    48 ``flash_whole`` launches), with the port's C++ host runtime loaded;
+    then ViT-H (bf16 encoder, dense) through ``click_loop_eval`` on 3 seeded
+    1024 scenes x 5 clicks (28/4 flash launches a scene, IoUs in [0, 1],
+    every click in the error region of the mask before it; encode and
+    per-click ms) and ``noc_eval`` to 3 clicks, and one flip-TTA
+    ``SamEvalPredictor`` (2 clicks, 3 ``set_image``);
+13. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
     ``flash_train`` against eager on the same weights and click, then
     training steps with 11 clicks and AdamW (exactly 28 ``flash_whole``
     launches and no other kernel per step, finite losses, parameters that
@@ -189,6 +199,14 @@ PROBE_ITERS = 3  # --iters of the probe drivers' run
 PROBE_CASES = {"probe_no_softmax": 1, "probe_dots_floor": 1, "probe_presplit": 1,
                "probe_pair": 2, "probe_pair_bias": 2}
 PROBE_LAUNCHES = {name: n * (1 + 3 * PROBE_ITERS) for name, n in PROBE_CASES.items()}
+# The click-loop gate (ROADMAP's North star): vit_tiny_synth's per-click mean
+# IoU over CROSSVAL.json's 24 scenes x 5 clicks (click seed 123, literal
+# layout) within GATE_TOL of its jax_mean_ious; vit_tiny runs 2 windowed
+# blocks (flash_windowed) and 2 global ones of 64 tokens (flash_whole) an image.
+GATE_TOL = 1e-3
+GATE_SCENES, GATE_CLICKS, GATE_SEED = 24, 5, 123
+TINY_LAUNCHES = {"flash_windowed": 2, "flash_whole": 2}  # per vit_tiny encode
+EVAL_SCENES, EVAL_CLICKS, NOC_CLICKS = 3, 5, 3  # the ViT-H click loop, NoC and TTA
 FAILURES = []
 
 
@@ -311,7 +329,11 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as TF
 
+    from sam_quantization_tpu_torch import native
     from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.evaluation import click_eval
+    from sam_quantization_tpu_torch.evaluation.clicker import Clicker
+    from sam_quantization_tpu_torch.evaluation.predictors import SamEvalPredictor
     from sam_quantization_tpu_torch.models import build_sam, configs
     from sam_quantization_tpu_torch.models import sam as sam_lib
     from sam_quantization_tpu_torch.models.image_encoder import BLOCK_LINEARS
@@ -1311,6 +1333,117 @@ def main() -> int:
         for name in ps.LAUNCHES:
             launches[name] = got[name]
         torch.cuda.empty_cache()
+
+        # ------------------------------------------------------- click loop
+        # (a) The main-path gate through the kernels: vit_tiny_synth (best)
+        # in float32 on the card, the scenes of tools/cross_validate_harness.py
+        # (synthetic_samples(24, 128, seed=9999), normalised once in numpy).
+        phase_t = time.perf_counter()
+        lib = native.get_lib()
+        check(lib is not None, f"host runtime (csrc/host_runtime.cpp) built and loaded: "
+                               f"{native.library_path().name}")
+        repo = pathlib.Path(__file__).resolve().parent
+        crossval = json.loads((repo / "CROSSVAL.json").read_text())
+        tiny = build_sam.sam_model_registry["vit_tiny"](device="cuda")
+        ckpt_lib.load_weights(str(repo / "checkpoints" / "vit_tiny_synth"), tiny, "best")
+
+        def normalised(model, scenes):
+            mean = np.asarray(model.config.pixel_mean, np.float32)
+            std = np.asarray(model.config.pixel_std, np.float32)
+            return [(((img - mean) / std).astype(np.float32), gt) for img, gt in scenes]
+
+        scenes = normalised(tiny, synthetic_samples(GATE_SCENES, 128, seed=9999))
+        reset_counts()
+        t = time.perf_counter()
+        res = click_eval.click_loop_eval(*click_eval.make_sam_backend(tiny), scenes,
+                                         num_clicks=GATE_CLICKS, img_size=128, seed=GATE_SEED)
+        gate_s = time.perf_counter() - t
+        got, want = counts(), crossval["jax_mean_ious"]
+        gap = max(abs(a - b) for a, b in zip(res.mean_ious, want))
+        print("click loop vit_tiny_synth on the card: " + " / ".join(f"{v:.5f}" for v in
+              res.mean_ious) + "; CROSSVAL.json jax_mean_ious: " + " / ".join(map(str, want)))
+        check(len(res.mean_ious) == len(want) and gap <= GATE_TOL,
+              f"main-path gate: {GATE_SCENES} scenes x {GATE_CLICKS} clicks, max gap {gap:.2e} "
+              f"(<= {GATE_TOL}), {gate_s:.2f} s")
+        want_launches = {**zero, **{k: n * GATE_SCENES for k, n in TINY_LAUNCHES.items()}}
+        check(got == want_launches, f"main-path gate: launches "
+                                    f"{ {k: n for k, n in got.items() if n} }")
+        del tiny, scenes
+
+        # (b) The same loop at full width: seeded ViT-H, bf16 encoder, dense,
+        # on 1024 scenes. The IoUs of random weights mean nothing; each click
+        # must land in the error region of the mask before it.
+        model = vit_h()
+        model.image_encoder.to(torch.bfloat16)
+        scenes = normalised(model, synthetic_samples(EVAL_SCENES, 1024, seed=11))
+        encode, decode = click_eval.make_sam_backend(model)
+        encode_ms, click_ms = [], []
+
+        def timed(fn, sink):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        click_eval.click_loop_eval(encode, decode, scenes[:1], num_clicks=1, img_size=1024)  # warm-up
+        reset_counts()
+        click_eval.click_loop_eval(encode, decode, scenes[:1], num_clicks=EVAL_CLICKS, img_size=1024)
+        got = counts()
+        check(got == flash_launches, f"ViT-H click loop, one scene: launches "
+                                     f"{ {k: n for k, n in got.items() if n} }")
+        res = click_eval.click_loop_eval(timed(encode, encode_ms), timed(decode, click_ms), scenes,
+                                         num_clicks=EVAL_CLICKS, img_size=1024,
+                                         record_low_res=True)
+        ious = np.asarray(res.per_sample_ious)
+        in_error = []
+        for (_, gt), clicks, lows in zip(scenes, res.clicks, res.low_res):
+            prev = np.zeros(gt.shape, bool)
+            for (y, x, label), low in zip(clicks, lows):
+                error = (gt > 0) & ~prev if label == 1 else ~(gt > 0) & prev
+                in_error.append(bool(error[y, x]) or not error.any())
+                up = sam_lib.resize_bilinear(torch.from_numpy(low).to(dev), (1024, 1024))
+                prev = (up[0, 0] > 0).cpu().numpy()
+        check(ious.shape == (EVAL_SCENES, EVAL_CLICKS) and bool(((ious >= 0) & (ious <= 1)).all())
+              and all(in_error),
+              f"ViT-H bf16 click loop: {EVAL_SCENES} scenes x {EVAL_CLICKS} clicks, IoUs in "
+              f"[0, 1] ({ious.min():.3f} to {ious.max():.3f}), {sum(in_error)}/{len(in_error)} "
+              f"clicks in the error region")
+        for what, ms in (("encode (the loop's set_image)", encode_ms),
+                         ("click (decode + upsample)", click_ms)):
+            ms = sorted(ms)
+            print(f"ViT-H bf16 click loop {what}: median {ms[len(ms) // 2]:.2f} ms, min "
+                  f"{ms[0]:.2f}, max {ms[-1]:.2f} over {len(ms)}; {res.seconds_per_image:.3f} s "
+                  f"per scene  [{card}]")
+        noc, over, spc = click_eval.noc_eval(encode, decode, scenes, max_clicks=NOC_CLICKS,
+                                             img_size=1024)
+        check(all(1 <= v <= NOC_CLICKS + 1 for v in noc) and all(0 <= v <= EVAL_SCENES for v in over),
+              f"ViT-H bf16 noc_eval, max {NOC_CLICKS} clicks: NoC@80/85/90 {noc}, over {over}, "
+              f"{spc:.3f} s per scene")
+
+        # (c) One flip-TTA predictor on one ViT-H scene: set_image of the
+        # image, then of its mirror at every click.
+        image, gt = next(synthetic_samples(1, 1024, seed=11))
+        eval_pred = SamEvalPredictor(SamPredictor(model), with_flip=True)
+        reset_counts()
+        eval_pred.set_input_image(image[0].astype(np.uint8))
+        clicker, pred = Clicker(gt_mask=gt), np.zeros(gt.shape, bool)
+        for _ in range(2):
+            clicker.make_next_click(pred)
+            prob = eval_pred.get_prediction(clicker)
+            pred = prob > 0.5
+        got = counts()
+        check(prob.shape == gt.shape and bool(np.isfinite(prob).all())
+              and bool(((prob >= 0) & (prob <= 1)).all())
+              and got == {k: 3 * n for k, n in flash_launches.items()},
+              f"ViT-H bf16 flip-TTA predictor, 2 clicks: probabilities in [0, 1], launches "
+              f"{ {k: n for k, n in got.items() if n} } (3 set_image)")
+        del model, eval_pred, encode, decode
+        torch.cuda.empty_cache()
+        print(f"click-loop phase: {time.perf_counter() - phase_t:.1f} s")
 
     # ----------------------------------------------------------------- training
     # ViT-H fine-tuning in float32 on seeded easy scenes at 1024, batch 1,

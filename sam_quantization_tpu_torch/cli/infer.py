@@ -1,10 +1,13 @@
-"""Quantized-inference CLI: load a packed encoder artifact, time the encoder.
+"""Quantized-inference CLI: load a packed encoder artifact, time the encoder,
+run the click-loop evaluation.
 
 Counterpart of ``sam_quantization_tpu/cli/infer.py`` (the ``--load``,
-``--serve-int8`` and ``--benchmark`` parts). Serve an artifact written by
-the JAX package's ``cli/quantize``::
+``--serve-int8``, ``--benchmark`` and ``--eval`` parts). Serve an artifact
+written by the JAX package's ``cli/quantize``::
 
     python -m sam_quantization_tpu_torch.cli.infer vit_h --load DIR --benchmark
+    python -m sam_quantization_tpu_torch.cli.infer vit_tiny \
+        --checkpoint checkpoints/vit_tiny_synth --eval --num-samples 24
 
 An artifact whose layers store ``act_bits: 8`` (written from
 ``with_act_bits(params, 8)``) serves through the W-A8 kernels; weight-only
@@ -12,16 +15,21 @@ ones through the dequant-matmul kernels. ``--serve-int8`` serves a
 symmetric ``gptq``/``rtn`` artifact in the cached-int8 mode: its layers
 become ``IntLinear`` (``cache_int8`` with ``default_serve_skip``), with the
 static activation scales of its ``quant_config.json`` (``cli/quantize
---sym --act-scales``) where it has them. The encoder is timed in bfloat16
-on a zero image, like the JAX CLI's
-benchmark, with ``torch.cuda.synchronize()`` around the timed loop; the
-result is one JSON line with ``encoder_s_per_image`` and
-``encoder_images_per_s``.
+--sym --act-scales``) where it has them.
+
+``--eval`` runs the 5-click random-click loop (``click_loop_eval``) on
+``--num-samples`` seeded synthetic scenes, or on the SBD val split at
+``--sbd-dir``, with the encoder in the dtype of its weights (float32), and
+adds ``mean_iou_per_click``, ``click@1`` and ``click@N`` to the JSON line.
+``--benchmark`` then times the encoder in bfloat16 on a zero image, like the
+JAX CLI's benchmark, with ``torch.cuda.synchronize()`` around the timed
+loop, and adds ``encoder_s_per_image`` and ``encoder_images_per_s``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -30,8 +38,6 @@ import time
 def main(argv=None):
     p = argparse.ArgumentParser("samq-infer")
     p.add_argument("model", choices=["vit_b", "vit_l", "vit_h", "vit_tiny"])
-    p.add_argument("--checkpoint", default=None, help="FP .pth checkpoint")
-    p.add_argument("--load", default=None, help="quantized artifact dir")
     p.add_argument(
         "--serve-int8", action="store_true",
         help="serve a symmetric gptq/rtn artifact from cached int8 weights with the "
@@ -40,26 +46,28 @@ def main(argv=None):
     p.add_argument("--benchmark", action="store_true")
     p.add_argument("--bench-iters", type=int, default=100)
     p.add_argument("--bench-warmup", type=int, default=25)
+    p.add_argument("--eval", action="store_true", help="run the click-loop evaluation")
+    p.add_argument("--num-clicks", type=int, default=5)
+    p.add_argument("--num-samples", type=int, default=20)
+    p.add_argument("--sbd-dir", default=None, help="SBD root; synthetic scenes without it")
     p.add_argument("--seed", type=int, default=42,
-                   help="seed of the random weights when no --checkpoint is given")
-    from sam_quantization_tpu_torch.cli import add_platform_arg, device_of
+                   help="seed of the random weights when no --checkpoint is given, of the "
+                   "synthetic scenes and of the clicks")
+    from sam_quantization_tpu_torch.cli import (
+        add_model_args, add_platform_arg, build_model, device_of,
+    )
 
+    add_model_args(p)
     add_platform_arg(p)
     args = p.parse_args(argv)
 
     import torch
 
-    from sam_quantization_tpu_torch.models import build_sam
     from sam_quantization_tpu_torch.models import sam as sam_lib
-    from sam_quantization_tpu_torch.quant import artifacts
 
     device = device_of(args)
-    model = build_sam.sam_model_registry[args.model](
-        checkpoint=args.checkpoint, device=device, seed=args.seed
-    )
+    model, qcfg = build_model(args, device, seed=args.seed)
     if args.load:
-        enc, qcfg = artifacts.load_quantized(args.load)
-        build_sam.load_jax_encoder(model, enc)
         print(f"loaded quantized encoder: {qcfg.get('method')}", file=sys.stderr)
         if args.serve_int8:
             if qcfg.get("method") not in ("gptq", "rtn") or not qcfg.get("sym"):
@@ -77,6 +85,8 @@ def main(argv=None):
                       file=sys.stderr)
 
     out = {}
+    if args.eval:
+        out.update(_click_eval(args, model))
     if args.benchmark:
         size = model.config.image_encoder.img_size
         model.image_encoder.to(torch.bfloat16)  # packed scales stay float32
@@ -95,6 +105,31 @@ def main(argv=None):
         out["encoder_images_per_s"] = round(1.0 / dt, 3)
     print(json.dumps(out))
     return 0
+
+
+def _click_eval(args, model) -> dict:
+    """The click loop on synthetic scenes or the SBD val split (images fed
+    to the encoder as the JAX CLI feeds them)."""
+    from sam_quantization_tpu_torch.data.datasets import SBDDataset, preprocess_for_eval
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.evaluation import click_eval
+
+    size = model.config.image_encoder.img_size
+    if args.sbd_dir:
+        ds = SBDDataset(args.sbd_dir, split="val", max_samples=args.num_samples)
+        items = itertools.islice(ds.eval_items(), args.num_samples)
+        samples = (preprocess_for_eval(img, gt, size) for img, gt, _ in items)
+    else:
+        samples = synthetic_samples(args.num_samples, size, args.seed)
+    encode, decode = click_eval.make_sam_backend(model)
+    res = click_eval.click_loop_eval(encode, decode, samples, num_clicks=args.num_clicks,
+                                     img_size=size, seed=args.seed)
+    return {
+        "mean_iou_per_click": [round(float(v), 4) for v in res.mean_ious],
+        "click@1": round(float(res.click1), 4),
+        f"click@{args.num_clicks}": round(float(res.final), 4),
+        "s_per_image": round(res.seconds_per_image, 3),
+    }
 
 
 if __name__ == "__main__":

@@ -128,7 +128,7 @@ def load_quantized(directory: str) -> Tuple[Any, Dict[str, Any]]:
     if cfg.get("method") == "fq":
         raise NotImplementedError(
             "FQ-ViT artifacts (method 'fq') need the fake-quant context, which comes "
-            "with the FQ-ViT slice (ROADMAP Queue 1 item 9)"
+            "with the FQ-ViT slice (ROADMAP, Queue 1, 'FQ-ViT')"
         )
     with open(os.path.join(directory, "structure.json")) as f:
         meta = json.load(f)

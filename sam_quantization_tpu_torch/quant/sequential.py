@@ -3,7 +3,7 @@
 Counterpart of ``rtn_quantize_encoder`` in
 ``sam_quantization_tpu/quant/sequential.py`` (:230-249) and of the
 ``GPTQConfig`` fields it reads. The GPTQ solver, its calibration loop and the
-per-layer overrides are not ported yet (ROADMAP Queue 1 item 8).
+per-layer overrides are not ported yet (ROADMAP, Queue 1, "GPTQ pipeline").
 """
 
 from __future__ import annotations

@@ -107,16 +107,36 @@ def save_checkpoint(
         json.dump({"epoch": epoch, **(extras or {})}, f)
 
 
+def _load_model_leaves(data, model: sam_lib.Sam) -> int:
+    """Copy the ``m*`` leaves of a loaded npz into ``model``; returns their count."""
+    n_m = sum(1 for k in data.files if k.startswith("m"))
+    sd = _from_jax_leaves((data[f"m{i}"] for i in range(n_m)), model)
+    with torch.no_grad():
+        model.load_state_dict(sd, strict=True)
+    return n_m
+
+
+def _epoch(directory: str, name: str) -> int:
+    with open(os.path.join(directory, f"sam_model_{name}.json")) as f:
+        return json.load(f)["epoch"]
+
+
+def load_weights(directory: str, model: sam_lib.Sam, name: str = "latest") -> int:
+    """Restore only the model's weights from a checkpoint written by either
+    package, as evaluation needs (the optimizer state is not read); returns
+    the stored epoch."""
+    with np.load(os.path.join(directory, f"sam_model_{name}.npz")) as data:
+        _load_model_leaves(data, model)
+    return _epoch(directory, name)
+
+
 def load_checkpoint(
     directory: str, model: sam_lib.Sam, optimizer: torch.optim.Optimizer, name: str = "latest"
 ) -> int:
     """Restore the model's weights and the AdamW state from a checkpoint
     written by either package; returns the stored epoch."""
     data = np.load(os.path.join(directory, f"sam_model_{name}.npz"))
-    n_m = sum(1 for k in data.files if k.startswith("m"))
-    sd = _from_jax_leaves((data[f"m{i}"] for i in range(n_m)), model)
-    with torch.no_grad():
-        model.load_state_dict(sd, strict=True)
+    n_m = _load_model_leaves(data, model)
     n = sum(1 for k in data.files if k.startswith("o")) - 1
     if n != 2 * n_m:
         raise ValueError(f"optimizer state of {n + 1} leaves does not fit {n_m} parameters")
@@ -130,5 +150,4 @@ def load_checkpoint(
         for i, (n, _) in enumerate(named)
     }
     optimizer.load_state_dict(state)
-    with open(os.path.join(directory, f"sam_model_{name}.json")) as f:
-        return json.load(f)["epoch"]
+    return _epoch(directory, name)

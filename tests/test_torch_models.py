@@ -356,8 +356,11 @@ def test_port_imports_no_jax():
                    "quant/artifacts.py", "quant/sequential.py", "cli/infer.py",
                    "train/trainer.py", "train/checkpoint.py", "cli/train.py",
                    "data/synthetic.py", "utils/experiment.py", "quant/act_scales.py",
-                   "ops/probes.py", "tools/packed_probe.py", "tools/global_stage_probe.py"):
+                   "ops/probes.py", "tools/packed_probe.py", "tools/global_stage_probe.py",
+                   "native.py", "evaluation/metrics.py", "evaluation/clicker.py",
+                   "evaluation/click_eval.py", "evaluation/predictors.py", "data/datasets.py",
+                   "utils/config.py", "cli/evaluate.py"):
         assert REPO / "sam_quantization_tpu_torch" / module in files, module
     for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu",
-                "probe_packed.cu", "probe_heads.cu"):
+                "probe_packed.cu", "probe_heads.cu", "host_runtime.cpp"):
         assert os.path.exists(REPO / "sam_quantization_tpu_torch" / "csrc" / src), src
