@@ -86,7 +86,16 @@ Run from the repository root on a machine with one CUDA card. It
     launches and no other kernel per step, finite losses, parameters that
     move, step times and peak memory, one profiled step), and a checkpoint
     save/load round trip in the JAX trainer's format from the card, bit for
-    bit (on a vit_tiny trained two steps there).
+    bit (on a vit_tiny trained two steps there);
+14. GPTQ (``quant/gptq.py``, ``quant/sequential.py``, ``cli/quantize.py``):
+    the solver on the card against the same solver on the CPU at ViT-H's
+    lin2 and qkv widths (W4 g128; share of equal grid values, largest step,
+    loss gap); then ``cli.quantize`` GPTQ W4 g128 of the seeded ViT-H on the
+    card (2 synthetic 1024 scenes; seconds, the column loop's share, the
+    128 losses), its artifact loaded as ``cli.infer --load`` loads it and
+    served in float32 and bfloat16 with W4's exact launch counts and held
+    against its dequantized dense model; the GPTQ and RTN encoders' errors
+    on a held-out scene are printed as a reading.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -96,8 +105,11 @@ check fails.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import pathlib
@@ -207,6 +219,13 @@ GATE_TOL = 1e-3
 GATE_SCENES, GATE_CLICKS, GATE_SEED = 24, 5, 123
 TINY_LAUNCHES = {"flash_windowed": 2, "flash_whole": 2}  # per vit_tiny encode
 EVAL_SCENES, EVAL_CLICKS, NOC_CLICKS = 3, 5, 3  # the ViT-H click loop, NoC and TTA
+# GPTQ solver on the card against the same solver on the CPU, for the same
+# W and H. The solver takes its library-ordered sums (Cholesky chain, block
+# tails) in float64 and rounds once, so the two devices compute the same
+# grid unless a float64 difference straddles a float32 rounding point; the
+# error fed forward from a flipped weight can move later ones by a step.
+GPTQ_SHARE = 0.999  # least share of equal grid values
+GPTQ_LOSS_REL = 1e-3
 FAILURES = []
 
 
@@ -318,6 +337,166 @@ def print_device_profile(what: str, fn, ranges=()) -> dict:
     for ms, count, key in rows[:10]:
         print(f"  {ms:9.3f} ms {count:5d}x  {key[:100]}")
     return spent
+
+
+def gptq_solver_phase(dev, card: str) -> None:
+    """GPTQ (a): ``gptq_quantize_matrix`` on the card against the same solver
+    on the CPU, W4 g128 asymmetric, at ViT-H's lin2 (N 1280, K 5120) and qkv
+    (N 3840, K 1280). The weights and the rows are seeded numpy; the rows
+    are mixed by a random K x K map, so that H has off-diagonal mass and the
+    error feedback matters. H = (2 / B) Σ xᵀx over B = 2 batches of 4096
+    rows is taken once on the card, and both solvers get it."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.quant import gptq as gptq_lib
+
+    for name, N, K in (("lin2", 1280, 5120), ("qkv", 3840, 1280)):
+        r = np.random.default_rng(21)
+        w = torch.from_numpy(r.standard_normal((N, K), dtype=np.float32) * 0.02)
+        mix = torch.from_numpy(r.standard_normal((K, K), dtype=np.float32) / math.sqrt(K)).to(dev)
+        h = torch.zeros((K, K), device=dev)
+        for _ in range(2):
+            z = torch.from_numpy(r.standard_normal((4096, K), dtype=np.float32)).to(dev)
+            xb = z + z @ mix
+            h += xb.t() @ xb
+        h *= 2.0 / 2
+        kw = dict(bits=4, groupsize=128)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gptq_lib._prepare_hinv(h, 0.01)
+        torch.cuda.synchronize()
+        hinv_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_card = gptq_lib.gptq_quantize_matrix(w.to(dev), h, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_cpu = gptq_lib.gptq_quantize_matrix(w, h.cpu(), **kw)
+        cpu_s = time.perf_counter() - t
+        qg, qc = on_card.q_int.cpu(), on_cpu.q_int
+        share = float((qg == qc).double().mean())
+        dq = int((qg - qc).abs().max())
+        lg, lc = float(on_card.loss), float(on_cpu.loss)
+        rel = abs(lg - lc) / abs(lc)
+        check(share >= GPTQ_SHARE and dq <= 1 and rel <= GPTQ_LOSS_REL,
+              f"GPTQ solver {name} (N {N}, K {K}) W4 g128, card vs CPU: q_int equal on "
+              f"{share:.6%} (>= {GPTQ_SHARE:.1%}), max|dq| {dq} (<= 1), loss {lg:.6g} vs "
+              f"{lc:.6g} (rel {rel:.2e} <= {GPTQ_LOSS_REL}); card {card_s:.2f} s (H⁻¹ "
+              f"{hinv_s:.3f} s, the column loop and block tails the rest), CPU {cpu_s:.2f} s  "
+              f"[{card}]")
+
+
+def gptq_encoder_phase(dev, card: str, name: str, build, image, launches: dict,
+                       reset_counts, counts, workdir: pathlib.Path) -> None:
+    """GPTQ (b): ``cli.quantize`` GPTQ W4 g128 of the seeded model that
+    ``build()`` returns (saved as a SAM ``.pth`` for ``--checkpoint``; 2
+    synthetic calibration scenes), loaded as ``cli.infer --load`` loads it
+    and served on ``image`` in float32 and bfloat16 with exactly
+    ``launches``; its embedding held against the dense model of its
+    dequantized weights (W4_F32_TOL, BF16_TOL); and, as a reading only, the
+    encoder's rel. error of GPTQ and of RTN W4 against the float32 model on
+    a held-out scene."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.cli import build_model
+    from sam_quantization_tpu_torch.cli import quantize as quantize_cli
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import gptq as gptq_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
+
+    phase_t = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    model = build()
+    pth = workdir / f"{name}_seeded.pth"
+    torch.save(model.state_dict(), pth)
+    size, depth = model.config.image_encoder.img_size, model.config.image_encoder.depth
+    x = torch.randn((1, size, size, 3), generator=torch.Generator(device=dev).manual_seed(31),
+                    device=dev)
+    scene = next(synthetic_samples(1, size, seed=7))[0]  # held out: calibration uses seed 0
+    held_out = sam_lib.preprocess(model, torch.from_numpy(scene).to(dev))
+    with torch.no_grad():
+        fp_out = model.image_encoder(held_out, "eager").float()
+        rtn = seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=4, groupsize=128))
+        rtn_err = float((rtn(held_out, "eager").float() - fp_out).norm() / fp_out.norm())
+    del model, rtn
+
+    # The solver's time, and of it the Cholesky chain's; the rest of the
+    # solver is the column loop (with the block tails and the group grids).
+    spent = {"solver": 0.0, "hinv": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    art = workdir / "gptq_w4g128"
+    argv = [name, "--checkpoint", str(pth), "--nsamples", "2", "--wbits", "4", "--groupsize",
+            "128", "--save", str(art)]
+    solve, hinv = gptq_lib.gptq_quantize_matrix, gptq_lib._prepare_hinv
+    gptq_lib.gptq_quantize_matrix, gptq_lib._prepare_hinv = timed(solve, "solver"), timed(hinv, "hinv")
+    out = io.StringIO()
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = quantize_cli.main(argv)
+        quant_s = time.perf_counter() - t
+    finally:
+        gptq_lib.gptq_quantize_matrix, gptq_lib._prepare_hinv = solve, hinv
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(art / "quant_config.json") as f:
+        losses = json.load(f)["losses"]
+    loop_s = spent["solver"] - spent["hinv"]
+    check(rc == 0 and last["status"] == "ok" and len(losses) == 4 * depth
+          and all(math.isfinite(v) for v in losses.values()),
+          f"cli.quantize {name} GPTQ W4 g128 on the card: {quant_s:.1f} s (cli {last['elapsed_s']} s); "
+          f"solver {spent['solver']:.1f} s: H⁻¹ {spent['hinv']:.1f} s, column loop {loop_s:.1f} s "
+          f"({loop_s / quant_s:.1%} of the run); {len(losses)} losses, all finite, "
+          f"{min(losses.values()):.4g} to {max(losses.values()):.4g}  [{card}]")
+
+    # Loaded as cli.infer --load loads it: the dense rest from the .pth, the
+    # packed encoder from the artifact.
+    qmodel, _ = build_model(argparse.Namespace(model=name, checkpoint=str(pth), ckpt_name="best",
+                                               load=str(art)), dev)
+    h, w = image.shape[:2]
+    with torch.no_grad():
+        ref = packed_lib.dense_copy(qmodel.image_encoder)(x, "eager").float()
+        gptq_out = qmodel.image_encoder(held_out, "eager").float()
+        for dtype, tol in ((torch.float32, W4_F32_TOL), (torch.bfloat16, BF16_TOL)):
+            tag = str(dtype).split(".")[1]
+            qmodel.image_encoder.to(dtype)
+            predictor = SamPredictor(qmodel)
+            reset_counts()
+            predictor.set_image(image)
+            masks, iou, low = predictor.predict(np.array([[w / 2, h / 2]]), np.array([1.0]))
+            torch.cuda.synchronize()
+            got = counts()
+            check(got == launches and masks.shape == (3, h, w) and np.isfinite(iou).all()
+                  and np.isfinite(low).all(),
+                  f"GPTQ W4 {name} served {tag} ({h}x{w}, one click): launches "
+                  f"{ {k: v for k, v in got.items() if v} }, masks {masks.shape}, finite")
+            e = sam_lib.encode_image(qmodel, x.to(dtype), "kernel").float()
+            rel_err = float((e - ref).norm() / ref.norm())
+            check(bool(torch.isfinite(e).all()) and rel_err <= tol,
+                  f"GPTQ W4 {name} encode {tag} vs dequantized dense float32 eager: rel L2 "
+                  f"{rel_err:.3e} (<= {tol})")
+    gptq_err = float((gptq_out - fp_out).norm() / fp_out.norm())
+    print(f"GPTQ W4 g128 {name}, held-out scene, encoder rel. L2 vs float32 (random weights, "
+          f"a reading): GPTQ {gptq_err:.4e}, RTN {rtn_err:.4e}")
+    del qmodel, ref, fp_out, gptq_out
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"GPTQ phase ({name}): {time.perf_counter() - phase_t:.1f} s  [{card}]")
 
 
 def main() -> int:
@@ -1564,6 +1743,12 @@ def main() -> int:
     check(same, "vit_tiny checkpoint round trip from the card: parameters and AdamW state "
                 "bit for bit")
     del tiny, tiny_opt, fresh, fresh_opt
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------------- GPTQ
+    gptq_solver_phase(dev, card)
+    gptq_encoder_phase(dev, card, "vit_h", vit_h, images[0], w4_launches, reset_counts, counts,
+                       repo / "build" / "chip_gptq")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -1109,3 +1109,74 @@ def test_int8_matmul_on_card_equals_cpu(cuda, dtype, branch, M):
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == (M, N)
     assert torch.equal(out.cpu(), ref), float((out.cpu().float() - ref.float()).abs().max())
+
+
+# The GPTQ solver on the card against the same solver on the CPU at a mid
+# size (W4 g128), on rows mixed so that H has off-diagonal mass. Its
+# library-ordered sums are float64, rounded once, so both devices compute
+# the same grid (an H100 read it equal); the gates leave room for a float64
+# difference that straddles a float32 rounding point: >= 99.9% of the grid
+# equal, every difference one step, loss rel. 1e-3 (chip_smoke.py's gates).
+@pytest.mark.gpu
+@pytest.mark.parametrize("sym,actorder", [(False, False), (True, True)])
+def test_gptq_solver_on_card_matches_cpu(cuda, sym, actorder):
+    from sam_quantization_tpu_torch.quant import gptq as tgptq
+
+    N, K = 512, 1024
+    w = _randn(50, N, K) * 0.02
+    z = _randn(51, 4096, K).to(cuda)
+    x = z + z @ (_randn(52, K, K).to(cuda) / math.sqrt(K))
+    h = (2.0 / 1) * (x.t() @ x)
+    kw = dict(bits=4, groupsize=128, sym=sym, actorder=actorder)
+    on_card = tgptq.gptq_quantize_matrix(w.to(cuda), h, **kw)
+    on_cpu = tgptq.gptq_quantize_matrix(w, h.cpu(), **kw)
+    assert on_card.q_int.is_cuda
+    qg, qc = on_card.q_int.cpu(), on_cpu.q_int
+    assert float((qg == qc).double().mean()) >= 0.999
+    assert int((qg - qc).abs().max()) <= 1
+    assert torch.equal(on_card.g_idx.cpu(), on_cpu.g_idx)
+    assert abs(float(on_card.loss) - float(on_cpu.loss)) <= 1e-3 * abs(float(on_cpu.loss))
+
+
+# A vit_tiny-shaped encoder whose MLP fuses (128 wide, MLP 512, 2 blocks),
+# GPTQ W4 g32 on the card, written as an artifact and served as cli.infer
+# --load serves it: every block linear on the packed kernels (qkv and proj
+# quant_matmul, the MLP fused_mlp), float32 embedding against the same
+# artifact's plain versions on the CPU within 1e-3 rel. L2 (each float32
+# packed kernel may sit 1e-4 max|ref| from its plain version, chip_smoke.py's
+# rel_ok; an H100 read 3.0e-4 over the two blocks and the neck).
+@pytest.mark.gpu
+def test_gptq_artifact_serves_through_packed_kernels_on_card(cuda, tmp_path):
+    import copy
+    import dataclasses
+
+    from sam_quantization_tpu_torch.models import build_sam as tbuild
+    from sam_quantization_tpu_torch.models import sam as tsam
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.quant import artifacts as tart
+    from sam_quantization_tpu_torch.quant import sequential as tseq
+
+    base = CONFIGS["vit_tiny"]
+    cfg = dataclasses.replace(base, image_encoder=dataclasses.replace(
+        base.image_encoder, embed_dim=128, depth=2, num_heads=4, global_attn_indexes=(1,)))
+    model = tsam.init(cfg, 0, "cpu")
+    for i, blk in enumerate(model.image_encoder.blocks):
+        for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+            t.copy_(_randn(60 + i, *t.shape) * 0.2)
+    batches = [_randn(70 + i, 1, 128, 128, 3).to(cuda) for i in range(2)]
+    enc, losses = tseq.gptq_quantize_encoder(copy.deepcopy(model.image_encoder).to(cuda), batches,
+                                             tseq.GPTQConfig(bits=4, groupsize=32))
+    assert len(losses) == 8 and all(math.isfinite(v) for v in losses.values())
+    tart.save_quantized(str(tmp_path), tbuild.to_jax_encoder(enc), {"method": "gptq", "wbits": 4})
+    tree = tart.load_quantized(str(tmp_path))[0]
+    on_cpu = tbuild.load_jax_encoder(copy.deepcopy(model), tree)
+    on_card = tbuild.load_jax_encoder(copy.deepcopy(model).to(cuda), tree)
+    x = _randn(80, 1, 128, 128, 3)
+    before = {**tqm.LAUNCHES, **tfm.LAUNCHES}
+    with torch.no_grad():
+        out = tsam.encode_image(on_card, x.to(cuda)).cpu()
+        torch.cuda.synchronize()
+        ref = tsam.encode_image(on_cpu, x)
+    assert tqm.LAUNCHES["quant_matmul"] == before["quant_matmul"] + 4
+    assert tfm.LAUNCHES["fused_mlp"] == before["fused_mlp"] + 2
+    assert float((out - ref).norm() / ref.norm()) <= 1e-3

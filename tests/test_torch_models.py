@@ -359,7 +359,8 @@ def test_port_imports_no_jax():
                    "ops/probes.py", "tools/packed_probe.py", "tools/global_stage_probe.py",
                    "native.py", "evaluation/metrics.py", "evaluation/clicker.py",
                    "evaluation/click_eval.py", "evaluation/predictors.py", "data/datasets.py",
-                   "utils/config.py", "cli/evaluate.py"):
+                   "utils/config.py", "cli/evaluate.py", "quant/gptq.py",
+                   "quant/overrides.py", "quant/analysis.py", "cli/quantize.py"):
         assert REPO / "sam_quantization_tpu_torch" / module in files, module
     for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu",
                 "probe_packed.cu", "probe_heads.cu", "host_runtime.cpp"):
