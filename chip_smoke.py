@@ -80,14 +80,26 @@ Run from the repository root on a machine with one CUDA card. It
     every click in the error region of the mask before it; encode and
     per-click ms) and ``noc_eval`` to 3 clicks, and one flip-TTA
     ``SamEvalPredictor`` (2 clicks, 3 ``set_image``);
-13. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
+13. AMG and the demo server (``automatic_mask_generator.py``,
+    ``utils/amg.py``, ``export_js.py``, ``demo_server.py``): the AMG gate,
+    ``vit_tiny_synth`` in float32 through the kernels held to the JAX-written
+    golden ``tests/data/amg_crossval.json`` in both of its configurations
+    (packed path; crop layers and small-region removal); the seeded ViT-H
+    (bf16, dense) on a served 1200x1600 image, 32x32 grid, thresholds off
+    and at the defaults (28/4 launches, generate time split into
+    ``set_image``, device decode + postprocess and host), the general path
+    against the packed one, and one crop layer on a 16x16 grid (5 encodes);
+    the demo server from a thread (``/set_image``, three ``/click`` equal to
+    ``predict``, ``/embedding`` decoded by ``demo/decoder_ref.py``, round-trip
+    ms); and ViT-H RTN W4 g128 with W4's launches;
+14. ViT-H fine-tuning in float32 (``train/``): a one-click gradient check of
     ``flash_train`` against eager on the same weights and click, then
     training steps with 11 clicks and AdamW (exactly 28 ``flash_whole``
     launches and no other kernel per step, finite losses, parameters that
     move, step times and peak memory, one profiled step), and a checkpoint
     save/load round trip in the JAX trainer's format from the card, bit for
     bit (on a vit_tiny trained two steps there);
-14. GPTQ (``quant/gptq.py``, ``quant/sequential.py``, ``cli/quantize.py``):
+15. GPTQ (``quant/gptq.py``, ``quant/sequential.py``, ``cli/quantize.py``):
     the solver on the card against the same solver on the CPU at ViT-H's
     lin2 and qkv widths (W4 g128; share of equal grid values, largest step,
     loss gap); then ``cli.quantize`` GPTQ W4 g128 of the seeded ViT-H on the
@@ -226,6 +238,17 @@ EVAL_SCENES, EVAL_CLICKS, NOC_CLICKS = 3, 5, 3  # the ViT-H click loop, NoC and 
 # error fed forward from a flipped weight can move later ones by a step.
 GPTQ_SHARE = 0.999  # least share of equal grid values
 GPTQ_LOSS_REL = 1e-3
+# AMG: the golden's tolerances are the CPU tests' (tests/test_torch_amg.py
+# AMG_TOL): a logit within rounding of the threshold may flip a pixel, and a
+# flip moves a small mask's stability by 1/lo. The packed path's stability is
+# an int32-count float32 quotient, the general path's float64 (JAX's own
+# test holds the two to 1e-6).
+AMG_TOL = {"pixels": 1e-3, "bbox": 1.0, "iou": 1e-4, "stability": 1e-3, "area": 0}
+AMG_PACKED_STAB_TOL = 1e-6
+AMG_OFF = {"pred_iou_thresh": -1e9, "stability_score_thresh": 0.0}  # every mask kept
+AMG_SIDE, AMG_BATCH, AMG_CROP_SIDE = 32, 64, 16
+SERVER_CLICKS = ((800.0, 600.0, 1), (300.0, 900.0, 0), (1200.0, 200.0, 1))
+DECODER_REF_TOL = 1e-3  # tests/test_demo_server.py's IoU tolerance
 FAILURES = []
 
 
@@ -497,6 +520,320 @@ def gptq_encoder_phase(dev, card: str, name: str, build, image, launches: dict,
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"GPTQ phase ({name}): {time.perf_counter() - phase_t:.1f} s  [{card}]")
+
+
+def amg_server_phase(dev, card: str, vit_h, images, flash_launches: dict, w4_launches: dict,
+                     reset_counts, counts, zero: dict, repo: pathlib.Path) -> None:
+    """AMG and the demo server (``automatic_mask_generator.py``,
+    ``utils/amg.py``, ``export_js.py``, ``demo_server.py``):
+
+    (a) the AMG gate: ``vit_tiny_synth`` (best) in float32 through the
+        kernels on the golden's image, in both of its configurations, held
+        to ``tests/data/amg_crossval.json`` (written by the JAX package)
+        within the CPU tests' ``AMG_TOL``, with exactly the vit_tiny launches
+        of one encode per crop;
+    (b) the seeded ViT-H, bf16 encoder, dense, on ``images[0]`` (1200x1600),
+        32x32 grid, 64 prompts a batch: thresholds off (all 3,072 masks reach
+        the RLE and the NMS) and at the defaults, each with exactly 28/4
+        flash launches and no other kernel, every kept RLE's area equal to
+        its decoded mask's sum, and the time split into ``set_image``, the
+        device decode + postprocess (CUDA events over the batches) and the
+        host; then the general path (``packed_fast_path = False``) against
+        the packed one on an 8x8 grid, thresholds and NMS off: the same RLE,
+        bbox and area, stability within AMG_PACKED_STAB_TOL;
+    (c) crop layers (``crop_n_layers=1``, 16x16 grid, thresholds off): five
+        encodes' launches, the full crop's 768 masks into its NMS, the four
+        crops' general path;
+    (d) the demo server from a thread on 127.0.0.1, ViT-H bf16:
+        ``/set_image`` (28/4 launches), three ``/click`` (masks byte-equal
+        to ``predict`` on the same predictor and clicks), ``/embedding`` and
+        the decoder blob, which ``demo/decoder_ref.py`` decodes to the
+        server's IoU within DECODER_REF_TOL;
+    (e) ViT-H RTN W4 g128 (bf16), thresholds off: W4's launches (64 / 32 /
+        28 / 4).
+    """
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch import automatic_mask_generator as amg_mod
+    from sam_quantization_tpu_torch import demo_server, export_js, native
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import sequential as seq
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+    from sam_quantization_tpu_torch.utils import amg as amg_utils
+
+    phase_t = time.perf_counter()
+    Generator = amg_mod.SamAutomaticMaskGenerator
+    check(native.get_lib() is not None, f"AMG: host runtime loaded ({native.library_path().name})")
+
+    def generate(gen, image):
+        """``gen.generate(image)`` with its wall time split: set_image (host
+        clock, synchronised), the device decode + postprocess of every batch
+        (CUDA events around each), and the rest, the host's, of which the
+        RLE encodes and the NMS calls (host clock); plus the box count of
+        each ``native.box_nms`` call."""
+        spans, set_s, nms_in, depth = [], [], [], [0]
+        host = {"rle": 0.0, "nms": 0.0}
+        real = {name: getattr(amg_mod, name) for name in ("_batched_decode",
+                                                          "_batched_decode_packed")}
+        real_set = gen.predictor.set_image
+        real_native = {name: getattr(native, name) for name in (
+            "box_nms", "rle_encode_batch", "rle_encode_batch_packed")}
+
+        def on_host(fn, key):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    host[key] += time.perf_counter() - t
+            return run
+
+        def on_device(fn):
+            def run(*a, **k):
+                depth[0] += 1
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    end.record()
+                    depth[0] -= 1
+                    if depth[0] == 0:
+                        spans.append((start, end))
+            return run
+
+        def set_image(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_set(*a, **k)
+            torch.cuda.synchronize()
+            set_s.append(time.perf_counter() - t)
+            return out
+
+        def box_nms(boxes, scores, thr):
+            nms_in.append(len(boxes))
+            return real_native["box_nms"](boxes, scores, thr)
+
+        for name, fn in real.items():
+            setattr(amg_mod, name, on_device(fn))
+        gen.predictor.set_image = set_image
+        native.box_nms = on_host(box_nms, "nms")
+        for name in ("rle_encode_batch", "rle_encode_batch_packed"):
+            setattr(native, name, on_host(real_native[name], "rle"))
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            anns = gen.generate(image)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+        finally:
+            for name, fn in real.items():
+                setattr(amg_mod, name, fn)
+            del gen.predictor.set_image
+            for name, fn in real_native.items():
+                setattr(native, name, fn)
+        decode = sum(s.elapsed_time(e) for s, e in spans) / 1e3
+        return anns, {"total": total, "set_image": sum(set_s), "decode": decode,
+                      "host": total - sum(set_s) - decode, **host, "batches": len(spans),
+                      "nms_in": nms_in}
+
+    def report(what, anns, split):
+        print(f"AMG {what}: {len(anns)} annotations, generate {split['total']:.3f} s = "
+              f"set_image {split['set_image']:.3f} + device decode/postprocess "
+              f"{split['decode']:.3f} ({split['batches']} batches) + host {split['host']:.3f} "
+              f"(RLE {split['rle']:.3f}, NMS {split['nms']:.3f}); "
+              f"boxes into each NMS {split['nms_in']}  [{card}]")
+
+    def areas_ok(anns):
+        return all(int(amg_utils.annotation_mask(a).sum()) == a["area"] for a in anns)
+
+    # (a) The gate against the JAX golden, float32 kernels.
+    golden = json.loads((repo / "tests" / "data" / "amg_crossval.json").read_text())
+    shape = golden["image"]["shape"]
+    image = np.frombuffer(base64.b64decode(golden["image"]["uint8_base64"]),
+                          np.uint8).reshape(shape).copy()
+    scene = next(synthetic_samples(1, 128, seed=5))[0][0, : shape[0], : shape[1]]
+    check(np.array_equal(image, scene.astype(np.uint8)),
+          "AMG gate: the golden's image regenerated bit for bit by data/synthetic.py")
+    tiny = build_sam.sam_model_registry["vit_tiny"](device="cuda")
+    ckpt_lib.load_weights(str(repo / "checkpoints" / "vit_tiny_synth"), tiny, "best")
+    for name, cfg in golden["configs"].items():
+        gen = Generator(tiny, output_mode="uncompressed_rle", **cfg)
+        n_crops = len(amg_utils.generate_crop_boxes(image.shape[:2], gen.crop_n_layers,
+                                                    gen.crop_overlap_ratio)[0])
+        reset_counts()
+        anns, split = generate(gen, image)
+        got = counts()
+        want = {**zero, **{k: n * n_crops for k, n in TINY_LAUNCHES.items()}}
+        gaps = amg_utils.annotation_gaps(golden["annotations"][name], anns)
+        print(f"AMG gate {name}: {gaps}, {split['total']:.3f} s  [{card}]")
+        check(gaps["ref"] == gaps["got"] == gaps["matched"] > 0
+              and all(gaps[k] <= tol for k, tol in AMG_TOL.items()),
+              f"AMG gate {name} vs the JAX golden: {gaps['got']}/{gaps['ref']} annotations, "
+              f"matched {gaps['matched']}; pixels {gaps['pixels']:.2e}, bbox {gaps['bbox']}, "
+              f"iou {gaps['iou']:.2e}, stability {gaps['stability']:.2e}, area {gaps['area']} "
+              f"(<= {AMG_TOL})")
+        check(got == want, f"AMG gate {name}: {n_crops} encodes, launches "
+                           f"{ {k: n for k, n in got.items() if n} }")
+    del tiny
+
+    # (b) ViT-H bf16 dense on the served 1200x1600 image.
+    model = vit_h()
+    model.image_encoder.to(torch.bfloat16)
+    image = images[0]
+    n_masks = AMG_SIDE * AMG_SIDE * 3
+    for what, kw, mode in (("thresholds off", AMG_OFF, "uncompressed_rle"),
+                           ("defaults", {}, "binary_mask")):
+        gen = Generator(model, points_per_side=AMG_SIDE, points_per_batch=AMG_BATCH,
+                        output_mode=mode, **kw)
+        reset_counts()
+        anns, split = generate(gen, image)
+        got = counts()
+        report(f"ViT-H bf16 {AMG_SIDE}x{AMG_SIDE} {what}", anns, split)
+        check(got == flash_launches and areas_ok(anns)
+              and (kw != AMG_OFF or split["nms_in"] == [n_masks]),
+              f"AMG ViT-H bf16 {what}: launches { {k: n for k, n in got.items() if n} }, "
+              f"{len(anns)} kept, each RLE's area its mask's sum, boxes into NMS "
+              f"{split['nms_in']}")
+        del anns
+    # One batch's device work by kernel: decode, upsample, stability, pack.
+    gen.predictor.set_image(image)
+    grid = gen.point_grids[0][:AMG_BATCH] * np.array(image.shape[:2])[None, ::-1]
+    coords, labels = gen._prompts(grid, image.shape[:2])
+    print_device_profile("AMG one packed batch (64 prompts, 192 masks)", lambda: (
+        amg_mod._batched_decode_packed(model, gen.predictor.features, coords, labels, len(grid),
+                                       gen.predictor.input_size, image.shape[:2], 0.0, 1.0)))
+    gen.predictor.reset_image()
+    small = {**AMG_OFF, "box_nms_thresh": 1.0, "points_per_side": 8,
+             "points_per_batch": AMG_BATCH, "output_mode": "uncompressed_rle"}
+    paths = {}
+    for packed in (True, False):
+        gen = Generator(model, **small)
+        gen.packed_fast_path = packed
+        paths[packed], split = generate(gen, image)
+        report(f"ViT-H bf16 8x8 {'packed' if packed else 'general'} path", paths[packed], split)
+    fast, general = paths[True], paths[False]
+    stab = max((abs(f["stability_score"] - g["stability_score"])
+                for f, g in zip(fast, general)), default=0.0)
+    check(len(fast) == len(general) == 192
+          and all(f["segmentation"]["counts"] == g["segmentation"]["counts"]
+                  and f["bbox"] == g["bbox"] and f["area"] == g["area"]
+                  for f, g in zip(fast, general)) and stab <= AMG_PACKED_STAB_TOL,
+          f"AMG ViT-H packed vs general path, 8x8: {len(fast)} / {len(general)} annotations, "
+          f"same RLE, bbox and area; stability max |d| {stab:.2e} (<= {AMG_PACKED_STAB_TOL})")
+    del paths, fast, general
+
+    # (c) Crop layers: the full image (packed), then four crops (general).
+    gen = Generator(model, points_per_side=AMG_CROP_SIDE, points_per_batch=AMG_BATCH,
+                    crop_n_layers=1, output_mode="uncompressed_rle", **AMG_OFF)
+    reset_counts()
+    anns, split = generate(gen, image)
+    got = counts()
+    report(f"ViT-H bf16 crop layer 1, {AMG_CROP_SIDE}x{AMG_CROP_SIDE}", anns, split)
+    per_crop = AMG_CROP_SIDE * AMG_CROP_SIDE * 3
+    nms_in = split["nms_in"]
+    check(got == {k: 5 * n for k, n in flash_launches.items()} and len(nms_in) == 6
+          and nms_in[0] == per_crop and all(n <= per_crop for n in nms_in[1:5])
+          and 0 < len(anns) <= nms_in[5] <= sum(nms_in[:5]) and areas_ok(anns),
+          f"AMG ViT-H crop layer 1: launches { {k: n for k, n in got.items() if n} } (5 "
+          f"encodes), boxes into the crops' NMS {nms_in[:5]} and the crop NMS {nms_in[5:]}, "
+          f"{len(anns)} annotations, areas their masks' sums")
+    del anns, gen
+
+    # (d) The demo server, ViT-H bf16, from a thread.
+    predictor = SamPredictor(model)
+    manifest, blob = export_js.flatten_decoder(model)
+    server = demo_server.make_server(predictor, manifest, blob, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(path, body=None):
+        req = urllib.request.Request(url + path, None if body is None else
+                                     json.dumps(body).encode())
+        t = time.perf_counter()
+        out = urllib.request.urlopen(req, timeout=300).read()
+        return out, (time.perf_counter() - t) * 1e3
+
+    try:
+        sys.path.insert(0, str(repo / "demo"))
+        from decoder_ref import DecoderRef
+
+        image = images[1]
+        h, w = image.shape[:2]
+        rgba = np.concatenate([image, np.full((h, w, 1), 255, np.uint8)], -1)
+        call("/set_image", {"rgba": base64.b64encode(rgba.tobytes()).decode(),
+                            "height": h, "width": w})  # warm-up
+        reset_counts()
+        out, set_ms = call("/set_image", {"rgba": base64.b64encode(rgba.tobytes()).decode(),
+                                          "height": h, "width": w})
+        got = counts()
+        check(json.loads(out)["ok"] and got == flash_launches,
+              f"server /set_image {h}x{w}: launches { {k: n for k, n in got.items() if n} }")
+        emb_body, emb_ms = call("/embedding")
+        emb_r = json.loads(emb_body)
+        ref = DecoderRef(json.loads(call("/decoder_manifest.json")[0]),
+                         call("/decoder_weights.bin")[0])
+        emb = np.frombuffer(base64.b64decode(emb_r["embedding"]), np.float32)
+        same_emb = np.array_equal(emb.reshape(emb_r["shape"]),
+                                  predictor.features.float().cpu().numpy())
+        emb = emb.reshape(-1, emb_r["shape"][-1])
+        ih, iw = emb_r["input_size"]
+        click_ms, equal, iou_gaps, clicks = [], [], [], []
+        for x, y, label in SERVER_CLICKS:
+            clicks.append((x, y, label))
+            out, ms = call("/click", {"x": x, "y": y, "label": label})
+            click_ms.append(ms)
+            srv = json.loads(out)
+            masks, ious, _ = predictor.predict(np.array([c[:2] for c in clicks], np.float32),
+                                               np.array([c[2] for c in clicks], np.float32),
+                                               multimask_output=False)
+            mask = base64.b64decode(srv["mask"])
+            equal.append(mask == masks[0].astype(np.uint8).tobytes()
+                         and srv["iou"] == float(ious[0]))
+            _, iou_js = ref.decode(emb, [(cx * iw / w, cy * ih / h, lab)
+                                         for cx, cy, lab in clicks])
+            iou_gaps.append(abs(float(iou_js) - srv["iou"]))
+        check(all(equal) and same_emb,
+              f"server /click x{len(SERVER_CLICKS)}: masks and IoUs byte-equal to predict "
+              f"({equal}); /embedding equal to the predictor's features as float32 {same_emb}")
+        check(max(iou_gaps) <= DECODER_REF_TOL,
+              f"server: demo/decoder_ref.py on the served blob and embedding, IoU vs /click "
+              f"max |d| {max(iou_gaps):.2e} (<= {DECODER_REF_TOL})")
+        print(f"server round trips: /set_image {set_ms:.2f} ms, /click "
+              + " / ".join(f"{ms:.2f}" for ms in click_ms)
+              + f" ms, /embedding {emb_ms:.2f} ms ({len(emb_body)} bytes)  [{card}]")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    del predictor, model
+    torch.cuda.empty_cache()
+
+    # (e) ViT-H RTN W4 g128, bf16.
+    model = vit_h()
+    seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=4, groupsize=128))
+    model.image_encoder.to(torch.bfloat16)
+    gen = Generator(model, points_per_side=AMG_SIDE, points_per_batch=AMG_BATCH,
+                    output_mode="uncompressed_rle", **AMG_OFF)
+    reset_counts()
+    anns, split = generate(gen, images[0])
+    got = counts()
+    report(f"ViT-H W4 bf16 {AMG_SIDE}x{AMG_SIDE} thresholds off", anns, split)
+    check(got == w4_launches and split["nms_in"] == [n_masks] and areas_ok(anns),
+          f"AMG ViT-H W4: launches { {k: n for k, n in got.items() if n} }, {len(anns)} kept, "
+          f"areas their masks' sums")
+    del model, gen, anns
+    torch.cuda.empty_cache()
+    print(f"AMG and server phase: {time.perf_counter() - phase_t:.1f} s")
 
 
 def main() -> int:
@@ -1623,6 +1960,9 @@ def main() -> int:
         del model, eval_pred, encode, decode
         torch.cuda.empty_cache()
         print(f"click-loop phase: {time.perf_counter() - phase_t:.1f} s")
+
+        amg_server_phase(dev, card, vit_h, images, flash_launches, w4_launches, reset_counts,
+                         counts, zero, repo)
 
     # ----------------------------------------------------------------- training
     # ViT-H fine-tuning in float32 on seeded easy scenes at 1024, batch 1,

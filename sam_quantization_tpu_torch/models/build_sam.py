@@ -281,6 +281,13 @@ def to_jax_params(sd: Dict[str, torch.Tensor], cfg: SamConfig) -> Tuple[dict, di
     upstream-named dict of dense tensors: the inverse of
     :func:`from_jax_params`. The trainer's checkpoints write the model and
     its AdamW moments through it."""
+    return (_jax_encoder_tree(sd, cfg.image_encoder, "image_encoder."),
+            *to_jax_decoder_params(sd, cfg))
+
+
+def to_jax_decoder_params(sd: Dict[str, torch.Tensor], cfg: SamConfig) -> Tuple[dict, dict]:
+    """The prompt-encoder and mask-decoder subtrees of :func:`to_jax_params`;
+    ``sd`` needs no encoder key."""
 
     def get(key, perm=None):
         return _np(sd[key], perm)
@@ -345,7 +352,7 @@ def to_jax_params(sd: Dict[str, torch.Tensor], cfg: SamConfig) -> Tuple[dict, di
                           for i in range(mcfg.num_mask_tokens)],
         "iou_head": mlp(f"{m}.iou_prediction_head", mcfg.iou_head_depth),
     }
-    return _jax_encoder_tree(sd, cfg.image_encoder, "image_encoder."), prompt, decoder
+    return prompt, decoder
 
 
 def load_state_dict(model: sam_lib.Sam, sd: Dict[str, torch.Tensor]) -> sam_lib.Sam:

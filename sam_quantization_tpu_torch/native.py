@@ -30,7 +30,8 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "csrc" / "host_runtime.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-RLE_CAP = 8192  # counts per mask in the batched encoders; more re-encode singly
+RLE_CAP = 8192  # counts per mask in the batched encoders' first pass
+RLE_RETRY_BYTES = 1 << 28  # count buffer of one batched pass over masks past RLE_CAP
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -158,9 +159,36 @@ def rle_encode(mask: np.ndarray) -> List[int]:
     return out[:n].tolist()
 
 
+def _encode_batch(fn, data: np.ndarray, h: int, w: int) -> List[List[int]]:
+    """The counts of each of the masks in ``data`` from the batched encoder
+    ``fn``, on threads: first at ``RLE_CAP`` counts a mask, then the masks
+    that had more, again in batches, at the h*w + 1 counts a mask can have."""
+    n = len(data)
+
+    def run(part, cap):
+        out = np.empty((len(part), cap), np.int64)
+        lens = np.empty(len(part), np.int64)
+        rc = fn(_ptr(part, ctypes.c_uint8), len(part), h, w, _ptr(out, ctypes.c_int64), cap,
+                _ptr(lens, ctypes.c_int64), 0)
+        if rc not in (0, -1):
+            raise RuntimeError(f"{fn.__name__} returned {rc}")
+        return out, lens
+
+    out, lens = run(data, RLE_CAP)
+    counts = [out[i, : lens[i]].tolist() if lens[i] >= 0 else None for i in range(n)]
+    over = np.nonzero(lens < 0)[0]
+    cap = h * w + 1
+    step = max(1, RLE_RETRY_BYTES // (8 * cap))
+    for j in range(0, len(over), step):
+        idx = over[j: j + step]
+        out, lens = run(np.ascontiguousarray(data[idx]), cap)
+        for k, i in enumerate(idx):
+            counts[i] = out[k, : lens[k]].tolist()
+    return counts
+
+
 def rle_encode_batch(masks: np.ndarray) -> List[List[int]]:
-    """(N, H, W) binary -> the counts of each mask, encoded on threads.
-    A mask of more than ``RLE_CAP`` runs is encoded again on its own."""
+    """(N, H, W) binary -> the counts of each mask, encoded on threads."""
     masks = np.ascontiguousarray(masks, np.uint8)
     if masks.ndim != 3:
         raise ValueError(f"expected (N, H, W) masks, got {masks.shape}")
@@ -168,15 +196,7 @@ def rle_encode_batch(masks: np.ndarray) -> List[List[int]]:
     lib = get_lib()
     if lib is None or n == 0:
         return [rle_encode(m) for m in masks]
-    out = np.empty((n, RLE_CAP), np.int64)
-    lens = np.empty(n, np.int64)
-    rc = lib.rle_encode_batch(_ptr(masks, ctypes.c_uint8), n, h, w,
-                              _ptr(out, ctypes.c_int64), RLE_CAP,
-                              _ptr(lens, ctypes.c_int64), 0)
-    if rc not in (0, -1):
-        raise RuntimeError(f"rle_encode_batch returned {rc}")
-    return [out[i, : lens[i]].tolist() if lens[i] >= 0 else rle_encode(masks[i])
-            for i in range(n)]
+    return _encode_batch(lib.rle_encode_batch, masks, h, w)
 
 
 def _unpack_columns(packed: np.ndarray, h: int) -> np.ndarray:
@@ -197,15 +217,7 @@ def rle_encode_batch_packed(packed: np.ndarray, h: int, w: int) -> List[List[int
     lib = get_lib()
     if lib is None:
         return rle_encode_batch(_unpack_columns(packed, h))
-    out = np.empty((n, RLE_CAP), np.int64)
-    lens = np.empty(n, np.int64)
-    rc = lib.rle_encode_batch_packed(_ptr(packed, ctypes.c_uint8), n, h, w,
-                                     _ptr(out, ctypes.c_int64), RLE_CAP,
-                                     _ptr(lens, ctypes.c_int64), 0)
-    if rc not in (0, -1):
-        raise RuntimeError(f"rle_encode_batch_packed returned {rc}")
-    return [out[i, : lens[i]].tolist() if lens[i] >= 0
-            else rle_encode(_unpack_columns(packed[i], h)) for i in range(n)]
+    return _encode_batch(lib.rle_encode_batch_packed, packed, h, w)
 
 
 def rle_decode(counts, h: int, w: int) -> np.ndarray:
