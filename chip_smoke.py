@@ -107,7 +107,20 @@ Run from the repository root on a machine with one CUDA card. It
     128 losses), its artifact loaded as ``cli.infer --load`` loads it and
     served in float32 and bfloat16 with W4's exact launch counts and held
     against its dequantized dense model; the GPTQ and RTN encoders' errors
-    on a held-out scene are printed as a reading.
+    on a held-out scene are printed as a reading;
+16. FQ-ViT (``quant/fq/``, ``quant/observers.py``, ``cli.quantize --method
+    fq``, FQ serving in ``cli.infer``): ``vit_tiny_synth`` calibrated in
+    float32 on the card and on the CPU from the same two normalised scenes
+    (PTF + LIS, minmax; the share of scales equal and their largest gap,
+    PTF factors equal on >= 99.9% of channels), the quant-mode encode card
+    vs CPU from one qparams dict within the CPU tests' 1e-2; then
+    ``cli.quantize vit_h --method fq`` on 2 synthetic 1024 scenes from a
+    seeded ``.pth`` (calibrate seconds, JAX's 357 qparams),
+    ``cli.infer --load --benchmark`` of the artifact, and the quant-mode
+    encode timed (median and spread), its ``ln_modes`` all ``int``, its
+    embedding against the float32 eager encoder of the unquantized weights
+    (random weights: a reading) and the peak memory; no kernel is launched
+    under the FQ context anywhere.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -247,6 +260,24 @@ AMG_TOL = {"pixels": 1e-3, "bbox": 1.0, "iou": 1e-4, "stability": 1e-3, "area": 
 AMG_PACKED_STAB_TOL = 1e-6
 AMG_OFF = {"pred_iou_thresh": -1e9, "stability_score_thresh": 0.0}  # every mask kept
 AMG_SIDE, AMG_BATCH, AMG_CROP_SIDE = 32, 64, 16
+# FQ-ViT: activation ranges card vs CPU differ by float32 sum order (the CPU
+# tests read 4e-7 port vs JAX), so a scale may move by an ulp or so and a PTF
+# factor flip where two candidates tie. The quant-mode encode is held as the
+# CPU tests hold port vs JAX (tests/test_torch_fq_encoder.py): fed the CPU's
+# input at each observation point, the card's point outputs bit-equal and
+# its inputs between points within FQ_GAP_TOL; free running within
+# FQ_ENCODE_TOL, or, past it, a cascade that starts at a point whose input
+# is within float32 rounding and whose outputs are one grid step apart
+# (bounded by FQ_CASCADE_TOL). JAX's count of ViT-H points under FQConfig()
+# (PTF + LIS): jax.eval_shape of image_encoder.apply(VIT_H) under
+# FQCtx("last_calib") holds 357 new qparams, 67 of them channel-wise.
+FQ_SCALE_RTOL = 1e-5
+FQ_PTF_SHARE = 0.999
+FQ_GAP_TOL = 1e-5
+FQ_ENCODE_TOL = 1e-2
+FQ_CASCADE_TOL = 0.1
+FQ_QPARAMS_VIT_H = 357
+FQ_ITERS = 3
 SERVER_CLICKS = ((800.0, 600.0, 1), (300.0, 900.0, 0), (1200.0, 200.0, 1))
 DECODER_REF_TOL = 1e-3  # tests/test_demo_server.py's IoU tolerance
 FAILURES = []
@@ -520,6 +551,224 @@ def gptq_encoder_phase(dev, card: str, name: str, build, image, launches: dict,
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"GPTQ phase ({name}): {time.perf_counter() - phase_t:.1f} s  [{card}]")
+
+
+def fq_phase(dev, card: str, name: str, build, n_qparams: int, reset_counts, counts, zero: dict,
+             workdir: pathlib.Path) -> None:
+    """FQ-ViT (module docstring, step 16): (a) vit_tiny_synth card vs CPU;
+    (b) the seeded model ``build()`` returns (``name``) through the CLIs,
+    with JAX's ``n_qparams`` points."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.cli import build_model
+    from sam_quantization_tpu_torch.cli import infer as infer_cli
+    from sam_quantization_tpu_torch.cli import quantize as quantize_cli
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.quant import artifacts
+    from sam_quantization_tpu_torch.quant.fq import pipeline as fq
+    from sam_quantization_tpu_torch.quant.sequential import full_float32
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+
+    phase_t = time.perf_counter()
+    cfg = fq.FQConfig()
+
+    # (a) vit_tiny_synth, float32: the same calibration on both devices.
+    repo = pathlib.Path(__file__).resolve().parent
+    tiny = build_sam.sam_model_registry["vit_tiny"](device="cpu")
+    ckpt_lib.load_weights(str(repo / "checkpoints" / "vit_tiny_synth"), tiny, "best")
+    scenes = [sam_lib.preprocess(tiny, torch.from_numpy(img))
+              for img, _ in synthetic_samples(2, tiny.config.image_encoder.img_size, 0)]
+    enc_cpu, enc_card = tiny.image_encoder, copy.deepcopy(tiny.image_encoder).to(dev)
+    reset_counts()
+    q_card = fq.calibrate_encoder(enc_card, cfg, [x.to(dev) for x in scenes])
+    torch.cuda.synchronize()
+    calib_counts = counts()
+    q_cpu = fq.calibrate_encoder(enc_cpu, cfg, scenes)
+    layer = [k for k, (sc, _) in q_cpu.items() if sc.ndim == 0]
+    ptf = [k for k in q_cpu if k not in layer]
+    equal = sum(bool(torch.equal(q_card[k][0].cpu(), q_cpu[k][0])) for k in layer)
+    gap = max(float(((q_card[k][0].cpu() - q_cpu[k][0]).abs() / q_cpu[k][0]).max()) for k in q_cpu)
+    zeros_equal = all(torch.equal(q_card[k][1].cpu(), q_cpu[k][1]) for k in q_cpu)
+    factors = [tuple(torch.round(sc / sc.min()) for sc in (q_card[k][0].cpu(), q_cpu[k][0]))
+               for k in ptf]
+    same = sum(int((a == b).sum()) for a, b in factors)
+    total = sum(a.numel() for a, _ in factors)
+    check(sorted(q_card) == sorted(q_cpu) and calib_counts == zero and gap <= FQ_SCALE_RTOL
+          and zeros_equal and same >= FQ_PTF_SHARE * total,
+          f"FQ vit_tiny_synth calibration, card vs CPU (f32, 2 scenes, PTF+LIS minmax): "
+          f"{len(q_card)} points; layer-wise scales bit-equal {equal}/{len(layer)}, largest "
+          f"rel gap {gap:.2e} (<= {FQ_SCALE_RTOL}); zeros equal {zeros_equal}; PTF factors "
+          f"equal on {same}/{total} channels ({same / total:.4%} >= {FQ_PTF_SHARE:.1%}); "
+          f"launches on the card {'none' if calib_counts == zero else calib_counts}  [{card}]")
+    qenc_card, qenc_cpu = fq.fq_quantize_weights(enc_card, cfg), fq.fq_quantize_weights(enc_cpu, cfg)
+    weights_equal = all(torch.equal(a.cpu(), b) for a, b in
+                        zip(qenc_card.state_dict().values(), qenc_cpu.state_dict().values()))
+
+    class Points(fq.FQCtx):
+        """Quant mode keeping each point's input and output on the CPU; given
+        another run's record, each point runs on that run's input instead of
+        its own, and the gap between the two is kept."""
+
+        def __init__(self, rec, *a, **k):
+            super().__init__(*a, **k)
+            self.rec, self.inputs, self.outputs, self.gaps = rec, {}, {}, {}
+
+        def _take(self, path, x):
+            self.inputs[path] = x.cpu()
+            if self.rec is None:
+                return x
+            want = self.rec[path][0]
+            self.gaps[path] = float((x.cpu() - want).norm() / want.norm().clamp(min=1e-30))
+            return want.to(x.device)
+
+        def act(self, path, x, ln_input=False):
+            y = super().act(path, self._take(path, x), ln_input=ln_input)
+            self.outputs[path] = y.cpu()
+            return y
+
+        def softmax(self, path, attn, scale_path=None, dim=-1):
+            y = super().softmax(path, self._take(path, attn), scale_path=scale_path, dim=dim)
+            self.outputs[path] = y.cpu()
+            return y
+
+    x0 = scenes[0]
+    with torch.no_grad(), full_float32():
+        cpu = Points(None, "quant", cfg, qparams={k: (s.cpu(), z.cpu()) for k, (s, z) in q_card.items()})
+        e_cpu = qenc_cpu(x0, "eager", cpu)
+        reset_counts()
+        free = Points(None, "quant", cfg, qparams=q_card)
+        e_card = qenc_card(x0.to(dev), "kernel", free).cpu()
+        forced = Points({p: (cpu.inputs[p], cpu.outputs[p]) for p in cpu.outputs}, "quant", cfg,
+                        qparams=q_card)
+        qenc_card(x0.to(dev), "kernel", forced)
+        torch.cuda.synchronize()
+        got = counts()
+    flips = sum(int((forced.outputs[p] != cpu.outputs[p]).sum()) for p in cpu.outputs)
+    gap = max(forced.gaps.values())
+    rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+    first = next((p for p in cpu.outputs if not torch.equal(free.outputs[p], cpu.outputs[p])), None)
+    cascade = "none"
+    cascade_ok = rel <= FQ_ENCODE_TOL
+    if first is not None:
+        in_gap = float((free.inputs[first] - cpu.inputs[first]).norm() / cpu.inputs[first].norm())
+        d = (free.outputs[first] - cpu.outputs[first]).abs()
+        steps = (d / q_card[first][0].cpu())[d > 0]  # in grid steps (per channel under PTF)
+        one_step = bool(torch.allclose(steps, torch.ones_like(steps), rtol=1e-5))
+        cascade = (f"first differing point {first}: input rel gap {in_gap:.2e}, {steps.numel()} "
+                   f"values one grid step apart {one_step}")
+        cascade_ok = cascade_ok or (in_gap <= 1e-6 and one_step and rel <= FQ_CASCADE_TOL)
+    check(weights_equal and got == zero and flips == 0 and gap <= FQ_GAP_TOL and cascade_ok
+          and set(free.ln_modes.values()) == {"int"} and free.ln_modes == cpu.ln_modes,
+          f"FQ vit_tiny_synth quant-mode encode (card qparams), card vs CPU: weights bit-equal "
+          f"{weights_equal}; fed the CPU's inputs, {len(cpu.outputs)} points' outputs differ in "
+          f"{flips} values (0), inputs between points rel gap <= {gap:.2e} (<= {FQ_GAP_TOL}); free "
+          f"running rel L2 {rel:.3e} (<= {FQ_ENCODE_TOL}, or a traced cascade <= "
+          f"{FQ_CASCADE_TOL}: {cascade}); {len(free.ln_modes)} LNs int; launches "
+          f"{'none' if got == zero else got}  [{card}]")
+    del tiny, enc_card, qenc_card, qenc_cpu, q_card, q_cpu
+
+    # (b) The full model through the CLIs, from a seeded .pth.
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    model = build()
+    pth = workdir / f"{name}_seeded.pth"
+    torch.save(model.state_dict(), pth)
+    size = model.config.image_encoder.img_size
+    scene = next(synthetic_samples(1, size, seed=7))[0]
+    held_out = sam_lib.preprocess(model, torch.from_numpy(scene).to(dev))  # calibration: seed 0
+    with torch.no_grad(), full_float32():
+        fp_out = model.image_encoder(held_out, "eager").float()
+    del model
+    torch.cuda.empty_cache()
+
+    spent = {"calibrate": 0.0}
+    calibrate = fq.calibrate_encoder
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = calibrate(*a, **k)
+        torch.cuda.synchronize()
+        spent["calibrate"] += time.perf_counter() - t
+        return out
+
+    art = workdir / "fq"
+    fq.calibrate_encoder = timed
+    out = io.StringIO()
+    reset_counts()
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = quantize_cli.main([name, "--checkpoint", str(pth), "--method", "fq",
+                                    "--nsamples", "2", "--save", str(art)])
+        quant_s = time.perf_counter() - t
+    finally:
+        fq.calibrate_encoder = calibrate
+    got = counts()
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    n_qp = len(artifacts.load_fq_qparams(str(art)))
+    check(rc == 0 and last["status"] == "ok" and last["method"] == "fq" and got == zero
+          and n_qp == n_qparams,
+          f"cli.quantize {name} --method fq (PTF+LIS minmax, 2 synthetic {size} scenes) on the card: "
+          f"calibrate {spent['calibrate']:.2f} s, cli {last['elapsed_s']} s (with the weights' "
+          f"fake-quant), {quant_s:.1f} s with the model's load and the artifact's save; "
+          f"{n_qp} qparams (JAX: {n_qparams}); launches {'none' if got == zero else got}"
+          f"  [{card}]")
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = infer_cli.main([name, "--checkpoint", str(pth), "--load", str(art), "--benchmark",
+                             "--bench-iters", "2", "--bench-warmup", "1"])
+    got = counts()
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and got == zero and "loaded FQ activation qparams" in err.getvalue()
+          and last["encoder_s_per_image"] > 0,
+          f"cli.infer {name} --load (FQ) --benchmark: {last['encoder_s_per_image'] * 1e3:.1f} ms "
+          f"an image (mean of 2, float32, eager), launches {'none' if got == zero else got}"
+          f"  [{card}]")
+
+    qmodel, qcfg = build_model(argparse.Namespace(model=name, checkpoint=str(pth),
+                                                  ckpt_name="best", load=str(art)), dev)
+    fqcfg = fq.FQConfig(int_softmax=qcfg["lis"], int_norm=qcfg["ptf"],
+                        observer_a=qcfg["quant_method"])
+    qparams = fq.qparams_to(artifacts.load_fq_qparams(str(art)), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    with torch.no_grad(), full_float32():
+        for _ in range(FQ_ITERS):
+            ctx = fq.FQCtx("quant", fqcfg, qparams=qparams)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e = sam_lib.encode_image(qmodel, held_out, "kernel", ctx).float()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print_device_profile(f"FQ encode {name}", lambda: sam_lib.encode_image(
+            qmodel, held_out, "kernel", fq.FQCtx("quant", fqcfg, qparams=qparams)), ranges=(
+            (fq.int_ops, "log_int_softmax", "log-int softmax"),
+            (fq.int_ops, "int_layer_norm", "integer LN"),
+            (fq.quantizers, "uniform_fake_quant", "fake-quant")))
+    rel = float((e - fp_out).norm() / fp_out.norm())
+    ms = sorted(times)
+    depth = qmodel.config.image_encoder.depth
+    check(got == zero and len(ctx.ln_modes) == 2 * depth + 2
+          and set(ctx.ln_modes.values()) == {"int"} and bool(torch.isfinite(e).all()) and rel < 1.0,
+          f"FQ encode {name} f32 (FQCtx quant, attn_impl=kernel: the eager branch): median "
+          f"{ms[len(ms) // 2]:.1f} ms, min {ms[0]:.1f}, max {ms[-1]:.1f} over {len(ms)} (first "
+          f"{times[0]:.1f}); launches {'none' if got == zero else got}; {len(ctx.ln_modes)} LNs "
+          f"all int; embedding vs float32 eager of the unquantized weights rel L2 {rel:.4e} "
+          f"(random weights, a reading; < 1); peak memory {peak:.2f} GiB  [{card}]")
+    del qmodel, qparams, e, fp_out
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"FQ phase: {time.perf_counter() - phase_t:.1f} s  [{card}]")
 
 
 def amg_server_phase(dev, card: str, vit_h, images, flash_launches: dict, w4_launches: dict,
@@ -2089,6 +2338,10 @@ def main() -> int:
     gptq_solver_phase(dev, card)
     gptq_encoder_phase(dev, card, "vit_h", vit_h, images[0], w4_launches, reset_counts, counts,
                        repo / "build" / "chip_gptq")
+
+    # ------------------------------------------------------------------- FQ-ViT
+    fq_phase(dev, card, "vit_h", vit_h, FQ_QPARAMS_VIT_H, reset_counts, counts, zero,
+             repo / "build" / "chip_fq")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

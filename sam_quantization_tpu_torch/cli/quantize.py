@@ -1,4 +1,5 @@
-"""Quantization CLI: GPTQ or RTN calibration and packing of the image encoder.
+"""Quantization CLI: GPTQ or RTN calibration and packing of the image
+encoder, or FQ-ViT calibration.
 
 Counterpart of ``sam_quantization_tpu/cli/quantize.py``, with its flags
 (after gptq4sam.py:500-585) and its JSON last line. It writes an artifact
@@ -15,8 +16,13 @@ from seed 0 unless ``--checkpoint`` gives a SAM ``.pth``. ``--bump-worst K``
 ranks the block linears by layerwise SNR at the global config (RTN) and
 re-quantizes the worst K at ``--bump-bits``; ``--sym --act-scales`` stores
 the static activation scales that ``cli.infer --serve-int8`` reads.
-Calibration runs in float32 with TF32 off. ``--method fq`` (FQ-ViT) is not
-ported (ROADMAP, Queue 1, item 4).
+
+``--method fq`` calibrates FQ-ViT on the first ``--calib-iter`` images
+(``--quant-method`` observer; PTF and LIS unless ``--no-ptf`` /
+``--no-lis``) and saves the encoder with fake-quantized int8 weights and its
+activation quantizers in ``fq_qparams.npz``, JAX's format, which
+``cli.infer --load`` serves through ``FQCtx("quant")``. Calibration runs in
+float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ def build_parser(parser=None):
     p.add_argument("--percdamp", type=float, default=0.01)
     p.add_argument("--nsamples", type=int, default=16)
     p.add_argument("--nearest", action="store_true", help="RTN instead of GPTQ")
-    # FQ flags (fq_vit/test_quant.py:24-53), kept for the JAX CLI's command lines
+    # FQ flags (fq_vit/test_quant.py:24-53)
     p.add_argument("--ptf", action="store_true", default=True)
     p.add_argument("--no-ptf", dest="ptf", action="store_false")
     p.add_argument("--lis", action="store_true", default=True)
@@ -104,23 +110,16 @@ def main(argv=None):
     p = build_parser()
     add_platform_arg(p)
     args = p.parse_args(argv)
-    if args.method == "fq":
-        raise NotImplementedError(
-            "--method fq (FQ-ViT calibration) is not ported yet (ROADMAP, Queue 1, "
-            "item 4, 'FQ-ViT'); use the JAX package's cli.quantize for it"
-        )
 
     import torch
 
     from sam_quantization_tpu_torch.models import build_sam
     from sam_quantization_tpu_torch.models import sam as sam_lib
-    from sam_quantization_tpu_torch.quant import artifacts, gptq, sequential
     from sam_quantization_tpu_torch.quant.overrides import QuantOverrides
 
     device = device_of(args)
     model = build_sam.sam_model_registry[args.model](
         checkpoint=args.checkpoint, device=device, seed=0)
-    encoder = model.image_encoder
     img_size = model.config.image_encoder.img_size
 
     def calib_batches():
@@ -133,6 +132,55 @@ def main(argv=None):
             overrides = QuantOverrides.from_json(f.read())
 
     t0 = time.time()
+    if args.method == "fq":
+        quant_config = _fq(args, model, calib_batches()[: args.calib_iter], overrides)
+    else:
+        quant_config = _gptq(args, model, calib_batches, overrides)
+    print(
+        json.dumps(
+            {
+                "status": "ok",
+                "method": quant_config["method"],
+                "elapsed_s": round(time.time() - t0, 2),
+                "save": args.save,
+            }
+        )
+    )
+    return 0
+
+
+def _fq(args, model, batches, overrides) -> dict:
+    """FQ-ViT (JAX cli/quantize.py:118-152): calibrate, fake-quantize the
+    encoder's weights in place, save it with its qparams."""
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.quant import artifacts
+    from sam_quantization_tpu_torch.quant.fq.pipeline import (
+        FQConfig, calibrate_encoder, fq_quantize_weights,
+    )
+
+    fqcfg = FQConfig(int_softmax=args.lis, int_norm=args.ptf, observer_a=args.quant_method)
+    qparams = calibrate_encoder(model.image_encoder, fqcfg, batches, overrides=overrides)
+    enc = fq_quantize_weights(model.image_encoder, fqcfg, inplace=True)
+    quant_config = {
+        "method": "fq",
+        "ptf": args.ptf,
+        "lis": args.lis,
+        "quant_method": args.quant_method,
+        "overrides": overrides.to_json() if overrides else None,
+    }
+    if args.save:
+        artifacts.save_quantized(args.save, build_sam.to_jax_encoder(enc), quant_config)
+        artifacts.save_fq_qparams(args.save, qparams)
+    return quant_config
+
+
+def _gptq(args, model, calib_batches, overrides) -> dict:
+    """GPTQ or RTN (``--method rtn`` / ``--nearest``) packing of the encoder."""
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.quant import artifacts, gptq, sequential
+    from sam_quantization_tpu_torch.quant.overrides import QuantOverrides
+
+    encoder = model.image_encoder
     qcfg = gptq.GPTQConfig(
         bits=args.wbits,
         groupsize=args.groupsize,
@@ -187,17 +235,7 @@ def main(argv=None):
         quant_config["act_scales"] = act_scales
     if args.save:
         artifacts.save_quantized(args.save, build_sam.to_jax_encoder(enc), quant_config)
-    print(
-        json.dumps(
-            {
-                "status": "ok",
-                "method": quant_config["method"],
-                "elapsed_s": round(time.time() - t0, 2),
-                "save": args.save,
-            }
-        )
-    )
-    return 0
+    return quant_config
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ import torch
 from sam_quantization_tpu_torch.evaluation import metrics
 from sam_quantization_tpu_torch.evaluation.clicker import Clicker, next_random_click
 from sam_quantization_tpu_torch.models import sam as sam_lib
+from sam_quantization_tpu_torch.quant.context import NULL_CTX
 
 
 @dataclasses.dataclass
@@ -53,13 +54,16 @@ class ClickEvalResult:
         return self.mean_ious[-1]
 
 
-def make_sam_backend(model: sam_lib.Sam, attn_impl: str = "kernel"):
+def make_sam_backend(model: sam_lib.Sam, ctx=None, attn_impl: str = "kernel"):
     """(encode, decode) closures over a ``Sam`` on its device.
 
-    ``encode`` runs the encoder in the dtype of its weights; ``decode``
-    runs the prompt encoder and decoder in float32 with one mask output and
+    ``encode`` runs the encoder in the dtype of its weights, through the
+    quantization context ``ctx`` when given (an FQ-ViT ``FQCtx("quant")``:
+    the eager branch); ``decode`` runs the prompt encoder and decoder in
+    float32 with one mask output, without the context (as JAX's does), and
     upsamples the low-res logits to the input frame (bilinear, half-pixel
     centres, as ``jax.image.resize`` does)."""
+    ctx = ctx or NULL_CTX
     dev = model.device
     dtype = model.image_encoder.patch_embed.proj.weight.dtype
     size = model.config.image_encoder.img_size
@@ -67,7 +71,7 @@ def make_sam_backend(model: sam_lib.Sam, attn_impl: str = "kernel"):
     @torch.inference_mode()
     def encode(x) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(x, np.float32), device=dev).to(dtype)
-        return sam_lib.encode_image(model, x, attn_impl)
+        return sam_lib.encode_image(model, x, attn_impl, ctx)
 
     @torch.inference_mode()
     def decode(emb, coords, labels, mask_input, mask_valid):

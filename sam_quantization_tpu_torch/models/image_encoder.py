@@ -25,6 +25,15 @@ Attention has four branches:
 
 On a CPU tensor the kernel wrappers run their plain versions.
 
+Every forward takes a quantization context (``quant.context``), called at
+the JAX package's observation points under its path strings (``blocks.3.
+attn.qact_attn1``, ``blocks.3.norm2``, ``neck.ln1``, ...). The kernel,
+``flash_train`` and fused-MLP branches run only under ``NullCtx`` itself,
+as JAX guards them with ``type(ctx) is type(NULL_CTX)``: any other context
+(FQ-ViT's ``FQCtx``) runs the eager branch, whose hooks it needs, whatever
+``attn_impl`` says. Under ``NULL_CTX`` the hooks call the modules or return
+their inputs, so the float, GPTQ and packed paths run the ops they ran.
+
 Any of a block's four linears may be a ``PackedLinear`` (a quantized
 encoder): qkv and proj then run the dequant-matmul kernel (the W-A8 kernels
 for ``act_bits == 8``), and under ``attn_impl="kernel"`` an MLP whose two
@@ -51,6 +60,7 @@ from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, MLPBlock
 from sam_quantization_tpu_torch.nn.packed import IntLinear
 from sam_quantization_tpu_torch.ops import flash_attention, fused_mlp
+from sam_quantization_tpu_torch.quant.context import NULL_CTX, NullCtx
 
 ATTN_IMPLS = ("kernel", "flash_train", "eager")
 # The linears of a Block, as (child, attribute): the layers a quantized
@@ -191,27 +201,31 @@ class Attention(nn.Module):
             return float(1.0 / torch.tensor(proj.in_scale_value, dtype=torch.float32))
         return None
 
-    def forward(self, x: torch.Tensor, windowed: bool, attn_impl: str = "kernel"):
+    def forward(self, x: torch.Tensor, windowed: bool, attn_impl: str = "kernel",
+                ctx=NULL_CTX, path: str = "attn"):
         """(B, H, W, C) tokens -> (B, H, W, C); ``windowed`` selects the
-        packed windowed kernel for the kernel branch (with rel-pos)."""
+        packed windowed kernel for the kernel branch (with rel-pos).
+        Observation points: fq_vit/models/sam/image_encoder.py:446-478."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         cfg = self.cfg
         B, H, W, C = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
         L = H * W
-        qkv = self.qkv(x.reshape(B, L, C))
+        qkv = ctx.linear(f"{path}.qkv", self.qkv, x.reshape(B, L, C))
+        qkv = ctx.act(f"{path}.qact1", qkv)
+        hookless = type(ctx) is NullCtx  # the kernels have no observation points
 
-        if attn_impl == "kernel" and windowed and cfg.use_rel_pos:
-            out = self._packed_rel_and_flash(qkv, H, W)
-            return self.proj(out.reshape(B, H, W, C))
+        if hookless and attn_impl == "kernel" and windowed and cfg.use_rel_pos:
+            out = self._packed_rel_and_flash(qkv, H, W).reshape(B, H, W, C)
+            return self._project(out, ctx, path)
 
         qkv = qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, L, hd)
         q2 = q.reshape(B * nh, L, hd)
-        train = (attn_impl == "flash_train" and cfg.use_rel_pos
+        train = (hookless and attn_impl == "flash_train" and cfg.use_rel_pos
                  and L <= flash_attention.WHOLE_MAX_L)
-        if attn_impl == "kernel" or train:
+        if (hookless and attn_impl == "kernel") or train:
             rel_h = rel_w = None
             if cfg.use_rel_pos:
                 rel_h, rel_w = decomposed_rel_pos_tiles(
@@ -229,50 +243,72 @@ class Attention(nn.Module):
             k2 = k.reshape(B * nh, L, hd)
             v2 = v.reshape(B * nh, L, hd)
             attn = torch.matmul((q2 * hd**-0.5).float(), k2.float().transpose(-1, -2))
-            attn = attn.to(x.dtype)
+            attn = ctx.act(f"{path}.qact_attn1", attn.to(x.dtype))
+            scale_path = f"{path}.qact_attn1"
             if cfg.use_rel_pos:
                 attn = add_decomposed_rel_pos(
                     attn, q2, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W)
                 )
+                attn = ctx.act(f"{path}.rel_pos_qact", attn)
+                scale_path = f"{path}.rel_pos_qact"
             if self.logit_observer is not None:
                 self.logit_observer(attn)
-            attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
+            attn = ctx.softmax(f"{path}.softmax", attn, scale_path=scale_path)
             out = torch.matmul(attn.float(), v2.float()).to(x.dtype)
+            del attn
         out = out.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
-        return self.proj(out)
+        return self._project(out, ctx, path)
+
+    def _project(self, out: torch.Tensor, ctx, path: str) -> torch.Tensor:
+        out = ctx.act(f"{path}.qact2", out)
+        out = ctx.linear(f"{path}.proj", self.proj, out)
+        return ctx.act(f"{path}.qact3", out)
 
 
 class Block(nn.Module):
-    """One transformer block (ref Block.forward, image_encoder.py:189-207)."""
+    """One transformer block (ref Block.forward, image_encoder.py:189-207;
+    observation points fq_vit image_encoder.py:313-331), at the JAX path
+    ``blocks.{idx}``."""
 
     def __init__(self, cfg: ImageEncoderConfig, idx: int, *, gen=None, device="cpu"):
         super().__init__()
         self.cfg = cfg
         self.window_size = cfg.block_window(idx)
+        self.path = f"blocks.{idx}"
+        # the previous residual's quantizer feeds norm1's integer LN
+        self.in_path = f"blocks.{idx - 1}.qact4" if idx > 0 else "qact_embed"
         C = cfg.embed_dim
         self.norm1 = LayerNorm(C, cfg.ln_eps, device=device)
         self.attn = Attention(cfg, cfg.block_input_size(idx), gen=gen, device=device)
         self.norm2 = LayerNorm(C, cfg.ln_eps, device=device)
         self.mlp = MLPBlock(C, cfg.mlp_dim, gen=gen, device=device)
 
-    def forward(self, x: torch.Tensor, attn_impl: str = "kernel") -> torch.Tensor:
-        ws = self.window_size
+    def forward(self, x: torch.Tensor, attn_impl: str = "kernel", ctx=NULL_CTX) -> torch.Tensor:
+        ws, path = self.window_size, self.path
         shortcut = x
-        x = self.norm1(x)
+        x = ctx.layer_norm(f"{path}.norm1", self.norm1, x, in_path=self.in_path,
+                           out_path=f"{path}.qact1")
+        x = ctx.act(f"{path}.qact1", x)
         H, W = x.shape[1], x.shape[2]
         if ws > 0:
             x, pad_hw = window_partition(x, ws)
-        x = self.attn(x, windowed=ws > 0, attn_impl=attn_impl)
+        x = self.attn(x, windowed=ws > 0, attn_impl=attn_impl, ctx=ctx, path=f"{path}.attn")
         if ws > 0:
             x = window_unpartition(x, ws, pad_hw, (H, W))
-        x = shortcut + x
-        h = self.norm2(x)
-        lin1, lin2 = self.mlp.lin1, self.mlp.lin2
-        if attn_impl == "kernel" and fused_mlp.fused_mlp_supported(lin1, lin2):
-            h = fused_mlp.fused_mlp(h, lin1, lin2)
+        x = ctx.act(f"{path}.qact2", shortcut + x, ln_input=True)
+        h = ctx.layer_norm(f"{path}.norm2", self.norm2, x, in_path=f"{path}.qact2",
+                           out_path=f"{path}.qact3")
+        h = ctx.act(f"{path}.qact3", h)
+        mlp = self.mlp
+        if (type(ctx) is NullCtx and attn_impl == "kernel"
+                and fused_mlp.fused_mlp_supported(mlp.lin1, mlp.lin2)):
+            h = fused_mlp.fused_mlp(h, mlp.lin1, mlp.lin2)
         else:
-            h = self.mlp(h)
-        return x + h
+            h = mlp.act(ctx.linear(f"{path}.mlp.lin1", mlp.lin1, h))
+            h = ctx.act(f"{path}.mlp.qact1", h)
+            h = ctx.linear(f"{path}.mlp.lin2", mlp.lin2, h)
+            h = ctx.act(f"{path}.mlp.qact2", h)
+        return ctx.act(f"{path}.qact4", x + h, ln_input=True)
 
 
 class ImageEncoderViT(nn.Module):
@@ -303,14 +339,30 @@ class ImageEncoderViT(nn.Module):
             LayerNorm(cfg.out_chans, cfg.ln_eps, device=device),
         )
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed.proj(x)
+    def embed(self, x: torch.Tensor, ctx=NULL_CTX) -> torch.Tensor:
+        """Patch embed + abs pos embed: (B, H, W, 3) -> (B, h, w, C)."""
+        x = ctx.conv2d("patch_embed", self.patch_embed.proj, x)
         if self.cfg.use_abs_pos:
             x = x + self.pos_embed.to(x.dtype)
-        return x
+        return ctx.act("qact_embed", x, ln_input=True)
 
-    def forward(self, x: torch.Tensor, attn_impl: str = "kernel") -> torch.Tensor:
-        x = self.embed(x)
+    def neck_forward(self, x: torch.Tensor, ctx=NULL_CTX) -> torch.Tensor:
+        """1x1 conv -> LN2d -> 3x3 conv -> LN2d (ref image_encoder.py:88-104)
+        through ``self.neck``'s modules, at JAX's ``neck.*`` points: both
+        channel LNs can run as integer LNs (QIntLayerNorm2D, fq_vit
+        models/sam/common.py:91-148), a last-axis LN in NHWC."""
+        conv1, ln1, conv2, ln2 = self.neck
+        x = ctx.conv2d("neck.conv1", conv1, x)
+        x = ctx.act("neck.qact_ln1_in", x, ln_input=True)
+        x = ctx.layer_norm("neck.ln1", ln1, x, in_path="neck.qact_ln1_in", out_path="neck.qact1")
+        x = ctx.act("neck.qact1", x)
+        x = ctx.conv2d("neck.conv2", conv2, x)
+        x = ctx.act("neck.qact_ln2_in", x, ln_input=True)
+        x = ctx.layer_norm("neck.ln2", ln2, x, in_path="neck.qact_ln2_in", out_path="neck.qact2")
+        return ctx.act("neck.qact2", x)
+
+    def forward(self, x: torch.Tensor, attn_impl: str = "kernel", ctx=NULL_CTX) -> torch.Tensor:
+        x = self.embed(x, ctx)
         for blk in self.blocks:
-            x = blk(x, attn_impl)
-        return self.neck(x)
+            x = blk(x, attn_impl, ctx)
+        return self.neck_forward(x, ctx)

@@ -2,7 +2,11 @@
 
 Counterpart of ``sam_quantization_tpu/models/mask_decoder.py``: iou / mask
 tokens + TwoWayTransformer, 2x transposed-conv upscaling (NHWC), one
-hypernetwork MLP per mask token, and the IoU prediction head.
+hypernetwork MLP per mask token, and the IoU prediction head. A
+quantization context is called at JAX's points: the upscaling's
+``mask_decoder.*`` (its LN2d as ``mask_decoder.up_ln``), the hypernetworks'
+linears as ``mask_decoder.hyper.{i}.layers.{j}`` and the IoU head's as
+``mask_decoder.iou_head.layers.{j}``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from sam_quantization_tpu_torch.models.configs import MaskDecoderConfig
 from sam_quantization_tpu_torch.models.transformer import TwoWayTransformer
 from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import ConvTranspose2d, Embedding, LayerNorm, Linear
+from sam_quantization_tpu_torch.quant.context import NULL_CTX
 
 
 class MLP(nn.Module):
@@ -28,10 +33,10 @@ class MLP(nn.Module):
             Linear(dims[i], dims[i + 1], gen=gen, device=device) for i in range(num_layers)
         )
 
-    def forward(self, x):
+    def forward(self, x, ctx=NULL_CTX, path: str = ""):
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = ctx.linear(f"{path}.layers.{i}", layer, x)
             if i < n - 1:
                 x = torch.relu(x)
         return x
@@ -59,7 +64,7 @@ class MaskDecoder(nn.Module):
             gen=gen, device=device,
         )
 
-    def predict_masks(self, image_embeddings, image_pe, sparse, dense):
+    def predict_masks(self, image_embeddings, image_pe, sparse, dense, ctx=NULL_CTX):
         """image_embeddings (1 or B, h, w, C), dense (B, h, w, C), sparse
         (B, N, C) -> masks (B, num_mask_tokens, 4h, 4w), iou (B, num_mask_tokens)."""
         cfg = self.cfg
@@ -70,24 +75,32 @@ class MaskDecoder(nn.Module):
 
         src = image_embeddings.expand(B, -1, -1, -1) + dense.to(image_embeddings.dtype)
         _, h, w, c = src.shape
-        hs, src = self.transformer(src, image_pe, tokens)
+        hs, src = self.transformer(src, image_pe, tokens, ctx)
         iou_token_out = hs[:, 0, :]
         mask_tokens_out = hs[:, 1 : 1 + cfg.num_mask_tokens, :]
 
         up = self.output_upscaling
-        x = F.gelu(up["1"](up["0"](src.reshape(B, h, w, c))))
-        upscaled = F.gelu(up["3"](x))  # (B, 4h, 4w, d // 8)
+        x = ctx.conv_transpose2d("mask_decoder.convt1", up["0"], src.reshape(B, h, w, c))
+        x = ctx.act("mask_decoder.qact_up_ln_in", x, ln_input=True)
+        x = ctx.layer_norm("mask_decoder.up_ln", up["1"], x,
+                           in_path="mask_decoder.qact_up_ln_in", out_path="mask_decoder.qact_up_ln")
+        x = F.gelu(ctx.act("mask_decoder.qact_up_ln", x))
+        x = ctx.act("mask_decoder.qact_up1", x)
+        x = ctx.conv_transpose2d("mask_decoder.convt2", up["3"], x)
+        upscaled = ctx.act("mask_decoder.qact_up2", F.gelu(x))  # (B, 4h, 4w, d // 8)
 
         hyper_in = torch.stack(
-            [mlp(mask_tokens_out[:, i, :]) for i, mlp in enumerate(self.output_hypernetworks_mlps)],
+            [mlp(mask_tokens_out[:, i, :], ctx, f"mask_decoder.hyper.{i}")
+             for i, mlp in enumerate(self.output_hypernetworks_mlps)],
             dim=1,
         )  # (B, num_mask_tokens, d // 8)
         masks = torch.einsum("bnc,bhwc->bnhw", hyper_in.float(), upscaled.float())
         masks = masks.to(upscaled.dtype)
-        return masks, self.iou_prediction_head(iou_token_out)
+        return masks, self.iou_prediction_head(iou_token_out, ctx, "mask_decoder.iou_head")
 
-    def forward(self, image_embeddings, image_pe, sparse, dense, multimask_output: bool):
-        masks, iou_pred = self.predict_masks(image_embeddings, image_pe, sparse, dense)
+    def forward(self, image_embeddings, image_pe, sparse, dense, multimask_output: bool,
+                ctx=NULL_CTX):
+        masks, iou_pred = self.predict_masks(image_embeddings, image_pe, sparse, dense, ctx)
         if multimask_output:
             return masks[:, 1:], iou_pred[:, 1:]
         return masks[:, :1], iou_pred[:, :1]

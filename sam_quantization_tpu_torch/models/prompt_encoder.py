@@ -5,6 +5,8 @@ Fourier positional encoding, point / box / mask prompt embedding, and the
 ``no_mask_embed`` fallback. Prompts are fixed-shape padded tensors: a point
 label of ``-1`` marks a padding slot, and ``mask_valid`` selects per batch
 row between the mask embedding and ``no_mask_embed``. Dense outputs are NHWC.
+The mask downscaling calls its modules through a quantization context at
+JAX's ``prompt_encoder.*`` points, so FQ-ViT reaches its two LN2ds.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 from sam_quantization_tpu_torch.models.configs import PromptEncoderConfig
 from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, Embedding, LayerNorm
+from sam_quantization_tpu_torch.quant.context import NULL_CTX
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -100,12 +103,23 @@ class PromptEncoder(nn.Module):
         )
         return pe + corner_embed
 
-    def embed_masks(self, masks: torch.Tensor) -> torch.Tensor:
-        """(B, 4h, 4w, 1) NHWC mask logits -> (B, h, w, d)."""
+    def embed_masks(self, masks: torch.Tensor, ctx=NULL_CTX) -> torch.Tensor:
+        """(B, 4h, 4w, 1) NHWC mask logits -> (B, h, w, d) (JAX
+        prompt_encoder.py:108-133)."""
         md = self.mask_downscaling
-        x = F.gelu(md["1"](md["0"](masks)))
-        x = F.gelu(md["4"](md["3"](x)))
-        return md["6"](x)
+        x = ctx.conv2d("prompt_encoder.mask_conv1", md["0"], masks)
+        x = ctx.act("prompt_encoder.qact_mln1_in", x, ln_input=True)
+        x = ctx.layer_norm("prompt_encoder.mask_ln1", md["1"], x,
+                           in_path="prompt_encoder.qact_mln1_in",
+                           out_path="prompt_encoder.qact_mln1")
+        x = F.gelu(ctx.act("prompt_encoder.qact_mln1", x))
+        x = ctx.conv2d("prompt_encoder.mask_conv2", md["3"], x)
+        x = ctx.act("prompt_encoder.qact_mln2_in", x, ln_input=True)
+        x = ctx.layer_norm("prompt_encoder.mask_ln2", md["4"], x,
+                           in_path="prompt_encoder.qact_mln2_in",
+                           out_path="prompt_encoder.qact_mln2")
+        x = F.gelu(ctx.act("prompt_encoder.qact_mln2", x))
+        return ctx.conv2d("prompt_encoder.mask_conv3", md["6"], x)
 
     def no_mask_dense(self, batch: int) -> torch.Tensor:
         h, w = self.cfg.image_embedding_size
@@ -117,6 +131,7 @@ class PromptEncoder(nn.Module):
         boxes: Optional[torch.Tensor] = None,
         masks: Optional[torch.Tensor] = None,
         mask_valid: Optional[torch.Tensor] = None,
+        ctx=NULL_CTX,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sparse (B, N, d) and dense (B, h, w, d) prompt embeddings."""
         parts = []
@@ -134,7 +149,7 @@ class PromptEncoder(nn.Module):
             else torch.zeros(bs, 0, self.cfg.embed_dim, device=dev)
         )
         if masks is not None:
-            dense = self.embed_masks(masks)
+            dense = self.embed_masks(masks, ctx)
             if mask_valid is not None:
                 dense = torch.where(
                     mask_valid.reshape(-1, 1, 1, 1), dense, self.no_mask_dense(bs)

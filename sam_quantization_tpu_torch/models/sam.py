@@ -20,6 +20,7 @@ from sam_quantization_tpu_torch.models.configs import SamConfig
 from sam_quantization_tpu_torch.models.image_encoder import ImageEncoderViT
 from sam_quantization_tpu_torch.models.mask_decoder import MaskDecoder
 from sam_quantization_tpu_torch.models.prompt_encoder import PromptEncoder
+from sam_quantization_tpu_torch.quant.context import NULL_CTX
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -75,9 +76,12 @@ def preprocess(model: Sam, x: torch.Tensor) -> torch.Tensor:
     return TF.pad(x, (0, 0, 0, size - W, 0, size - H))
 
 
-def encode_image(model: Sam, x: torch.Tensor, attn_impl: str = "kernel") -> torch.Tensor:
-    """(B, img, img, 3) preprocessed image -> (B, h, w, 256) embedding, in x's dtype."""
-    return model.image_encoder(x, attn_impl)
+def encode_image(model: Sam, x: torch.Tensor, attn_impl: str = "kernel",
+                 ctx=NULL_CTX) -> torch.Tensor:
+    """(B, img, img, 3) preprocessed image -> (B, h, w, 256) embedding, in x's
+    dtype, through the quantization context ``ctx`` (JAX sam.py:65-71; a
+    context other than ``NULL_CTX`` runs the eager branch)."""
+    return model.image_encoder(x, attn_impl, ctx)
 
 
 def get_dense_pe(model: Sam) -> torch.Tensor:
@@ -92,13 +96,15 @@ def decode_masks(
     mask_inputs: Optional[torch.Tensor] = None,
     mask_valid: Optional[torch.Tensor] = None,
     multimask_output: bool = True,
+    ctx=NULL_CTX,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prompt-encode + decode. Returns (low_res_masks (B, N, 4h, 4w), iou_pred)."""
+    """Prompt-encode + decode through ``ctx``. Returns (low_res_masks
+    (B, N, 4h, 4w), iou_pred)."""
     sparse, dense = model.prompt_encoder(
-        points=points, boxes=boxes, masks=mask_inputs, mask_valid=mask_valid
+        points=points, boxes=boxes, masks=mask_inputs, mask_valid=mask_valid, ctx=ctx
     )
     return model.mask_decoder(
-        image_embeddings, get_dense_pe(model), sparse, dense, multimask_output
+        image_embeddings, get_dense_pe(model), sparse, dense, multimask_output, ctx
     )
 
 

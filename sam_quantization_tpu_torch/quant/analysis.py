@@ -10,8 +10,9 @@ The JAX capture contexts become forward hooks. Outputs are keyed by the
 JAX package's paths (``patch_embed``, ``blocks.3.attn.qkv``,
 ``blocks.3.mlp.lin1``, ``neck.conv1``, ...), so the two packages' reports
 compare key by key. Both encoders run their ``"eager"`` branch, as JAX's run
-``"xla"``. The FQ contexts JAX's graphwise analysis takes are not ported
-(ROADMAP, Queue 1, "FQ-ViT").
+``"xla"``, each through its quantization context where one is given (an FQ
+model: the fake-quantized encoder with ``FQCtx("quant", ...)``); a context
+calls the modules, so the hooks see what it computes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Dict, Iterable, List
 import torch
 
 from sam_quantization_tpu_torch.models.image_encoder import BLOCK_LINEARS
+from sam_quantization_tpu_torch.quant.context import NULL_CTX
 
 
 def snr_db(ref: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
@@ -52,7 +54,7 @@ def _forward_hooks(modules: Dict[str, torch.nn.Module], make: Callable):
             h.remove()
 
 
-def _outputs(encoder, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _outputs(encoder, x: torch.Tensor, ctx) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def make(path):
@@ -61,7 +63,7 @@ def _outputs(encoder, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return hook
 
     with _forward_hooks(_ops(encoder), make):
-        encoder(x, "eager")
+        encoder(x, "eager", ctx or NULL_CTX)
     return out
 
 
@@ -69,15 +71,17 @@ def _mean(acc: Dict[str, List[float]]) -> Dict[str, float]:
     return {k: sum(v) / len(v) for k, v in acc.items()}
 
 
-def graphwise_error_analyse(fp_encoder, q_encoder, batches: Iterable[torch.Tensor]) -> Dict[str, float]:
+def graphwise_error_analyse(fp_encoder, q_encoder, batches: Iterable[torch.Tensor],
+                            q_ctx=None, fp_ctx=None) -> Dict[str, float]:
     """Per-op SNR (dB) of the quantized encoder against the dense one,
     averaged over ``batches``. The quantized graph runs on its own
-    (quantized) activations (graphwise semantics); see
+    (quantized) activations (graphwise semantics), through ``q_ctx`` (and
+    the dense one through ``fp_ctx``) when given; see
     :func:`layerwise_error_analyse` for each layer's error alone."""
     acc: Dict[str, List[float]] = {}
     with torch.no_grad():
         for x in batches:
-            yf, yq = _outputs(fp_encoder, x), _outputs(q_encoder, x)
+            yf, yq = _outputs(fp_encoder, x, fp_ctx), _outputs(q_encoder, x, q_ctx)
             for k in yf:
                 if k in yq:
                     acc.setdefault(k, []).append(float(snr_db(yf[k], yq[k])))

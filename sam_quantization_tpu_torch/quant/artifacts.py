@@ -14,6 +14,11 @@ fields (the dataclass fields of the JAX ``PackedLinear``, so a dict with a
 installs it on a model. Layers left dense (``--overrides`` skips) stay
 ``{"w", "b"}`` dicts, and per-layer bit widths and ``act_bits`` load as
 they are.
+
+An FQ-ViT artifact (``method == "fq"``) holds the dense encoder with
+fake-quantized weights in the same files, and its activation quantizers in
+``fq_qparams.npz`` under JAX's keys ``{path}.scale`` / ``{path}.zero``
+(:func:`save_fq_qparams`, :func:`load_fq_qparams`).
 """
 
 from __future__ import annotations
@@ -111,12 +116,9 @@ def _unflatten(arrays: Dict[str, np.ndarray], meta: Dict[str, Any]) -> Any:
 
 
 def load_quantized(directory: str) -> Tuple[Any, Dict[str, Any]]:
-    """Load (encoder tree, quant_config) from a ``save_quantized`` directory.
-
-    Weight-only and int8-activation (``act_bits == 8``) layers load as they
-    are. Raises ``NotImplementedError`` for FQ-ViT artifacts (``method ==
-    "fq"``), whose serving path is not ported yet.
-    """
+    """Load (encoder tree, quant_config) from a ``save_quantized`` directory:
+    packed layers as their fields, or, for an FQ-ViT artifact, the dense
+    fake-quantized encoder (its activation qparams: :func:`load_fq_qparams`)."""
     if not os.path.isfile(os.path.join(directory, "quant_config.json")):
         raise FileNotFoundError(
             f"{directory!r} is not a quantized-artifact directory (missing "
@@ -125,13 +127,36 @@ def load_quantized(directory: str) -> Tuple[Any, Dict[str, Any]]:
         )
     with open(os.path.join(directory, "quant_config.json")) as f:
         cfg = json.load(f)
-    if cfg.get("method") == "fq":
-        raise NotImplementedError(
-            "FQ-ViT artifacts (method 'fq') need the fake-quant context, which comes "
-            "with the FQ-ViT slice (ROADMAP, Queue 1, 'FQ-ViT')"
-        )
     with open(os.path.join(directory, "structure.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(directory, "weights.npz")) as npz:
         arrays = dict(npz)
     return _unflatten(arrays, meta), cfg
+
+
+FQ_QPARAMS = "fq_qparams.npz"
+
+
+def save_fq_qparams(directory: str, qparams: Dict[str, Tuple[Any, Any]]) -> None:
+    """Write ``{path: (scale, zero)}`` (arrays or tensors) as ``fq_qparams.npz``
+    with the JAX CLI's keys ``{path}.scale`` and ``{path}.zero``."""
+    def arr(v):
+        return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+    np.savez(os.path.join(directory, FQ_QPARAMS),
+             **{f"{k}.{kind}": arr(v) for k, (scale, zero) in qparams.items()
+                for kind, v in (("scale", scale), ("zero", zero))})
+
+
+def load_fq_qparams(directory: str) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """``{path: (scale, zero)}`` numpy arrays of an artifact's
+    ``fq_qparams.npz`` ({} when it has none, as the JAX CLI reads it)."""
+    path = os.path.join(directory, FQ_QPARAMS)
+    if not os.path.exists(path):
+        return {}
+    out: Dict[str, list] = {}
+    with np.load(path) as raw:
+        for key in raw.files:
+            point, kind = key.rsplit(".", 1)
+            out.setdefault(point, [None, None])[("scale", "zero").index(kind)] = raw[key]
+    return {k: (s, z) for k, (s, z) in out.items()}

@@ -11,8 +11,10 @@ layer's path (e.g. ``blocks.7.mlp.lin2``); every matching rule merges, the
 later ones taking precedence, so broad rules go first and surgical
 exceptions after. ``quant.sequential`` reads ``bits`` / ``groupsize`` /
 ``sym`` in place of the global ``GPTQConfig``'s and leaves a ``skip`` layer
-dense. ``observer`` (an FQ activation observer) is carried for artifacts'
-sake; FQ-ViT is not ported (ROADMAP, Queue 1, "FQ-ViT").
+dense. FQ-ViT (``quant.fq.pipeline.FQCtx``) matches the rules against its
+observation points' paths (``blocks.1.qact2``): ``observer`` replaces the
+activation observer there, ``bits`` its bit type, and ``skip`` leaves the
+point float.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ runs as its own tests run it (``attn_impl="xla"``). Annotations are matched by
 point and crop box, then by nearest predicted IoU, and held to: the same
 count, at most 0.1% of a matched mask's pixels different, bbox within 1 px,
 predicted IoU within 1e-4, stability within 1e-3, and area equal to the
-mask's sum (``AMG_TOL``).
+mask's sum (``AMG_TOL``). ``cli.amg --load-quantized`` of a JAX-written
+GPTQ W4 g32 artifact is held to the same in both packages.
 
 ``tests/data/amg_crossval.json`` is the AMG golden that ``chip_smoke.py``
 holds the card to: the JAX generator's annotations of ``vit_tiny_synth`` on
@@ -26,7 +27,7 @@ import json
 import os
 import pathlib
 import sys
-from contextlib import redirect_stderr
+from contextlib import redirect_stderr, redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from sam_quantization_tpu.automatic_mask_generator import (
     SamAutomaticMaskGenerator as JGenerator,
 )
 from sam_quantization_tpu.cli import amg as jcli
+from sam_quantization_tpu.cli import quantize as jquantize
 from sam_quantization_tpu.data.synthetic import synthetic_samples as jsynthetic
 from sam_quantization_tpu.models import sam as jsam
 from sam_quantization_tpu.models.configs import CONFIGS as JCONFIGS
@@ -356,6 +358,30 @@ def test_cli_matches_jax(random_models, tmp_path, rle):
                 for r in rows[k]]
 
     _assert_close(anns("jax"), anns("port"))
+
+
+def test_cli_load_quantized_matches_jax(random_models, tmp_path):
+    """``--load-quantized`` of a JAX ``cli.quantize`` GPTQ W4 g32 artifact of
+    the random vit_tiny, ``--convert-to-rle``, thresholds off: both CLIs
+    return the same annotations (48), within the golden's tolerances."""
+    _, tm = random_models
+    pth = tmp_path / "vit_tiny.pth"
+    torch.save(tm.state_dict(), pth)
+    np.save(tmp_path / "scene.npy", _image())
+    art = tmp_path / "w4"
+    with redirect_stdout(io.StringIO()), redirect_stderr(io.StringIO()):
+        assert jquantize.main(["vit_tiny", "--checkpoint", str(pth), "--nsamples", "2",
+                               "--wbits", "4", "--groupsize", "32", "--platform", "cpu",
+                               "--save", str(art)]) == 0
+    outs = {}
+    for name, main in (("jax", jcli.main), ("port", tcli.main)):
+        with redirect_stderr(io.StringIO()):
+            assert main(["--input", str(tmp_path / "scene.npy"), "--output", str(tmp_path / name),
+                         "--checkpoint", str(pth), "--load-quantized", str(art),
+                         *_cli_flags(tmp_path, True)]) == 0
+        outs[name] = json.loads((tmp_path / name / "scene.json").read_text())
+    assert len(outs["jax"]) == len(outs["port"]) == 48
+    _assert_close(outs["jax"], outs["port"])
 
 
 # ---------------------------------------------------------------------------

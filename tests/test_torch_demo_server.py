@@ -8,10 +8,15 @@ through ``tests/test_demo_server.py``'s HTTP test: ``demo/decoder_ref.py``
 (the numpy spec of ``decoder.js``) on the served blob and embedding matches
 the server's ``/click`` IoU within 1e-3 and its mask up to the single- vs
 double-bilinear upsample; and each ``/click`` mask is byte-equal to the port
-predictor's ``predict`` on the same weights, image and clicks.
+predictor's ``predict`` on the same weights, image and clicks. Both
+packages' servers with ``--load`` of one ``--sym --act-scales`` artifact and
+``--serve-int8``: the same masks, byte for byte, and ``/embedding`` within
+rel L2 1e-5.
 """
 
 import base64
+import contextlib
+import io
 import json
 import os
 import socket
@@ -82,17 +87,16 @@ def pth(tmp_path_factory):
     return path
 
 
-@pytest.fixture(scope="module")
-def server(pth):
+@contextlib.contextmanager
+def _serving(*argv):
+    """A demo server run as ``python *argv --port P`` from the repo root,
+    until its decoder manifest answers; yields its URL."""
     port = _free_port()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "sam_quantization_tpu_torch.demo_server", "--model", "vit_tiny",
-         "--checkpoint", str(pth), "--platform", "cpu", "--port", str(port)],
-        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-    )
+    proc = subprocess.Popen([sys.executable, *argv, "--port", str(port)], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     url = f"http://127.0.0.1:{port}"
     try:
-        for _ in range(120):
+        for _ in range(240):
             try:
                 urllib.request.urlopen(url + "/decoder_manifest.json", timeout=5)
                 break
@@ -106,6 +110,13 @@ def server(pth):
     finally:
         proc.terminate()
         proc.wait(timeout=10)
+
+
+@pytest.fixture(scope="module")
+def server(pth):
+    with _serving("-m", "sam_quantization_tpu_torch.demo_server", "--model", "vit_tiny",
+                  "--checkpoint", str(pth), "--platform", "cpu") as url:
+        yield url
 
 
 def _get(url, p):
@@ -212,3 +223,35 @@ def test_browser_decode_parity_over_http(server, pth):
     masks, ious, _ = predictor.predict(np.array([[80.0, 60.0]], np.float32),
                                        np.array([1.0], np.float32), multimask_output=False)
     assert srv["iou"] == float(ious[0])
+
+
+def test_int8_servers_match_jax(pth, tmp_path):
+    """The port's server and JAX's ``demo/server.py``, each with ``--load``
+    of the port's ``cli.quantize --sym --act-scales`` artifact (W4 g32) and
+    ``--serve-int8``, on one image and three clicks."""
+    from sam_quantization_tpu_torch.cli import quantize as tquantize
+
+    art = str(tmp_path / "sym")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tquantize.main(["vit_tiny", "--checkpoint", str(pth), "--platform", "cpu",
+                               "--nsamples", "2", "--wbits", "4", "--groupsize", "32", "--sym",
+                               "--act-scales", "--save", art]) == 0
+    flags = ["--model", "vit_tiny", "--checkpoint", str(pth), "--load", art, "--serve-int8"]
+    img = _scene()
+    body = {"rgba": base64.b64encode(img.tobytes()).decode(), "height": H, "width": W}
+    replies = []
+    with _serving("-m", "sam_quantization_tpu_torch.demo_server", *flags, "--platform", "cpu") as port, \
+            _serving(os.path.join("demo", "server.py"), *flags, "--cpu") as jax_url:
+        for url in (port, jax_url):
+            assert _post(url, "/set_image", body)["ok"]
+            emb = json.loads(_get(url, "/embedding"))
+            clicks = [_post(url, "/click", {"x": x, "y": y, "label": lab})
+                      for x, y, lab in [(80.0, 60.0, 1), (25.0, 25.0, 0), (120.0, 90.0, 1)]]
+            replies.append((emb, clicks))
+    (emb_t, clicks_t), (emb_j, clicks_j) = replies
+    assert emb_t["shape"] == emb_j["shape"]
+    et, ej = (np.frombuffer(base64.b64decode(e["embedding"]), np.float32) for e in (emb_t, emb_j))
+    assert np.linalg.norm(et - ej) / np.linalg.norm(ej) <= 1e-5
+    for ct, cj in zip(clicks_t, clicks_j):
+        assert (ct["height"], ct["width"]) == (cj["height"], cj["width"]) == (H, W)
+        assert ct["mask"] == cj["mask"]

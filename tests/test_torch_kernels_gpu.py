@@ -1180,3 +1180,46 @@ def test_gptq_artifact_serves_through_packed_kernels_on_card(cuda, tmp_path):
     assert tqm.LAUNCHES["quant_matmul"] == before["quant_matmul"] + 4
     assert tfm.LAUNCHES["fused_mlp"] == before["fused_mlp"] + 2
     assert float((out - ref).norm() / ref.norm()) <= 1e-3
+
+
+# FQ-ViT on the card: vit_tiny calibrated there (PTF + LIS, minmax), then the
+# quant-mode encode under FQCtx with attn_impl="kernel" launches no kernel
+# (the context runs the eager branch, as JAX's FQ path reaches no Pallas
+# kernel), while the same encoder under NULL_CTX launches its attention
+# kernels; the card's quant-mode embedding (float32, TF32 off) against the
+# CPU's from the same qparams within 1e-2 rel. L2
+# (tests/test_torch_fq_encoder.py's tolerance).
+@pytest.mark.gpu
+def test_fq_context_launches_no_kernel_on_card(cuda):
+    import copy
+
+    from sam_quantization_tpu_torch.models import sam as tsam
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.quant.context import NULL_CTX
+    from sam_quantization_tpu_torch.quant.fq import pipeline as tfq
+    from sam_quantization_tpu_torch.quant.sequential import full_float32
+
+    model = tsam.init(CONFIGS["vit_tiny"], 0, "cpu")
+    enc = copy.deepcopy(model.image_encoder).to(cuda)
+    cfg = tfq.FQConfig()
+    batches = [_randn(90 + i, 1, 128, 128, 3).to(cuda) for i in range(2)]
+    qparams = tfq.calibrate_encoder(enc, cfg, batches)
+    qenc = tfq.fq_quantize_weights(enc, cfg)
+    counters = (tfa.LAUNCHES, tqm.LAUNCHES, tfm.LAUNCHES, tpr.LAUNCHES)
+    for mod in (tfa, tqm, tfm, tpr):
+        mod.reset_launch_counts()
+    ctx = tfq.FQCtx("quant", cfg, qparams=qparams)
+    with torch.no_grad(), full_float32():
+        out = qenc(batches[0], "kernel", ctx)
+        torch.cuda.synchronize()
+    assert all(n == 0 for c in counters for n in c.values())
+    assert set(ctx.ln_modes.values()) == {"int"}
+    with torch.no_grad():
+        enc(batches[0], "kernel", NULL_CTX)
+        torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_windowed"] == 2 and tfa.LAUNCHES["flash_whole"] == 2
+    cpu_ctx = tfq.FQCtx("quant", cfg, qparams={k: tuple(v.cpu() for v in sz)
+                                               for k, sz in qparams.items()})
+    with torch.no_grad():
+        ref = copy.deepcopy(qenc).cpu()(batches[0].cpu(), "eager", cpu_ctx)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2

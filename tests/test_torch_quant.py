@@ -238,13 +238,17 @@ def test_fused_mlp_supported_matches_jax(K, H, N, bits1, bits2, g, act8):
 
 
 def test_unported_paths_raise(tmp_path):
-    """FQ-ViT artifacts name the slice that brings them, and a directory
-    without an artifact says so. (W-A8 layers are served since their slice:
-    ``tests/test_torch_quant_a8.py``.)"""
+    """A directory without an artifact says so. FQ-ViT artifacts load since
+    their slice (their dense fake-quantized layers as ``{"w", "b"}``; the
+    round trip is ``tests/test_torch_fq_cli.py``), as W-A8 layers are served
+    since theirs (``tests/test_torch_quant_a8.py``)."""
     qp = {"blocks": [{"attn": {"qkv": _zero_packed(64, 192, 4, 32)}}]}
-    jart.save_quantized(str(tmp_path / "fq"), qp, {"method": "fq"})
-    with pytest.raises(NotImplementedError, match="FQ-ViT"):
-        tart.load_quantized(str(tmp_path / "fq"))
+    dense = {"blocks": [{"attn": {"qkv": {"w": np.ones((64, 192), np.float32),
+                                          "b": np.zeros(192, np.float32)}}}]}
+    jart.save_quantized(str(tmp_path / "fq"), dense, {"method": "fq", "ptf": True})
+    tree, cfg = tart.load_quantized(str(tmp_path / "fq"))
+    assert cfg == {"method": "fq", "ptf": True}
+    assert np.array_equal(tree["blocks"][0]["attn"]["qkv"]["w"], np.ones((64, 192), np.float32))
     jart.save_quantized(str(tmp_path / "w4"), qp, {"method": "rtn"})
     tree, _ = tart.load_quantized(str(tmp_path / "w4"))
     assert tart.is_packed(tree["blocks"][0]["attn"]["qkv"])

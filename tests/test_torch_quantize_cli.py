@@ -127,11 +127,15 @@ def test_quantize_cli_sym_act_scales_serve_int8(tmp_path):
     assert "static act scales" in _serves(d, "--serve-int8")
 
 
-def test_quantize_cli_fq_and_card_default():
-    """``--method fq`` names the FQ-ViT item; without ``--platform cpu`` the
-    CLI asks for the card."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        tquantize.main(["vit_tiny", "--method", "fq", "--platform", "cpu"])
+def test_quantize_cli_fq_and_card_default(tmp_path):
+    """``--method fq --platform cpu`` calibrates FQ-ViT and saves its
+    artifact with ``fq_qparams.npz`` (the round trip with JAX is
+    ``tests/test_torch_fq_cli.py``); without ``--platform cpu`` the CLI asks
+    for the card."""
+    _, last = _quantize(tmp_path / "fq", "--method", "fq")
+    assert last["method"] == "fq"
+    assert jart.load_quantized(str(tmp_path / "fq"))[1]["quant_method"] == "minmax"
+    assert "blocks.0.qact2.scale" in np.load(tmp_path / "fq" / "fq_qparams.npz").files
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             tquantize.main(["vit_tiny", "--nsamples", "1"])
