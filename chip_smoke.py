@@ -120,7 +120,23 @@ Run from the repository root on a machine with one CUDA card. It
     encode timed (median and spread), its ``ln_modes`` all ``int``, its
     embedding against the float32 eager encoder of the unquantized weights
     (random weights: a reading) and the peak memory; no kernel is launched
-    under the FQ context anywhere.
+    under the FQ context anywhere;
+17. the parallel package (``parallel/``): a ViT-H bf16 encode at B = 4
+    against four B = 1 encodes (28/4 flash launches for the batch and for
+    each image), and at B = 8 in W4, W4A8 and cached int8 (each mode's
+    launches per batch equal to one image's); ``SamServer`` (max_batch 8 and 1, 5 ms wait) fed 16
+    requests of 1024 images with 1-3 clicks by 4 client threads, each
+    result held against that request run alone, with images/s, latency
+    p50 / p95, batches formed and peak memory as readings; then a one-rank
+    NCCL world: ``reduce_loss_dict``, ``sp_attention`` at the ViT-H global
+    shape against its reference, one ``MultiHostSamServer`` tick against
+    ``SamServer``'s batch, the float32 ViT-H under ``tensor_parallel`` at tp
+    1 against the eager encoder (no kernel launched; W4: 128
+    ``quant_matmul`` and nothing else), and a float32 dp
+    train step (2 clicks given) bit for bit against the plain step, each
+    step's ms and peak memory printed as readings; where
+    the machine has two cards, a two-rank NCCL world (tp 2 encoder, dp 2
+    step). The world is destroyed after, and the script says which ran.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -280,6 +296,23 @@ FQ_QPARAMS_VIT_H = 357
 FQ_ITERS = 3
 SERVER_CLICKS = ((800.0, 600.0, 1), (300.0, 900.0, 0), (1200.0, 200.0, 1))
 DECODER_REF_TOL = 1e-3  # tests/test_demo_server.py's IoU tolerance
+# Parallel phase (step 17). A batch of 4 through the kernels against four
+# encodes of one: the kernels compute each image's rows alike, and cuBLAS may
+# tile a GEMM of 4x the rows otherwise, so the bound is the bf16 kernel
+# path's own (rel. L2 5e-2, as against float32 eager in step 4); the server's
+# results against each request run alone take the same bound on the low-res
+# logits and on |IoU|.
+BATCH_TOL = 5e-2
+SERVER_REQUESTS, SERVER_CLIENTS, SERVER_BATCH, SERVER_WAIT_MS = 16, 4, 8, 5.0
+# The ViT-H float32 encoder's tensor-parallel branch at tp 1 against the
+# eager branch: the same products, the rel bias added to the logits as one
+# sum (rel_h + rel_w) rather than in two steps, and a one-rank all-reduce.
+TP1_TOL = 1e-4
+# Two-rank NCCL worlds (only where the machine has two cards): tp 2 against
+# the unsharded encoder, float32, rel. L2; the dp 2 step against the
+# one-process step on the full batch, parameters rel. L2 over the model
+# (the CPU tests read 1.4e-7 to 1.7e-7 at vit_tiny).
+TP2_TOL, DP2_TOL = 1e-4, 1e-6
 FAILURES = []
 
 
@@ -1083,6 +1116,395 @@ def amg_server_phase(dev, card: str, vit_h, images, flash_launches: dict, w4_lau
     del model, gen, anns
     torch.cuda.empty_cache()
     print(f"AMG and server phase: {time.perf_counter() - phase_t:.1f} s")
+
+
+def _clicks(seed: int, n: int, size: int):
+    """``n`` seeded click lists of 1 to 3 points (x, y, label) in a model frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        k = 1 + i % 3
+        out.append((rng.uniform(32, size - 32, size=(k, 2)).astype(np.float32),
+                    np.array([1.0, 0.0, 1.0][:k], np.float32)))
+    return out
+
+
+def _two_rank_world(rank: int, port: int, results, backend: str = "nccl",
+                    name: str = "vit_h") -> None:
+    """One rank of a two-rank world (NCCL on two cards): the tp 2 encoder of
+    ``name`` against the unsharded one, and the dp 2 step against the
+    one-process step on the full batch; rank 0 puts its readings on
+    ``results``."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from sam_quantization_tpu_torch.train import trainer as trainer_lib
+
+    dev = distributed.initialize(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                 world_size=2, rank=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = build_sam.sam_model_registry[name](device=dev, seed=0)
+        size = model.config.image_encoder.img_size
+        x = torch.randn(1, size, size, 3, generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+        with torch.no_grad():
+            ref = model.image_encoder(x, "eager")
+            tp2 = mesh_lib.make_mesh(tp=2)
+            mesh_lib.shard_params(model, tp2)
+            with mesh_lib.tensor_parallel(tp2):
+                out = model.image_encoder(x)
+        tp_err = float((out - ref).norm() / ref.norm())
+        del model, ref, out
+
+        tcfg = trainer_lib.TrainConfig(num_clicks=2)
+        scenes = list(synthetic_samples(2, size, 0))
+        images = torch.from_numpy(np.concatenate([im for im, _ in scenes])).to(dev)
+        gts = torch.from_numpy(np.stack([gt for _, gt in scenes]).astype(np.float32)).to(dev)
+        coords = torch.tensor([[[0.3 * size, 0.4 * size], [0.7 * size, 0.5 * size]]] * 2,
+                              device=dev)
+        labels = torch.tensor([[1.0, 0.0]] * 2, device=dev)
+        params = []
+        for mesh, rows in ((None, slice(0, 2)), (mesh_lib.make_mesh(tp=1), slice(rank, rank + 1))):
+            model = build_sam.sam_model_registry[name](device=dev, seed=0)
+            opt = trainer_lib.make_optimizer(tcfg, model)
+            trainer_lib.make_train_step(tcfg, opt, mesh)(
+                model, images[rows], gts[rows], None, clicks=(coords[rows], labels[rows]))
+            params.append(torch.cat([p.detach().reshape(-1) for p in model.parameters()]))
+            del model, opt
+        dp_err = float((params[1] - params[0]).norm() / params[0].norm())
+        if rank == 0:
+            results.put((tp_err, dp_err))
+    finally:
+        distributed.destroy()
+
+
+def parallel_phase(dev, card: str, build, reset_counts, counts, flash_launches: dict,
+                   train_launches: dict, mode_launches: dict) -> None:
+    """The parallel package (module docstring, step 17): (a) batched encodes
+    through the kernels, dense and each quantized serving mode
+    (``mode_launches``: a ViT-H image's launches in W4, W4A8 and cached
+    int8); (b) ``SamServer`` with client threads; (c) a one-rank NCCL world;
+    (d) a two-rank one where there are two cards."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.quant import act_scales as act_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
+    from sam_quantization_tpu_torch.parallel import distributed
+    from sam_quantization_tpu_torch.parallel import mesh as mesh_lib
+    from sam_quantization_tpu_torch.parallel import sp_attention as sp_lib
+    from sam_quantization_tpu_torch.parallel.serving import (
+        MultiHostSamServer, SamServer, _pack_requests, _request, run_batch)
+    from sam_quantization_tpu_torch.train import trainer as trainer_lib
+
+    phase_t = time.perf_counter()
+    model = build()
+    size = model.config.image_encoder.img_size
+    rng = np.random.default_rng(17)
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8).astype(np.float32)
+              for _ in range(SERVER_REQUESTS)]
+    clicks = _clicks(17, SERVER_REQUESTS, size)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    # (a) Batched encode, bf16, B = 4 against four B = 1.
+    model.image_encoder.to(torch.bfloat16)
+    x = sam_lib.preprocess(model, torch.from_numpy(np.stack(images[:4])).to(dev))
+    x = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        sam_lib.encode_image(model, x)  # warm-up at this batch size
+        sam_lib.encode_image(model, x[:1])
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batched = sam_lib.encode_image(model, x).float()
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t) * 1e3
+        got = counts()
+        singles, single_ms, ok_counts = [], [], True
+        for i in range(4):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            singles.append(sam_lib.encode_image(model, x[i:i + 1]).float())
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t) * 1e3)
+            ok_counts &= counts() == flash_launches
+    errs = [float((batched[i] - singles[i][0]).norm() / singles[i][0].norm()) for i in range(4)]
+    check(got == flash_launches and ok_counts and max(errs) <= BATCH_TOL
+          and bool(torch.isfinite(batched).all()),
+          f"batched encode ViT-H bf16 B=4: launches {got} (28/4 per batch, and per B=1 encode "
+          f"{ok_counts}); rel L2 vs B=1 {max(errs):.3e} (<= {BATCH_TOL})")
+    print(f"  batched encode: B=4 {batch_ms:.2f} ms vs 4 x B=1 {sum(single_ms):.2f} ms "
+          f"({', '.join(f'{m:.2f}' for m in single_ms)})  [{card}]")
+    del batched, singles, x
+
+    # B = 8 through each quantized serving mode's kernels (the packed and
+    # W-A8 kernels see 8x the rows, the attention kernels 200 windows and
+    # 128 global heads, the int8-out epilogue 8x its rows).
+    def batched(encoder, want, x8):
+        with torch.inference_mode():
+            encoder(x8), encoder(x8[:1])  # warm-up at both batch sizes
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = encoder(x8).float()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got, each, one_ms = counts(), True, 0.0
+            errs = []
+            for i in range(len(x8)):
+                reset_counts()
+                t = time.perf_counter()
+                one = encoder(x8[i:i + 1]).float()[0]
+                torch.cuda.synchronize()
+                one_ms += (time.perf_counter() - t) * 1e3
+                each &= counts() == want
+                errs.append(float((out[i] - one).norm() / one.norm()))
+        return got == want and each, max(errs), ms, one_ms, got
+
+    x8 = sam_lib.preprocess(model, torch.from_numpy(np.stack(images[:8])).to(dev))
+    x8 = x8.to(torch.bfloat16)
+    w4 = None
+    for mode in ("W4", "W4A8", "cached int8"):
+        enc = build().image_encoder
+        if mode == "cached int8":
+            calib = copy.deepcopy(enc).to(torch.bfloat16)
+            act = act_lib.calibrate_act_scales(calib, [x8[:1]], margin=1.1)
+            del calib
+        seq.rtn_quantize_encoder(enc, seq.GPTQConfig(bits=4, groupsize=128, sym=mode != "W4"))
+        if mode == "W4A8":
+            enc = packed_lib.with_act_bits(enc, 8)
+        if mode == "cached int8":
+            packed_lib.cache_int8(enc, act_scales=act,
+                                  skip=packed_lib.default_serve_skip(enc.cfg.embed_dim))
+        enc.to(torch.bfloat16)
+        ok, err, ms, one_ms, got = batched(enc, mode_launches[mode], x8)
+        check(ok and err <= BATCH_TOL,
+              f"batched encode ViT-H {mode} bf16 B=8: launches per batch = per image "
+              f"{ {n: c for n, c in got.items() if c} }; rel L2 vs B=1 {err:.3e} "
+              f"(<= {BATCH_TOL})")
+        print(f"  batched encode {mode}: B=8 {ms:.2f} ms vs 8 x B=1 {one_ms:.2f} ms  [{card}]")
+        if mode == "W4":
+            w4 = enc
+        del enc
+    del x8
+    torch.cuda.empty_cache()
+
+    # (b) SamServer: max_batch 8 and 1, 4 client threads, 16 requests.
+    alone = []
+    with torch.inference_mode():
+        for img, (pts, lbl) in zip(images, clicks):
+            low, iou = run_batch(model, *_pack_requests([_request(img, pts, lbl)], 1, size))
+            alone.append((low[0], iou[0]))
+    readings = {}
+    for max_batch in (1, SERVER_BATCH):
+        server = SamServer(model, max_batch=max_batch, max_wait_ms=SERVER_WAIT_MS)
+        server.start()
+        server.submit(images[0], *clicks[0]).result(timeout=120)  # warm-up
+        server.batch_sizes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        latency = [None] * SERVER_REQUESTS
+        futures = [None] * SERVER_REQUESTS
+
+        def client(c):
+            for i in range(c, SERVER_REQUESTS, SERVER_CLIENTS):
+                t0 = time.perf_counter()
+                f = server.submit(images[i], *clicks[i])
+                f.add_done_callback(lambda _, i=i, t0=t0: latency.__setitem__(
+                    i, (time.perf_counter() - t0) * 1e3))
+                futures[i] = f
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVER_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = [f.result(timeout=300) for f in futures]
+        wall = time.perf_counter() - t
+        server.stop()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        low_err = max(rel(r[0], a[0]) for r, a in zip(results, alone))
+        iou_err = max(float(np.abs(r[1] - a[1]).max()) for r, a in zip(results, alone))
+        lat = sorted(latency)
+        readings[max_batch] = (SERVER_REQUESTS / wall, lat, list(server.batch_sizes), peak)
+        check(all(f.done() and f.exception() is None for f in futures)
+              and low_err <= BATCH_TOL and iou_err <= BATCH_TOL,
+              f"SamServer max_batch {max_batch}: {SERVER_REQUESTS} futures resolved; vs each "
+              f"request alone: low-res rel L2 {low_err:.3e}, |IoU| {iou_err:.3e} "
+              f"(<= {BATCH_TOL})")
+    for max_batch, (ips, lat, sizes, peak) in readings.items():
+        print(f"  SamServer max_batch {max_batch} (max_wait {SERVER_WAIT_MS} ms, "
+              f"{SERVER_CLIENTS} clients, {SERVER_REQUESTS} requests, ViT-H bf16): "
+              f"{ips:.2f} images/s, latency min {lat[0]:.1f} p50 {lat[len(lat) // 2]:.1f} "
+              f"p95 {lat[int(0.95 * (len(lat) - 1))]:.1f} max {lat[-1]:.1f} ms, "
+              f"{len(sizes)} batches {sizes}, peak memory {peak:.2f} GiB  [{card}]")
+    # Where a served batch of 8 spends its time: the host packing, then one
+    # run_batch profiled by part (preprocess with the image copy, encode,
+    # decode).
+    reqs = [_request(images[i], *clicks[i]) for i in range(SERVER_BATCH)]
+    t = time.perf_counter()
+    packed = _pack_requests(reqs, SERVER_BATCH, size)
+    print(f"  SamServer batch of {SERVER_BATCH}: host packing {(time.perf_counter() - t) * 1e3:.2f} "
+          f"ms  [{card}]")
+    with torch.inference_mode():
+        print_device_profile(f"SamServer batch of {SERVER_BATCH} (run_batch)",
+                             lambda: run_batch(model, *packed),
+                             ranges=((sam_lib, "preprocess", "preprocess"),
+                                     (sam_lib, "encode_image", "encode"),
+                                     (sam_lib, "decode_masks", "decode")))
+    del packed, reqs
+
+    # (c) A one-rank NCCL world.
+    distributed.initialize("nccl", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_mesh(tp=1)
+        loss = {"iou": 0.25, "loss": 1.5}
+        check(distributed.reduce_loss_dict(loss) == loss, "one-rank NCCL: reduce_loss_dict "
+                                                          "returns its input")
+        g = torch.Generator(device=dev).manual_seed(9)
+        q, k, v = (torch.randn(1, 16, 4096, 80, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        rh, rw = (torch.randn(1, 16, 4096, 64, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        with torch.inference_mode():
+            out = sp_lib.sp_attention(q, k, v, rh, rw, 80**-0.5, mesh_lib.group_of(mesh))
+            ref = sp_lib.sp_attention_reference(q, k, v, rh, rw, 80**-0.5)
+        check(torch.equal(out, ref), "one-rank NCCL: sp_attention (1, 16, 4096, 80) bf16 "
+                                     f"equals sp_attention_reference (max|d| "
+                                     f"{float((out.float() - ref.float()).abs().max()):.3e})")
+        del q, k, v, rh, rw, out, ref
+
+        # MultiHostSamServer: one tick serves two requests, as SamServer's batch.
+        srv = MultiHostSamServer(model, mesh, per_host_batch=2)
+        futs = [srv.submit(images[i], *clicks[i]) for i in range(2)]
+        served = srv.tick()
+        with torch.inference_mode():
+            want = run_batch(model, *_pack_requests(
+                [_request(images[i], *clicks[i]) for i in range(2)], 2, size))
+        diff = max(float(np.abs(f.result()[j] - want[j][i]).max())
+                   for i, f in enumerate(futs) for j in range(2))
+        check(served == 2 and srv.tick() == 0 and diff == 0.0,
+              f"one-rank NCCL: MultiHostSamServer tick served {served}, results equal "
+              f"SamServer's batch (max|d| {diff:.3e}); an empty tick serves 0")
+        del model
+        torch.cuda.empty_cache()
+
+        # ViT-H float32 under tensor_parallel at tp 1 against the eager encoder.
+        model = build()
+        x = torch.randn(1, size, size, 3, generator=g, device=dev)
+        with torch.inference_mode():
+            ref = model.image_encoder(x, "eager")
+        mesh_lib.shard_params(model, mesh)
+        with torch.inference_mode(), mesh_lib.tensor_parallel(mesh):
+            reset_counts()
+            out = model.image_encoder(x)
+            torch.cuda.synchronize()
+        tp_err = float((out - ref).norm() / ref.norm())
+        launched = {n: c for n, c in counts().items() if c}
+        check(tp_err <= TP1_TOL and not launched,
+              f"one-rank NCCL: ViT-H f32 encoder under tensor_parallel (tp 1) vs eager: rel L2 "
+              f"{tp_err:.3e} (<= {TP1_TOL}), kernel launches {launched or 'none'}")
+        del model, x, ref, out
+        torch.cuda.empty_cache()
+
+        # The W4 ViT-H (g128) in float32 under tensor_parallel at tp 1: the
+        # per-linear route (no fused MLP) on its row and column shards.
+        w4.to(torch.float32)
+        x = torch.randn(1, size, size, 3, generator=g, device=dev)
+        with torch.inference_mode():
+            ref = w4(x, "eager")
+        mesh_lib.shard_params(w4, mesh)
+        with torch.inference_mode(), mesh_lib.tensor_parallel(mesh):
+            reset_counts()
+            out = w4(x)
+            torch.cuda.synchronize()
+        tp_err = float((out - ref).norm() / ref.norm())
+        launched = {n: c for n, c in counts().items() if c}
+        check(tp_err <= TP1_TOL and launched == {"quant_matmul": 128},
+              f"one-rank NCCL: ViT-H W4 f32 encoder under tensor_parallel (tp 1) vs its eager "
+              f"path: rel L2 {tp_err:.3e} (<= {TP1_TOL}), launches {launched}")
+        del w4, x, ref, out
+        torch.cuda.empty_cache()
+
+        # One ViT-H float32 dp step, clicks given, against the plain step.
+        model = build()
+        trainer_lib.trainable_parameters(model)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        im, gt = next(iter(synthetic_samples(1, size, 5)))
+        img = torch.from_numpy(im).to(dev)
+        gt = torch.from_numpy(gt[None].astype(np.float32)).to(dev)
+        given = (torch.tensor([[[0.3 * size, 0.4 * size], [0.7 * size, 0.5 * size]]], device=dev),
+                 torch.tensor([[1.0, 0.0]], device=dev))
+        tcfg = trainer_lib.TrainConfig(num_clicks=2)
+        after, step_counts, step_cost = {}, {}, {}
+        for tag, step_mesh in (("plain", None), ("dp", mesh), ("plain again", None)):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            opt = trainer_lib.make_optimizer(tcfg, model)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            trainer_lib.make_train_step(tcfg, opt, step_mesh)(model, img, gt, None, clicks=given)
+            torch.cuda.synchronize()
+            # host clock with a synchronize; the step's peak above what was held before it
+            step_cost[tag] = ((time.perf_counter() - t0) * 1e3,
+                              (torch.cuda.max_memory_allocated() - held) / 2**30)
+            step_counts[tag] = counts()
+            after[tag] = {n: p.detach().clone() for n, p in model.named_parameters()}
+            del opt
+        same = all(torch.equal(after["plain"][n], after["dp"][n]) for n in start)
+        moved = sum(not torch.equal(after["dp"][n], start[n]) for n in start)
+        note = "" if same else (
+            "; the plain step against itself: bit-equal "
+            f"{all(torch.equal(after['plain'][n], after['plain again'][n]) for n in start)}")
+        check(same and moved > 0.8 * len(start) and step_counts["dp"] == train_launches,
+              f"one-rank NCCL: ViT-H f32 dp step (2 clicks given) equals the plain step bit for "
+              f"bit: {same} ({moved} of {len(start)} leaves moved; launches "
+              f"{ {n: c for n, c in step_counts['dp'].items() if c} }){note}")
+        print("  one-rank NCCL ViT-H f32 step (2 clicks given), ms / peak GiB above the "
+              "model's: " + ", ".join(f"{tag} {ms:.2f} / {gib:.2f}"
+                                      for tag, (ms, gib) in step_cost.items())
+              + f"  [{card}]")
+        del model, start, after
+        torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
+    worlds = ["one-rank NCCL"]
+
+    # (d) Two cards: a two-rank NCCL world.
+    if torch.cuda.device_count() >= 2:
+        import torch.multiprocessing as mp
+
+        results = mp.get_context("spawn").SimpleQueue()
+        mp.spawn(_two_rank_world, args=(distributed.free_port(), results), nprocs=2)
+        tp_err, dp_err = results.get()
+        check(tp_err <= TP2_TOL and dp_err <= DP2_TOL,
+              f"two-rank NCCL: ViT-H f32 tp 2 encoder vs tp 1 rel L2 {tp_err:.3e} "
+              f"(<= {TP2_TOL}); dp 2 step vs one process, parameters rel L2 {dp_err:.3e} "
+              f"(<= {DP2_TOL})")
+        worlds.append("two-rank NCCL")
+    print(f"parallel worlds run: {', '.join(worlds)} ({torch.cuda.device_count()} card(s)); "
+          f"phase {time.perf_counter() - phase_t:.1f} s")
 
 
 def main() -> int:
@@ -2342,6 +2764,10 @@ def main() -> int:
     # ------------------------------------------------------------------- FQ-ViT
     fq_phase(dev, card, "vit_h", vit_h, FQ_QPARAMS_VIT_H, reset_counts, counts, zero,
              repo / "build" / "chip_fq")
+
+    # ----------------------------------------------------------------- parallel
+    parallel_phase(dev, card, vit_h, reset_counts, counts, flash_launches, train_launches,
+                   {"W4": w4_launches, "W4A8": a8_launches, "cached int8": int8_launches})
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

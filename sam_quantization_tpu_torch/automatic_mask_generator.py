@@ -14,6 +14,12 @@ Other crops take the general path: float logits to the host, numpy
 postprocess, as in the JAX package. The encoder runs through the attention
 kernels (and the packed-weight kernels for a quantized encoder) under
 ``attn_impl="kernel"``; ``"eager"`` runs the plain path.
+
+Given a ``mesh`` (``parallel.mesh.make_mesh``), every rank encodes the image,
+each rank of the ``"dp"`` axis decodes its slice of a batch's prompt rows,
+and the decoder outputs are all-gathered, so every rank postprocesses the
+same masks and returns the same annotations (JAX shards the prompt batch
+over ``"dp"`` the same way).
 """
 
 from __future__ import annotations
@@ -22,17 +28,21 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sam_quantization_tpu_torch import native
 from sam_quantization_tpu_torch.models import sam as sam_lib
+from sam_quantization_tpu_torch.parallel import mesh as mesh_lib
+from sam_quantization_tpu_torch.parallel.distributed import all_gather_cat
 from sam_quantization_tpu_torch.predictor import SamPredictor
 from sam_quantization_tpu_torch.utils import amg as amg_utils
 
 
 class SamAutomaticMaskGenerator:
     """Same arguments and defaults as the JAX generator, with the port
-    predictor's ``attn_impl``. ``mesh`` is refused: the data-parallel
-    decode is not ported (ROADMAP, Queue 1, item 7).
+    predictor's ``attn_impl``. ``mesh``: a dp x tp ``DeviceMesh`` whose
+    ``"dp"`` ranks split each batch's prompts (``points_per_batch`` must
+    divide over them).
 
     The JAX generator's ``SAMQ_AMG_PACKED`` switch is the class attribute
     :attr:`packed_fast_path`; both paths give the same annotations. Its
@@ -61,10 +71,10 @@ class SamAutomaticMaskGenerator:
         attn_impl: str = "kernel",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the data-parallel AMG decode is not ported (ROADMAP, Queue 1, "
-                "item 7, 'Parallel')")
+        self._dp = None if mesh is None else mesh_lib.group_of(mesh, "dp")
+        if self._dp is not None and points_per_batch % self._dp.size():
+            raise ValueError(f"points_per_batch {points_per_batch} does not split over "
+                             f"{self._dp.size()} data-parallel ranks")
         assert (points_per_side is None) != (point_grids is None), (
             "Exactly one of points_per_side or point_grids must be provided."
         )
@@ -179,7 +189,7 @@ class SamAutomaticMaskGenerator:
         if full_crop and self.packed_fast_path:
             packed, iou_p, stab, boxes = _batched_decode_packed(
                 pred.model, pred.features, coords, labels, n, pred.input_size,
-                tuple(im_size), thr, float(self.stability_score_offset))
+                tuple(im_size), thr, float(self.stability_score_offset), self._dp)
             data = amg_utils.MaskData(
                 iou_preds=iou_p.cpu().numpy(), stability_score=stab.cpu().numpy(),
                 boxes=boxes.cpu().numpy(), points=points3,
@@ -200,7 +210,7 @@ class SamAutomaticMaskGenerator:
             return data
 
         masks, iou_preds = _batched_decode(pred.model, pred.features, coords, labels, n,
-                                           pred.input_size, tuple(im_size))
+                                           pred.input_size, tuple(im_size), self._dp)
         masks = masks.cpu().numpy()
         data = amg_utils.MaskData(masks=masks, iou_preds=iou_preds.cpu().numpy(),
                                   points=points3)
@@ -256,25 +266,34 @@ def _box_area(boxes: np.ndarray) -> np.ndarray:
 
 
 @torch.inference_mode()
-def _batched_decode(model, features, coords, labels, n, input_size, im_size):
+def _batched_decode(model, features, coords, labels, n, input_size, im_size, dp=None):
     """The batch's prompts -> 3 multimask logit maps each at ``im_size``
     ((3n, H, W) float32) and their predicted IoUs (3n,). The decoder runs
     in float32 on all ``points_per_batch`` rows, pad rows included, as the
-    JAX program does; only the first ``n`` rows are upsampled."""
+    JAX program does; only the first ``n`` rows are upsampled. With a
+    data-parallel group ``dp`` each rank decodes its slice of the rows and
+    the slices are all-gathered."""
+    if dp is not None:
+        per = coords.shape[0] // dp.size()
+        rows = slice(dist.get_rank(dp) * per, (dist.get_rank(dp) + 1) * per)
+        coords, labels = coords[rows], labels[rows]
     low_res, iou = sam_lib.decode_masks(model, features.float(), points=(coords, labels),
                                         multimask_output=True)
+    if dp is not None:
+        low_res, iou = all_gather_cat(low_res, dp), all_gather_cat(iou, dp)
     masks = sam_lib.postprocess_masks(model, low_res[:n], input_size, im_size)
     return masks.reshape(-1, *im_size), iou[:n].reshape(-1)
 
 
 @torch.inference_mode()
-def _batched_decode_packed(model, features, coords, labels, n, input_size, im_size, thr, off):
+def _batched_decode_packed(model, features, coords, labels, n, input_size, im_size, thr, off,
+                           dp=None):
     """A full-crop batch on the device, postprocess included: decode ->
     upsample -> stability (int32 counts, a float32 quotient) -> threshold
     -> boxes -> column-major bit-pack. Returns (packed (3n, W, ceil(H/8))
     uint8, iou (3n,), stability (3n,), boxes (3n, 4) float32), all on the
     device."""
-    masks, iou = _batched_decode(model, features, coords, labels, n, input_size, im_size)
+    masks, iou = _batched_decode(model, features, coords, labels, n, input_size, im_size, dp)
     H, W = im_size
     hi = (masks > thr + off).sum((1, 2), dtype=torch.int32)
     lo = (masks > thr - off).sum((1, 2), dtype=torch.int32)

@@ -23,6 +23,15 @@ Attention has four branches:
 * ``attn_impl="eager"``: the JAX package's eager branch, matmul + softmax with
   the full (L, L) logits - the plain reference for the kernel branches.
 
+Two parallel branches come before these, as in JAX, and only under
+``NullCtx``: inside ``parallel.sp_attention.sequence_parallel`` a block
+whose L reaches the context's ``min_len`` runs ``sp_attention`` (its query
+rows split over the group, K/V all-gathered; the windowed blocks keep the
+kernel); inside ``parallel.mesh.tensor_parallel`` every block runs its
+rank's shard (``parallel.mesh.shard_params``): the eager plain-softmax form
+on ``nh / tp`` heads and the MLP's column and row shards, no kernel and no
+fused MLP, whatever ``attn_impl`` says.
+
 On a CPU tensor the kernel wrappers run their plain versions.
 
 Every forward takes a quantization context (``quant.context``), called at
@@ -60,6 +69,8 @@ from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, MLPBlock
 from sam_quantization_tpu_torch.nn.packed import IntLinear
 from sam_quantization_tpu_torch.ops import flash_attention, fused_mlp
+from sam_quantization_tpu_torch.parallel import mesh as mesh_lib
+from sam_quantization_tpu_torch.parallel import sp_attention as sp_lib
 from sam_quantization_tpu_torch.quant.context import NULL_CTX, NullCtx
 
 ATTN_IMPLS = ("kernel", "flash_train", "eager")
@@ -212,17 +223,36 @@ class Attention(nn.Module):
         B, H, W, C = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
         L = H * W
+        hookless = type(ctx) is NullCtx  # the kernels have no observation points
+        # JAX's parallel branches, hook-free only: sequence-parallel global
+        # attention (parallel.sp_attention.sequence_parallel), else this
+        # rank's heads of a tensor-parallel shard (parallel.mesh.tensor_parallel).
+        sp = sp_lib.active_sp(L) if hookless else None
+        tp = mesh_lib.active_tp(nh) if hookless and sp is None else None
+        if tp is not None:
+            return self._forward_tp(x, mesh_lib.group_of(tp[0], tp[1]))
+        if mesh_lib.out_features(self.qkv) != 3 * C:
+            raise ValueError("this block holds a tensor-parallel shard: run it under "
+                             "parallel.mesh.tensor_parallel")
         qkv = ctx.linear(f"{path}.qkv", self.qkv, x.reshape(B, L, C))
         qkv = ctx.act(f"{path}.qact1", qkv)
-        hookless = type(ctx) is NullCtx  # the kernels have no observation points
 
-        if hookless and attn_impl == "kernel" and windowed and cfg.use_rel_pos:
+        if sp is None and hookless and attn_impl == "kernel" and windowed and cfg.use_rel_pos:
             out = self._packed_rel_and_flash(qkv, H, W).reshape(B, H, W, C)
             return self._project(out, ctx, path)
 
         qkv = qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, L, hd)
         q2 = q.reshape(B * nh, L, hd)
+        if sp is not None:
+            rel_h = rel_w = None
+            if cfg.use_rel_pos:
+                rel_h, rel_w = decomposed_rel_pos_tiles(
+                    q2, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W))
+                rel_h, rel_w = rel_h.reshape(B, nh, L, H), rel_w.reshape(B, nh, L, W)
+            out = sp_lib.sp_attention(q, k, v, rel_h, rel_w, hd**-0.5, sp)
+            out = out.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
+            return self._project(out, ctx, path)
         train = (hookless and attn_impl == "flash_train" and cfg.use_rel_pos
                  and L <= flash_attention.WHOLE_MAX_L)
         if (hookless and attn_impl == "kernel") or train:
@@ -258,6 +288,37 @@ class Attention(nn.Module):
             del attn
         out = out.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
         return self._project(out, ctx, path)
+
+    def _forward_tp(self, x: torch.Tensor, group) -> torch.Tensor:
+        """This rank's heads of a tensor-parallel shard (JAX's tp branch,
+        image_encoder.py:318-357): qkv's column shard on the replicated
+        tokens, the unmerged eager plain-softmax form with float32 logits
+        and the rel bias on its ``nh / tp`` heads, proj's row shard summed
+        over the group. No kernel runs, as in JAX. The rel-pos tables are
+        replicated but serve only this rank's heads here, so their gradient
+        is summed over the group (copy-to-tp)."""
+        cfg = self.cfg
+        B, H, W, C = x.shape
+        nh, hd = cfg.num_heads, cfg.head_dim
+        L = H * W
+        qkv = mesh_lib.column_parallel(self.qkv, x.reshape(B, L, C), group)
+        nh_t = qkv.shape[-1] // (3 * hd)
+        if nh_t * group.size() != nh:
+            raise ValueError(f"qkv holds {nh_t} heads, not {nh} / tp={group.size()}: cut the "
+                             "encoder's shards with parallel.mesh.shard_params")
+        qkv = qkv.reshape(B, L, 3, nh_t, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh_t, L, hd)
+        s = torch.matmul((q * hd**-0.5).float(), k.float().transpose(-1, -2))
+        if cfg.use_rel_pos:
+            rel_h, rel_w = decomposed_rel_pos_tiles(
+                q.reshape(B * nh_t, L, hd), mesh_lib.copy_to_tp(self.rel_pos_h, group),
+                mesh_lib.copy_to_tp(self.rel_pos_w, group), (H, W), (H, W))
+            bias = rel_h[..., :, None] + rel_w[..., None, :]
+            s = s + bias.reshape(s.shape).float()
+        attn = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.matmul(attn.float(), v.float()).to(x.dtype)
+        out = out.permute(0, 2, 1, 3).reshape(B, H, W, nh_t * hd)
+        return mesh_lib.row_parallel(self.proj, out, group)
 
     def _project(self, out: torch.Tensor, ctx, path: str) -> torch.Tensor:
         out = ctx.act(f"{path}.qact2", out)
@@ -300,7 +361,15 @@ class Block(nn.Module):
                            out_path=f"{path}.qact3")
         h = ctx.act(f"{path}.qact3", h)
         mlp = self.mlp
-        if (type(ctx) is NullCtx and attn_impl == "kernel"
+        tp = mesh_lib.active_tp(self.cfg.num_heads) if type(ctx) is NullCtx else None
+        if tp is not None:
+            # lin1's column shard, GELU, lin2's row shard summed over the
+            # group, then its bias; the fused kernel adds lin2's bias inside,
+            # so a packed MLP takes the per-linear route here
+            group = mesh_lib.group_of(tp[0], tp[1])
+            h = mlp.act(mesh_lib.column_parallel(mlp.lin1, h, group))
+            h = mesh_lib.row_parallel(mlp.lin2, h, group)
+        elif (type(ctx) is NullCtx and attn_impl == "kernel"
                 and fused_mlp.fused_mlp_supported(mlp.lin1, mlp.lin2)):
             h = fused_mlp.fused_mlp(h, mlp.lin1, mlp.lin2)
         else:

@@ -41,16 +41,24 @@ def quant_linear(x: torch.Tensor, p) -> torch.Tensor:
     :class:`~sam_quantization_tpu_torch.nn.packed.IntLinear` the cached int8
     product; then the float32 bias cast to the output dtype (the JAX
     ``quant_linear``)."""
-    from sam_quantization_tpu_torch.nn.packed import IntLinear
-    from sam_quantization_tpu_torch.ops import quant_matmul
-
-    lead = x.shape[:-1]
-    mm = quant_matmul.int8_matmul if isinstance(p, IntLinear) else quant_matmul.quant_matmul
-    y = mm(x.reshape(-1, x.shape[-1]), p)
-    y = y.reshape(*lead, p.out_features)
+    y = linear_product(x, p)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
     return y
+
+
+def linear_product(x: torch.Tensor, layer) -> torch.Tensor:
+    """``x @ W`` of a ``Linear``, ``PackedLinear`` or ``IntLinear``, without
+    its bias: the partial product a row-parallel shard sums over its ranks
+    before the bias is added once (``parallel/mesh.row_parallel``)."""
+    from sam_quantization_tpu_torch.nn.packed import IntLinear, PackedLinear
+    from sam_quantization_tpu_torch.ops import quant_matmul
+
+    if not isinstance(layer, (PackedLinear, IntLinear)):
+        return torch.matmul(x, layer.weight.to(x.dtype).t())
+    lead = x.shape[:-1]
+    mm = quant_matmul.int8_matmul if isinstance(layer, IntLinear) else quant_matmul.quant_matmul
+    return mm(x.reshape(-1, x.shape[-1]), layer).reshape(*lead, layer.out_features)
 
 
 def layer_norm(

@@ -62,6 +62,15 @@ def _jax_leaves(tensors: Dict[str, torch.Tensor], model: sam_lib.Sam) -> List[np
     return list(_leaves(build_sam.to_jax_params(tensors, model.config)))
 
 
+def _gathered(tensors: Dict[str, torch.Tensor], model: sam_lib.Sam, mesh) -> Dict[str, torch.Tensor]:
+    """The full tensors of a tensor-parallel shard's named tensors (a
+    collective over the mesh's tp axis)."""
+    from sam_quantization_tpu_torch.parallel import mesh as mesh_lib
+
+    nh = model.config.image_encoder.num_heads
+    return {n: mesh_lib.gather_tensor(n, t, mesh, nh) for n, t in tensors.items()}
+
+
 def _from_jax_leaves(leaves: Iterator[np.ndarray], model: sam_lib.Sam) -> Dict[str, torch.Tensor]:
     skeleton = build_sam.to_jax_params(model.state_dict(), model.config)
     trees = [_unflatten(t, leaves) for t in skeleton]
@@ -85,9 +94,14 @@ def save_checkpoint(
     epoch: int,
     name: str = "latest",
     extras: Optional[Dict[str, Any]] = None,
+    mesh=None,
 ) -> None:
-    """Write the model and its AdamW state as the JAX trainer does."""
-    os.makedirs(directory, exist_ok=True)
+    """Write the model and its AdamW state as the JAX trainer does.
+
+    On a dp x tp ``mesh`` every rank calls it: with tp > 1 the ranks gather
+    the encoder's tensor-parallel shards (stock qkv layout, as
+    ``trainer.shard_for_training`` cut them), and rank 0 alone writes the
+    full model, which a one-process run resumes."""
     named = _named_params(model, optimizer)
     states = [optimizer.state.get(p, {}) for _, p in named]
     count = int(states[0]["step"]) if states[0] else 0
@@ -95,9 +109,16 @@ def save_checkpoint(
     def moment(key):
         return {n: s[key] if s else torch.zeros_like(p) for (n, p), s in zip(named, states)}
 
-    flat_m = _jax_leaves(model.state_dict(), model)
-    flat_o = [np.asarray(count, np.int32), *_jax_leaves(moment("exp_avg"), model),
-              *_jax_leaves(moment("exp_avg_sq"), model)]
+    tensors = [model.state_dict(), moment("exp_avg"), moment("exp_avg_sq")]
+    if mesh is not None:
+        if mesh["tp"].size() > 1:
+            tensors = [_gathered(t, model, mesh) for t in tensors]
+        if mesh.get_rank() != 0:
+            return
+    os.makedirs(directory, exist_ok=True)
+    flat_m = _jax_leaves(tensors[0], model)
+    flat_o = [np.asarray(count, np.int32), *_jax_leaves(tensors[1], model),
+              *_jax_leaves(tensors[2], model)]
     np.savez(
         os.path.join(directory, f"sam_model_{name}.npz"),
         **{f"m{i}": x for i, x in enumerate(flat_m)},

@@ -1,4 +1,4 @@
-"""SAM fine-tuning: interactive-click training on one card.
+"""SAM fine-tuning: interactive-click training, on one card or a dp x tp mesh.
 
 Counterpart of ``sam_quantization_tpu/train/trainer.py`` (the reference's DDP
 trainer, train_sm.py:176-545): a click loop (clicks sampled from the
@@ -9,18 +9,29 @@ The encoder runs ``attn_impl="flash_train"``: the windowed blocks' attention
 is the head-split kernel forward with an exact eager-recompute backward
 (``ops/flash_attention.flash_attention_relpos_trainable``), the global
 blocks run eager. Training runs in float32, like the JAX trainer's
-parameters. Data parallel and tensor parallel training are not ported.
+parameters.
+
+On a dp x tp mesh (``parallel.mesh.make_mesh``) each dp rank takes its
+rows of the batch, and :func:`make_train_step` averages the gradients over
+the dp group with one explicit all-reduce (JAX's GSPMD inserts the same
+reduction). With tp > 1 the encoder holds this rank's Megatron shard
+(:func:`shard_for_training`) and runs under ``tensor_parallel``: every
+block takes the eager tensor-parallel branch, since JAX guards
+``flash_train`` with ``tp_active is None``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as TF
 
 from sam_quantization_tpu_torch.models import sam as sam_lib
+from sam_quantization_tpu_torch.parallel import distributed
+from sam_quantization_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +122,7 @@ def click_train_loss(
     gen: torch.Generator,
     tcfg: TrainConfig,
     attn_impl: str = "flash_train",
+    clicks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Forward with the interactive click loop; the loss on the last click's
     prediction (reference interaction + losses, train_sm.py:298-405).
@@ -119,7 +131,9 @@ def click_train_loss(
     embedding, and only the last one carries grad (the JAX loop's
     ``stop_gradient``). ``gen`` draws the clicks, on the images' device.
     ``attn_impl="eager"`` runs every block's attention eager, the reference
-    ``flash_train`` is held against.
+    ``flash_train`` is held against. ``clicks``, (coords (B, num_clicks, 2),
+    labels (B, num_clicks)), places those clicks in turn instead of drawing
+    them, so two runs can be held to the same prompts.
     """
     cfg = model.config
     B = images.shape[0]
@@ -137,8 +151,12 @@ def click_train_loss(
     gt4 = _resize_nearest(gt_masks, S)
 
     for click in range(tcfg.num_clicks):
-        for b in range(B):
-            coords[b, click], labels[b, click] = _sample_error_click(pred_full[b], gt4[b], gen)
+        if clicks is not None:
+            coords[:, click], labels[:, click] = clicks[0][:, click], clicks[1][:, click]
+        else:
+            for b in range(B):
+                coords[b, click], labels[b, click] = _sample_error_click(
+                    pred_full[b], gt4[b], gen)
         grad_on = click == tcfg.num_clicks - 1
         with torch.set_grad_enabled(grad_on and torch.is_grad_enabled()):
             low_res, _ = sam_lib.decode_masks(
@@ -164,19 +182,49 @@ def _soft_iou(logits, gt):
     return (inter / union).mean()
 
 
-def make_train_step(tcfg: TrainConfig, optimizer: torch.optim.Optimizer) -> Callable:
-    """Returns ``step(model, images, gt_masks, gen) -> aux``: one click-loop
-    loss, its gradients, and one optimizer update of the model in place."""
+def make_train_step(tcfg: TrainConfig, optimizer: torch.optim.Optimizer,
+                    mesh=None) -> Callable:
+    """Returns ``step(model, images, gt_masks, gen, clicks=None) -> aux``: one
+    click-loop loss, its gradients, and one optimizer update of the model in
+    place. With a ``mesh``, ``images`` are this rank's rows, the gradients
+    are averaged over its dp group before the update, and with tp > 1 the
+    forward runs under ``tensor_parallel`` on the model's shards; ``aux`` is
+    this rank's (``distributed.reduce_loss_dict`` averages it)."""
+    tp = 1 if mesh is None else mesh_lib.group_of(mesh, "tp").size()
 
-    def step(model, images, gt_masks, gen):
+    def step(model, images, gt_masks, gen, clicks=None):
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = click_train_loss(model, images, gt_masks, gen, tcfg)
+        ctx = mesh_lib.tensor_parallel(mesh) if tp > 1 else contextlib.nullcontext()
+        with ctx:
+            loss, aux = click_train_loss(model, images, gt_masks, gen, tcfg, clicks=clicks)
         loss.backward()
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:  # unused by the loss (the iou head): optax
-                    p.grad = torch.zeros_like(p)  # still decays it, so AdamW must too
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:  # unused by the loss (the iou head): optax
+                p.grad = torch.zeros_like(p)  # still decays it, so AdamW must too
+        if mesh is not None:
+            distributed.average_gradients(params, mesh_lib.group_of(mesh, "dp"))
         optimizer.step()
         return aux
 
     return step
+
+
+def shard_for_training(model: sam_lib.Sam, optimizer: torch.optim.Optimizer, tcfg: TrainConfig,
+                       mesh) -> torch.optim.AdamW:
+    """Cut this rank's tensor-parallel shard of a full model in place (stock
+    qkv layout) and return a new AdamW over the shards that carries the
+    full optimizer's state, each moment cut as its parameter (a resumed
+    run's state goes on where it stopped)."""
+    nh = model.config.image_encoder.num_heads
+    states = {n: optimizer.state.get(p) for n, p in model.named_parameters()}
+    mesh_lib.shard_params(model, mesh, packed_qkv=False)
+    sharded = make_optimizer(tcfg, model)
+    for n, p in model.named_parameters():
+        st = states.get(n)
+        if st:
+            sharded.state[p] = {
+                "step": st["step"],
+                **{k: mesh_lib.shard_tensor(n, st[k], mesh, nh)
+                   for k in ("exp_avg", "exp_avg_sq")}}
+    return sharded

@@ -306,8 +306,22 @@ def test_crop_layers_with_no_survivor_return_nothing():
 
 
 def test_mesh_is_refused(random_models):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        TGenerator(random_models[1], mesh=object())
+    """A one-rank gloo mesh decode (each dp rank decodes its prompt rows,
+    then all-gathers them) returns the meshless decode's annotations. (The
+    name is the one this test had while ``mesh`` was refused.)"""
+    from sam_quantization_tpu_torch.parallel import distributed as tdist
+    from sam_quantization_tpu_torch.parallel import mesh as tmesh
+
+    kw = {"points_per_side": 4, "points_per_batch": 16, "pred_iou_thresh": -1e9,
+          "stability_score_thresh": 0.0}
+    ref = TGenerator(random_models[1], **kw).generate(_image())
+    tdist.initialize("gloo", device="cpu", world_size=1, rank=0)
+    try:
+        got = TGenerator(random_models[1], mesh=tmesh.make_mesh(), **kw).generate(_image())
+    finally:
+        tdist.destroy()
+    gaps = _assert_close(ref, got)
+    assert gaps["pixels"] == gaps["iou"] == gaps["stability"] == 0, gaps
 
 
 # ---------------------------------------------------------------------------

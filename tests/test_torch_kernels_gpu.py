@@ -1223,3 +1223,105 @@ def test_fq_context_launches_no_kernel_on_card(cuda):
     with torch.no_grad():
         ref = copy.deepcopy(qenc).cpu()(batches[0].cpu(), "eager", cpu_ctx)
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# Batches above 1 and the parallel package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_batch_of_four_through_the_kernels_on_card(cuda):
+    """An encoder of one windowed block (L 196, the windowed kernel) and one
+    global block (32 x 32 tokens, the bias3d global kernel) at B = 4: each
+    kernel launches once per batch, and the batch's rows equal four B = 1
+    encodes within the bf16 kernel path's bound (rel. L2 5e-2, chip_smoke.py
+    BATCH_TOL); each kernel's output at B = 4 equals its four B = 1 calls
+    bit for bit (a window or a head reads only its own rows)."""
+    from sam_quantization_tpu_torch.models.configs import ImageEncoderConfig
+    from sam_quantization_tpu_torch.models.image_encoder import ImageEncoderViT
+
+    cfg = ImageEncoderConfig(img_size=512, embed_dim=128, depth=2, num_heads=4,
+                             global_attn_indexes=(1,), out_chans=64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    enc = ImageEncoderViT(cfg, gen=gen, device=cuda).eval()
+    for blk in enc.blocks:
+        for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda) * 0.2)
+    enc.to(torch.bfloat16)
+    x = _randn(7, 4, 512, 512, 3).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        tfa.reset_launch_counts()
+        batched = enc(x).float()
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["flash_windowed"] == 1 and tfa.LAUNCHES["flash_global"] == 1
+        for i in range(4):
+            one = enc(x[i:i + 1]).float()[0]
+            assert float((batched[i] - one).norm() / one.norm()) <= 5e-2
+
+        nh, hd, L = 4, 32, 196
+        qkv = _randn(8, 4 * 9, L, 3 * nh * hd).to(cuda, torch.bfloat16)
+        rel = _randn(9, 4 * 9, nh, L, 28).to(cuda, torch.bfloat16) * 0.1
+        out = tfa.flash_attention_qkv_packed(qkv, rel, hd**-0.5, nh=nh, hd=hd, kh=14, kw=14)
+        for i in range(4):
+            rows = slice(9 * i, 9 * (i + 1))
+            one = tfa.flash_attention_qkv_packed(qkv[rows].contiguous(), rel[rows].contiguous(),
+                                                 hd**-0.5, nh=nh, hd=hd, kh=14, kw=14)
+            assert torch.equal(out[rows], one)
+        q, k, v = (_randn(10 + j, 4, nh, 1024, hd).to(cuda, torch.bfloat16) for j in range(3))
+        rh, rw = (_randn(13 + j, 4, nh, 1024, 32).to(cuda, torch.bfloat16) * 0.1 for j in range(2))
+        tfa.reset_launch_counts()
+        out = tfa.flash_attention_relpos(q, k, v, rh, rw, hd**-0.5)
+        assert tfa.LAUNCHES["flash_global"] == 1
+        for i in range(4):
+            s = slice(i, i + 1)
+            one = tfa.flash_attention_relpos(q[s], k[s], v[s], rh[s], rw[s], hd**-0.5)
+            assert torch.equal(out[s], one)
+
+
+@pytest.mark.gpu
+def test_sam_server_round_trip_on_card(cuda):
+    """``SamServer`` on the card (vit_tiny, float32 kernels): its dispatcher
+    thread serves a batch, and each result equals the request run alone
+    within 1e-4 (the decoder's float32 GEMMs at another row count)."""
+    from sam_quantization_tpu_torch.models import sam as tsam
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.parallel import serving
+
+    model = tsam.init(CONFIGS["vit_tiny"], 0, cuda)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.uniform(0, 255, (128, 128, 3)).astype(np.float32),
+             rng.uniform(10, 118, (k, 2)).astype(np.float32), np.ones(k, np.float32))
+            for k in (1, 2, 3)]
+    server = serving.SamServer(model, max_batch=4, max_wait_ms=200)
+    server.start()
+    futs = [server.submit(*r) for r in reqs]
+    results = [f.result(timeout=120) for f in futs]
+    server.stop()
+    assert sum(server.batch_sizes) == 3
+    for r, (low, iou) in zip(reqs, results):
+        with torch.inference_mode():
+            want = serving.run_batch(model, *serving._pack_requests(
+                [serving._request(*r)], 1, 128))
+        np.testing.assert_allclose(low, want[0][0], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(iou, want[1][0], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_sp_attention_on_card(cuda):
+    """``sp_attention`` in a one-rank NCCL world (bf16, L 1024, rel tiles)
+    equals ``sp_attention_reference``: the all-gathers over one rank copy."""
+    from sam_quantization_tpu_torch.parallel import distributed, sp_attention
+
+    q, k, v = (_randn(20 + j, 1, 4, 1024, 64).to(cuda, torch.bfloat16) for j in range(3))
+    rh, rw = (_randn(23 + j, 1, 4, 1024, 32).to(cuda, torch.bfloat16) for j in range(2))
+    distributed.initialize("nccl", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+                           world_size=1, rank=0)
+    try:
+        import torch.distributed as dist
+
+        with torch.inference_mode():
+            out = sp_attention.sp_attention(q, k, v, rh, rw, 0.125, dist.group.WORLD)
+        assert torch.equal(out, sp_attention.sp_attention_reference(q, k, v, rh, rw, 0.125))
+    finally:
+        distributed.destroy()

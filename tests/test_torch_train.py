@@ -269,5 +269,5 @@ def test_train_cli_runs_and_resumes(tmp_path):
     second = dict(np.load(exp / "checkpoints" / "sam_model_latest.npz"))
     assert int(second["o0"]) == 4 and list(second) == list(first)
     assert not np.array_equal(second["m0"], first["m0"])
-    with pytest.raises(NotImplementedError, match="tp"):
+    with pytest.raises(ValueError, match="tp"):  # --tp 2 does not divide a world of one
         tcli.main(base + ["--tp", "2"])
