@@ -136,7 +136,24 @@ Run from the repository root on a machine with one CUDA card. It
     train step (2 clicks given) bit for bit against the plain step, each
     step's ms and peak memory printed as readings; where
     the machine has two cards, a two-rank NCCL world (tp 2 encoder, dp 2
-    step). The world is destroyed after, and the script says which ran.
+    step). The world is destroyed after, and the script says which ran;
+18. the FQ-ViT classifiers and the BRS predictors (``models/vit_classifier``,
+    ``models/swin_classifier``, ``cli.test_quant``, ``evaluation/lbfgs``,
+    ``evaluation/predictors``' BRS, ``cli.evaluate --mode``): DeiT-B and
+    Swin-T at full width and depth from seeded weights, batch 8, float32
+    logits card vs CPU, FQ calibration over 2 batches on both devices (held
+    as step 16 holds SAM's scales), quant-mode logits card vs CPU on the
+    CPU's qparams, ``cli.test_quant deit_base`` and ``swin_tiny`` with few
+    small batches, no kernel launched; vit_tiny_synth InputBRS and f-BRS card
+    vs CPU on the CPU's clicks at opt_steps 2 and at the defaults; ViT-H
+    float32 through each BRS predictor (28/4 flash launches a ``set_image``,
+    none in ``get_prediction``; ms a click and the loss after each step, no
+    step with sufficient decrease raising it); ``cli.evaluate vit_tiny --mode
+    InputBRS``. In step 17's one-rank NCCL world it adds the W4A8 ViT-H under
+    ``tensor_parallel`` at tp 1 (128 ``quant_matmul_a8_sym``, proj and lin2
+    quantizing at the all-reduced token amax) and ``sp_attention``'s
+    gradients against the reference's; its two-rank world also holds W4A8 tp 2
+    against tp 1 and the two-rank gradients.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -313,6 +330,44 @@ TP1_TOL = 1e-4
 # one-process step on the full batch, parameters rel. L2 over the model
 # (the CPU tests read 1.4e-7 to 1.7e-7 at vit_tiny).
 TP2_TOL, DP2_TOL = 1e-4, 1e-6
+# Step 18. DeiT-B and Swin-T, card vs CPU, float32 (TF32 off), batch 8:
+# the logits differ by float32 sum order only (first H100 run: 1.44e-6 and
+# 3.82e-7, limit 1e-4). The quant mode is held as step 16 holds SAM's
+# encoder: every point's output bit-equal when fed the CPU's input, the
+# inputs between points within FQ_GAP_TOL; free running, an activation
+# within rounding of a grid point on one device flips by a step and the
+# flips cascade through the blocks onto random-weight logits, which are
+# small and near-uniform: the first run read 9.57e-2 (DeiT-B, 12 blocks)
+# and 1.80e-2 (Swin-T), past the CPU tests' QUANT_TOL, so past it the run
+# must be such a traced cascade within CLF_CASCADE_TOL. BRS maps of
+# vit_tiny_synth card vs CPU (max |d prob|): at opt_steps 2 the decoders'
+# rounding through two line searches (first run 1.6e-6); at the defaults
+# (10 and 15 steps) L-BFGS may part further (5.6e-6 and 4.5e-5). The W4A8
+# ViT-H under tensor_parallel at tp 1 against its eager path: the TP
+# attention sums the rel bias in another order (dense: 1.7e-6), which moves
+# int8 roundings at proj's input, and the steps cascade over 32 blocks
+# (first run 2.02e-2, inside the W4A8 f32 embedding bound A8_F32_TOL); each
+# row shard against its layer on one input is bit-equal. sp_attention's
+# one-rank gradients against the reference's (SP_GRAD_TOL, max |d|; first
+# run 0).
+CLF_BATCH = 8
+CLF_FLOAT_TOL = 1e-4
+CLF_QUANT_TOL = 1e-2
+CLF_CASCADE_TOL = 0.25
+# Fed the CPU's input, a point's output on the card may still differ where
+# LIS takes log2 of a probability within an ulp of a rounding boundary
+# (CUDA's logf against the CPU's); first run, before each stretch was held
+# alone: 4 values (DeiT-B) and 33 (Swin-T), of about 4.5e7 and 1.9e7.
+CLF_LIS_FLIP_SHARE = 1e-5
+BRS_CARD_TOL = 1e-3
+BRS_CARD_DEFAULT_TOL = 5e-2
+SP_GRAD_TOL = 1e-5
+# W4A8 tp 2 against tp 1 (two cards only): the partial sums of proj and lin2
+# change the residual stream's float order, and a value within rounding of
+# an int8 rounding point moves its product by one activation step (the CPU
+# tests read 3e-7 at vit_tiny; over 32 blocks the steps cascade, as at tp
+# 1 against the eager path), so the W4A8 f32 embedding bound.
+A8_TP2_TOL = A8_F32_TOL
 FAILURES = []
 
 
@@ -586,6 +641,74 @@ def gptq_encoder_phase(dev, card: str, name: str, build, image, launches: dict,
     print(f"GPTQ phase ({name}): {time.perf_counter() - phase_t:.1f} s  [{card}]")
 
 
+def _points_ctx():
+    """The FQ quant-mode context class that keeps each observation point's
+    input and output on the CPU (step 16's and step 18's point-by-point
+    checks)."""
+    from sam_quantization_tpu_torch.quant.fq import pipeline as fq
+
+    class Points(fq.FQCtx):
+        """Quant mode keeping each point's input and output on the CPU; given
+        another run's record, each point runs on that run's input instead of
+        its own (the gap between the two is kept) and passes that run's
+        output on, so each stretch between two points is held alone."""
+
+        def __init__(self, rec, *a, **k):
+            super().__init__(*a, **k)
+            self.rec, self.inputs, self.outputs, self.gaps = rec, {}, {}, {}
+
+        def _take(self, path, x):
+            self.inputs[path] = x.cpu()
+            if self.rec is None:
+                return x
+            want = self.rec[path][0]
+            self.gaps[path] = float((x.cpu() - want).norm() / want.norm().clamp(min=1e-30))
+            return want.to(x.device)
+
+        def _give(self, path, y):
+            self.outputs[path] = y.cpu()
+            return y if self.rec is None else self.rec[path][1].to(y.device)
+
+        def act(self, path, x, ln_input=False):
+            return self._give(path, super().act(path, self._take(path, x), ln_input=ln_input))
+
+        def softmax(self, path, attn, scale_path=None, dim=-1):
+            return self._give(path, super().softmax(path, self._take(path, attn),
+                                                    scale_path=scale_path, dim=dim))
+
+    return Points
+
+
+def _held_points(cpu, free, forced, qparams, out_card, out_cpu, tol: float,
+                 cascade_tol: float):
+    """Step 16's reading of a quant-mode forward run three ways (``cpu``,
+    ``free`` on the card, ``forced``: the card fed the CPU's input at each
+    point): ({point: values differing in its forced output} for the points
+    that differ, the largest input gap between points, free-running rel. L2,
+    a text, whether the free run passes: within ``tol``, or a cascade from a
+    point whose input is within float32 rounding and whose outputs are one
+    grid step apart, within ``cascade_tol``)."""
+    import torch
+
+    flips = {p: int((forced.outputs[p] != cpu.outputs[p]).sum()) for p in cpu.outputs}
+    flips = {p: n for p, n in flips.items() if n}
+    gap = max(forced.gaps.values())
+    rel = float((out_card.cpu() - out_cpu).norm() / out_cpu.norm())
+    first = next((p for p in cpu.outputs if not torch.equal(free.outputs[p], cpu.outputs[p])),
+                 None)
+    cascade, ok = "none", rel <= tol
+    if first is not None:
+        in_gap = float((free.inputs[first] - cpu.inputs[first]).norm()
+                       / cpu.inputs[first].norm())
+        d = (free.outputs[first] - cpu.outputs[first]).abs()
+        steps = (d / qparams[first][0].cpu())[d > 0]  # in grid steps (per channel under PTF)
+        one_step = bool(torch.allclose(steps, torch.ones_like(steps), rtol=1e-5))
+        cascade = (f"first differing point {first}: input rel gap {in_gap:.2e}, {steps.numel()} "
+                   f"values one grid step apart {one_step}")
+        ok = ok or (in_gap <= 1e-6 and one_step and rel <= cascade_tol)
+    return flips, gap, rel, cascade, ok
+
+
 def fq_phase(dev, card: str, name: str, build, n_qparams: int, reset_counts, counts, zero: dict,
              workdir: pathlib.Path) -> None:
     """FQ-ViT (module docstring, step 16): (a) vit_tiny_synth card vs CPU;
@@ -640,32 +763,7 @@ def fq_phase(dev, card: str, name: str, build, n_qparams: int, reset_counts, cou
     weights_equal = all(torch.equal(a.cpu(), b) for a, b in
                         zip(qenc_card.state_dict().values(), qenc_cpu.state_dict().values()))
 
-    class Points(fq.FQCtx):
-        """Quant mode keeping each point's input and output on the CPU; given
-        another run's record, each point runs on that run's input instead of
-        its own, and the gap between the two is kept."""
-
-        def __init__(self, rec, *a, **k):
-            super().__init__(*a, **k)
-            self.rec, self.inputs, self.outputs, self.gaps = rec, {}, {}, {}
-
-        def _take(self, path, x):
-            self.inputs[path] = x.cpu()
-            if self.rec is None:
-                return x
-            want = self.rec[path][0]
-            self.gaps[path] = float((x.cpu() - want).norm() / want.norm().clamp(min=1e-30))
-            return want.to(x.device)
-
-        def act(self, path, x, ln_input=False):
-            y = super().act(path, self._take(path, x), ln_input=ln_input)
-            self.outputs[path] = y.cpu()
-            return y
-
-        def softmax(self, path, attn, scale_path=None, dim=-1):
-            y = super().softmax(path, self._take(path, attn), scale_path=scale_path, dim=dim)
-            self.outputs[path] = y.cpu()
-            return y
+    Points = _points_ctx()
 
     x0 = scenes[0]
     with torch.no_grad(), full_float32():
@@ -679,25 +777,13 @@ def fq_phase(dev, card: str, name: str, build, n_qparams: int, reset_counts, cou
         qenc_card(x0.to(dev), "kernel", forced)
         torch.cuda.synchronize()
         got = counts()
-    flips = sum(int((forced.outputs[p] != cpu.outputs[p]).sum()) for p in cpu.outputs)
-    gap = max(forced.gaps.values())
-    rel = float((e_card - e_cpu).norm() / e_cpu.norm())
-    first = next((p for p in cpu.outputs if not torch.equal(free.outputs[p], cpu.outputs[p])), None)
-    cascade = "none"
-    cascade_ok = rel <= FQ_ENCODE_TOL
-    if first is not None:
-        in_gap = float((free.inputs[first] - cpu.inputs[first]).norm() / cpu.inputs[first].norm())
-        d = (free.outputs[first] - cpu.outputs[first]).abs()
-        steps = (d / q_card[first][0].cpu())[d > 0]  # in grid steps (per channel under PTF)
-        one_step = bool(torch.allclose(steps, torch.ones_like(steps), rtol=1e-5))
-        cascade = (f"first differing point {first}: input rel gap {in_gap:.2e}, {steps.numel()} "
-                   f"values one grid step apart {one_step}")
-        cascade_ok = cascade_ok or (in_gap <= 1e-6 and one_step and rel <= FQ_CASCADE_TOL)
-    check(weights_equal and got == zero and flips == 0 and gap <= FQ_GAP_TOL and cascade_ok
+    flips, gap, rel, cascade, cascade_ok = _held_points(cpu, free, forced, q_card, e_card, e_cpu,
+                                                        FQ_ENCODE_TOL, FQ_CASCADE_TOL)
+    check(weights_equal and got == zero and not flips and gap <= FQ_GAP_TOL and cascade_ok
           and set(free.ln_modes.values()) == {"int"} and free.ln_modes == cpu.ln_modes,
           f"FQ vit_tiny_synth quant-mode encode (card qparams), card vs CPU: weights bit-equal "
           f"{weights_equal}; fed the CPU's inputs, {len(cpu.outputs)} points' outputs differ in "
-          f"{flips} values (0), inputs between points rel gap <= {gap:.2e} (<= {FQ_GAP_TOL}); free "
+          f"{sum(flips.values())} values (0), inputs between points rel gap <= {gap:.2e} (<= {FQ_GAP_TOL}); free "
           f"running rel L2 {rel:.3e} (<= {FQ_ENCODE_TOL}, or a traced cascade <= "
           f"{FQ_CASCADE_TOL}: {cascade}); {len(free.ln_modes)} LNs int; launches "
           f"{'none' if got == zero else got}  [{card}]")
@@ -1131,18 +1217,41 @@ def _clicks(seed: int, n: int, size: int):
     return out
 
 
+def _sp_grad_gap(dev, group, batch: int, seq_len: int) -> float:
+    """Largest |d| between sp_attention's float32 gradients of sum(out * w)
+    (q, k, v, rel_h, rel_w at ViT-H's global head shape) over ``group`` and
+    sp_attention_reference's, on seeded inputs the same on every rank."""
+    import torch
+
+    from sam_quantization_tpu_torch.parallel import sp_attention as sp_lib
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    shapes = [(batch, 16, seq_len, 80)] * 3 + [(batch, 16, seq_len, 64)] * 2
+    ins = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    w = torch.randn(shapes[0], generator=g, device=dev)
+    grads = []
+    for fn in (lambda *a: sp_lib.sp_attention(*a, 80**-0.5, group),
+               lambda *a: sp_lib.sp_attention_reference(*a, 80**-0.5)):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
+    return max(float((a - b).abs().max()) for a, b in zip(*grads))
+
+
 def _two_rank_world(rank: int, port: int, results, backend: str = "nccl",
                     name: str = "vit_h") -> None:
     """One rank of a two-rank world (NCCL on two cards): the tp 2 encoder of
-    ``name`` against the unsharded one, and the dp 2 step against the
-    one-process step on the full batch; rank 0 puts its readings on
+    ``name`` against the unsharded one, dense and W4A8 (sym g128); the dp 2
+    step against the one-process step on the full batch; sp_attention's
+    gradients against the reference's. Rank 0 puts its readings on
     ``results``."""
     import numpy as np
     import torch
 
     from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
     from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
     from sam_quantization_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
     from sam_quantization_tpu_torch.train import trainer as trainer_lib
 
     dev = distributed.initialize(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -1163,6 +1272,18 @@ def _two_rank_world(rank: int, port: int, results, backend: str = "nccl",
         tp_err = float((out - ref).norm() / ref.norm())
         del model, ref, out
 
+        enc = build_sam.sam_model_registry[name](device=dev, seed=0).image_encoder
+        seq.rtn_quantize_encoder(enc, seq.GPTQConfig(bits=4, groupsize=128, sym=True))
+        enc = packed_lib.with_act_bits(enc, 8)
+        with torch.no_grad():
+            ref = enc(x, "eager")
+            mesh_lib.shard_params(enc, tp2)
+            with mesh_lib.tensor_parallel(tp2):
+                out = enc(x)
+        a8_err = float((out - ref).norm() / ref.norm())
+        del enc, ref, out
+        sp_err = _sp_grad_gap(dev, mesh_lib.group_of(tp2), 1, 4096)
+
         tcfg = trainer_lib.TrainConfig(num_clicks=2)
         scenes = list(synthetic_samples(2, size, 0))
         images = torch.from_numpy(np.concatenate([im for im, _ in scenes])).to(dev)
@@ -1180,7 +1301,7 @@ def _two_rank_world(rank: int, port: int, results, backend: str = "nccl",
             del model, opt
         dp_err = float((params[1] - params[0]).norm() / params[0].norm())
         if rank == 0:
-            results.put((tp_err, dp_err))
+            results.put((tp_err, dp_err, a8_err, sp_err))
     finally:
         distributed.destroy()
 
@@ -1443,6 +1564,41 @@ def parallel_phase(dev, card: str, build, reset_counts, counts, flash_launches: 
         del w4, x, ref, out
         torch.cuda.empty_cache()
 
+        # Step 18 (c): the W4A8 ViT-H (sym g128) in float32 under
+        # tensor_parallel at tp 1, proj's and lin2's row shards quantizing at
+        # the token amax all-reduced over the group; and sp_attention's
+        # gradient at the global shape against the reference's.
+        a8 = build().image_encoder
+        seq.rtn_quantize_encoder(a8, seq.GPTQConfig(bits=4, groupsize=128, sym=True))
+        a8 = packed_lib.with_act_bits(a8, 8)
+        x = torch.randn(1, size, size, 3, generator=g, device=dev)
+        with torch.inference_mode():
+            ref = a8(x, "eager")
+        mesh_lib.shard_params(a8, mesh)
+        with torch.inference_mode(), mesh_lib.tensor_parallel(mesh):
+            reset_counts()
+            out = a8(x)
+            torch.cuda.synchronize()
+        tp_err = float((out - ref).norm() / ref.norm())
+        launched = {n: c for n, c in counts().items() if c}
+        group = mesh_lib.group_of(mesh)
+        with torch.inference_mode():
+            same = []
+            for layer in (a8.blocks[0].attn.proj, a8.blocks[0].mlp.lin2):
+                h = torch.randn(4096, layer.in_features, generator=g, device=dev)
+                same.append(torch.equal(mesh_lib.row_parallel(layer, h, group), layer(h)))
+        check(tp_err <= A8_F32_TOL and launched == {"quant_matmul_a8_sym": 128} and all(same),
+              f"one-rank NCCL: ViT-H W4A8 f32 encoder under tensor_parallel (tp 1) vs its eager "
+              f"path: rel L2 {tp_err:.3e} (<= {A8_F32_TOL}: int8 flips cascading from the TP "
+              f"attention's float order), launches {launched}; block 0's proj and lin2 row "
+              f"shards on one input equal their layers bit for bit: {same}")
+        del a8, x, ref, out
+        torch.cuda.empty_cache()
+        sp_err = _sp_grad_gap(dev, mesh_lib.group_of(mesh), 1, 4096)
+        check(sp_err <= SP_GRAD_TOL, "one-rank NCCL: sp_attention (1, 16, 4096, 80) f32 "
+                                     f"gradients of q, k, v, rel_h, rel_w vs the reference's: "
+                                     f"max|d| {sp_err:.3e} (<= {SP_GRAD_TOL})")
+
         # One ViT-H float32 dp step, clicks given, against the plain step.
         model = build()
         trainer_lib.trainable_parameters(model)
@@ -1497,14 +1653,251 @@ def parallel_phase(dev, card: str, build, reset_counts, counts, flash_launches: 
 
         results = mp.get_context("spawn").SimpleQueue()
         mp.spawn(_two_rank_world, args=(distributed.free_port(), results), nprocs=2)
-        tp_err, dp_err = results.get()
-        check(tp_err <= TP2_TOL and dp_err <= DP2_TOL,
+        tp_err, dp_err, a8_err, sp_err = results.get()
+        check(tp_err <= TP2_TOL and dp_err <= DP2_TOL and a8_err <= A8_TP2_TOL
+              and sp_err <= SP_GRAD_TOL,
               f"two-rank NCCL: ViT-H f32 tp 2 encoder vs tp 1 rel L2 {tp_err:.3e} "
-              f"(<= {TP2_TOL}); dp 2 step vs one process, parameters rel L2 {dp_err:.3e} "
-              f"(<= {DP2_TOL})")
+              f"(<= {TP2_TOL}), W4A8 {a8_err:.3e} (<= {A8_TP2_TOL}); dp 2 step vs one "
+              f"process, parameters rel L2 {dp_err:.3e} (<= {DP2_TOL}); sp_attention "
+              f"gradients vs the reference max|d| {sp_err:.3e} (<= {SP_GRAD_TOL})")
         worlds.append("two-rank NCCL")
     print(f"parallel worlds run: {', '.join(worlds)} ({torch.cuda.device_count()} card(s)); "
           f"phase {time.perf_counter() - phase_t:.1f} s")
+
+
+class _Clicks:
+    """A fixed list of clicks in a clicker's interface (``get_clicks``), to
+    replay one device's clicks on the other."""
+
+    def __init__(self, clicks):
+        self.clicks = list(clicks)
+
+    def get_clicks(self, clicks_limit=None):
+        return self.clicks[:clicks_limit]
+
+
+def classifier_brs_phase(dev, card: str, build, reset_counts, counts, zero: dict,
+                         flash_launches: dict) -> None:
+    """Classifiers and BRS (module docstring, step 18): (a) DeiT-B and Swin-T
+    at full width, card against CPU, and ``cli.test_quant``; (b) the BRS
+    predictors, vit_tiny_synth card against CPU and ViT-H float32 through
+    the kernels, and ``cli.evaluate --mode InputBRS``."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.cli import evaluate as evaluate_cli
+    from sam_quantization_tpu_torch.cli import test_quant as test_quant_cli
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.evaluation import lbfgs
+    from sam_quantization_tpu_torch.evaluation.clicker import Click, Clicker
+    from sam_quantization_tpu_torch.evaluation.predictors import (
+        FeatureBRSPredictor, InputBRSPredictor)
+    from sam_quantization_tpu_torch.models import build_sam, swin_classifier, vit_classifier
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant.fq import pipeline as fq
+    from sam_quantization_tpu_torch.quant.sequential import full_float32
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+
+    phase_t = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).norm() / b.norm())
+
+    def card_ms(fn, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)
+
+    # (a) DeiT-B and Swin-T, seeded weights, float32, batch CLF_BATCH.
+    fq_cfg = fq.FQConfig()
+    Points = _points_ctx()
+    rng = np.random.default_rng(18)
+    reset_counts()
+    for name, mod, cfg in (
+            ("deit_base", vit_classifier, vit_classifier.CLASSIFIER_CONFIGS["deit_base"]),
+            ("swin_tiny", swin_classifier, swin_classifier.SWIN_CONFIGS["swin_tiny"])):
+        t0 = time.perf_counter()
+        on_cpu = mod.init(cfg, seed=0, device="cpu")
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        xs = [torch.from_numpy(rng.normal(size=(CLF_BATCH, cfg.img_size, cfg.img_size, 3))
+                               .astype(np.float32)) for _ in range(3)]
+        with torch.no_grad(), full_float32():
+            f_cpu = on_cpu(xs[2])
+            f_card = on_card(xs[2].to(dev))
+            f_ms = card_ms(lambda: on_card(xs[2].to(dev)))
+        q_card = fq.calibrate(lambda x, ctx: on_card(x, ctx), [x.to(dev) for x in xs[:2]],
+                              fq_cfg)
+        q_cpu = fq.calibrate(lambda x, ctx: on_cpu(x, ctx), xs[:2], fq_cfg)
+        layer = [k for k, (sc, _) in q_cpu.items() if sc.ndim == 0]
+        ptf = [k for k in q_cpu if k not in layer]
+        gap = max(float(((q_card[k][0].cpu() - q_cpu[k][0]).abs() / q_cpu[k][0]).max())
+                  for k in q_cpu)
+        zeros_equal = all(torch.equal(q_card[k][1].cpu(), q_cpu[k][1]) for k in q_cpu)
+        factors = [tuple(torch.round(sc / sc.min()) for sc in (q_card[k][0].cpu(), q_cpu[k][0]))
+                   for k in ptf]
+        same = sum(int((a == b).sum()) for a, b in factors)
+        total = sum(a.numel() for a, _ in factors)
+        qm_cpu, qm_card = fq.fq_quantize_weights(on_cpu, fq_cfg), fq.fq_quantize_weights(on_card,
+                                                                                        fq_cfg)
+        w_equal = all(torch.equal(a.cpu(), b) for a, b in
+                      zip(qm_card.state_dict().values(), qm_cpu.state_dict().values()))
+        # the quant mode held point by point, as step 16 holds SAM's encoder
+        on = {k: (sc.to(dev), z.to(dev)) for k, (sc, z) in q_cpu.items()}
+        with torch.no_grad(), full_float32():
+            cpu = Points(None, "quant", fq_cfg, qparams=q_cpu)
+            l_cpu = qm_cpu(xs[2], cpu)
+            free = Points(None, "quant", fq_cfg, qparams=on)
+            l_card = qm_card(xs[2].to(dev), free)
+            forced = Points({p: (cpu.inputs[p], cpu.outputs[p]) for p in cpu.outputs}, "quant",
+                            fq_cfg, qparams=on)
+            qm_card(xs[2].to(dev), forced)
+            q_ms = card_ms(lambda: qm_card(xs[2].to(dev), fq.FQCtx("quant", fq_cfg, qparams=on)))
+        flips, in_gap, quant_err, cascade, free_ok = _held_points(
+            cpu, free, forced, on, l_card, l_cpu, CLF_QUANT_TOL, CLF_CASCADE_TOL)
+        # LIS outputs are 2**-k or 0: a flip from the device's log2 rounding
+        # is one such step (a factor of 2, or 0 at the 4-bit cutoff)
+        lis = [p for p in cpu.outputs if p.endswith(".softmax")]
+        lis_values = sum(cpu.outputs[p].numel() for p in lis)
+        one_step = True
+        for p in flips:
+            a, b = forced.outputs[p], cpu.outputs[p]
+            d = a != b
+            ratio = (a[d] / b[d].clamp(min=1e-30)).log2().abs()
+            one_step &= bool((((ratio - 1).abs() < 1e-6) | (a[d] == 0) | (b[d] == 0)).all())
+        lis_ok = (set(flips) <= set(lis) and one_step
+                  and sum(flips.values()) <= CLF_LIS_FLIP_SHARE * lis_values)
+        float_err = rel(f_card, f_cpu)
+        check(sorted(q_card) == sorted(q_cpu) and gap <= FQ_SCALE_RTOL and zeros_equal
+              and same >= FQ_PTF_SHARE * total and w_equal and float_err <= CLF_FLOAT_TOL
+              and lis_ok and in_gap <= FQ_GAP_TOL and free_ok
+              and free.ln_modes == cpu.ln_modes and bool(torch.isfinite(l_card).all()),
+              f"{name} (f32, batch {CLF_BATCH}) card vs CPU: logits rel L2 {float_err:.3e} "
+              f"(<= {CLF_FLOAT_TOL}); FQ calibration over 2 batches: {len(q_card)} points, "
+              f"scales' largest rel gap {gap:.2e} (<= {FQ_SCALE_RTOL}), zeros equal "
+              f"{zeros_equal}, PTF factors equal on {same}/{total}; weights bit-equal "
+              f"{w_equal}; quant mode on the CPU's qparams, each stretch between points fed "
+              f"the CPU's input: {len(cpu.outputs)} points' outputs differ in "
+              f"{sum(flips.values())} values, at {flips or 'none'} (LIS points only, one step "
+              f"each {one_step}, <= {CLF_LIS_FLIP_SHARE:.0e} of {lis_values} LIS values), "
+              f"inputs between points rel gap <= {in_gap:.2e} (<= {FQ_GAP_TOL}); free running "
+              f"logits rel L2 {quant_err:.3e} (<= {CLF_QUANT_TOL}, or a cascade <= "
+              f"{CLF_CASCADE_TOL}: {cascade}); LNs {sorted(set(free.ln_modes.values()))}")
+        print(f"  {name} on the card, batch {CLF_BATCH}: float32 forward {f_ms[1]:.2f} ms "
+              f"(min {f_ms[0]:.2f}), quant-mode {q_ms[1]:.2f} ms (min {q_ms[0]:.2f}); "
+              f"{time.perf_counter() - t0:.1f} s with the CPU side  [{card}]")
+        del on_cpu, on_card, qm_cpu, qm_card
+    for name in ("deit_base", "swin_tiny"):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = test_quant_cli.main([name, "--calib-iter", "2", "--val-batches", "1"])
+        last = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and last["model"] == name and 0.0 <= last["fp_agreement_top1"]
+              <= last["fp_agreement_top5"] <= 1.0,
+              f"cli.test_quant {name} --calib-iter 2 --val-batches 1 on the card "
+              f"({time.perf_counter() - t0:.1f} s): {json.dumps(last)}")
+    got = counts()
+    check(got == zero, "classifiers, FQ and cli.test_quant launched no kernel: "
+                       f"{ {n: c for n, c in got.items() if c} or 'none'}")
+    torch.cuda.empty_cache()
+
+    # (b) BRS. vit_tiny_synth, float32 through the kernels, card vs CPU on
+    # the CPU's clicks (the second placed on its first map).
+    tiny = build_sam.sam_model_registry["vit_tiny"](device="cpu")
+    ckpt = repo / "checkpoints" / "vit_tiny_synth"
+    ckpt_lib.load_weights(str(ckpt), tiny, "best")
+    tiny_card = copy.deepcopy(tiny).to(dev)
+    image, gt = next((img[0, :150].astype(np.uint8), g[:150])
+                     for img, g in synthetic_samples(1, 200, seed=5))
+    for cls, default in ((InputBRSPredictor, 10), (FeatureBRSPredictor, 15)):
+        for opt_steps in (2, default):
+            cpu = cls(SamPredictor(tiny), opt_steps=opt_steps)
+            cpu.set_input_image(image)
+            clicker, pred = Clicker(gt_mask=gt), np.zeros(gt.shape, bool)
+            for _ in range(2):
+                clicker.make_next_click(pred)
+                want = cpu.get_prediction(clicker)
+                pred = want > 0.5
+            on_card = cls(SamPredictor(tiny_card), opt_steps=opt_steps)
+            on_card.set_input_image(image)
+            got = on_card.get_prediction(_Clicks(clicker.get_clicks()))
+            gap = float(np.abs(got - want).max())
+            iou = float(((got > 0.5) & (want > 0.5)).sum() / max(((got > 0.5) | (want > 0.5)).sum(), 1))
+            tol = BRS_CARD_TOL if opt_steps == 2 else BRS_CARD_DEFAULT_TOL
+            check(gap <= tol and len(on_card.last_steps) == len(cpu.last_steps),
+                  f"vit_tiny_synth {cls.__name__} opt_steps {opt_steps}, card vs CPU (2 clicks): "
+                  f"max |d prob| {gap:.3e} (<= {tol}), mask IoU {iou:.4f}; steps "
+                  f"{len(on_card.last_steps)} / {len(cpu.last_steps)}; losses card "
+                  f"{[round(s.value_after, 5) for s in on_card.last_steps]} CPU "
+                  f"{[round(s.value_after, 5) for s in cpu.last_steps]}")
+    del tiny, tiny_card
+
+    # ViT-H float32 through the kernels: one set_image (28/4 launches), then
+    # each BRS predictor at its default steps on the clicker's first click,
+    # and on it with a positive and a negative click two pixels apart, which
+    # fall in one low-res cell: their hinges pull that logit both ways, so
+    # L-BFGS must drive it to 0 against the rest of the map.
+    model = build()
+    size = model.config.image_encoder.img_size
+    scene, scene_gt = next(iter(synthetic_samples(1, size, 18)))
+    scene = np.clip(scene[0], 0, 255).astype(np.uint8)
+    first = Clicker(gt_mask=scene_gt)
+    first.make_next_click(np.zeros(scene_gt.shape, bool))
+    c = size // 2
+    plans = (first.get_clicks(), first.get_clicks() + [Click(is_positive=True, coords=(c, c)),
+                                                         Click(is_positive=False, coords=(c, c + 2))])
+    for cls in (InputBRSPredictor, FeatureBRSPredictor):
+        brs = cls(SamPredictor(model))
+        reset_counts()
+        brs.set_input_image(scene)
+        torch.cuda.synchronize()
+        encode_counts = counts()
+        readings, ok = [], True
+        for clicks in plans:
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prob = brs.get_prediction(_Clicks(clicks))
+            ms = (time.perf_counter() - t) * 1e3
+            launched = counts()
+            steps = brs.last_steps
+            rises = [s for s in steps if s.decrease_error == 0.0
+                     and s.value_after - s.value > lbfgs.APPROX_DEC_RTOL * abs(s.value)]
+            ok &= (launched == zero and not rises and 1 <= len(steps) <= brs.opt_steps
+                   and np.isfinite(prob).all() and prob.shape == scene_gt.shape)
+            readings.append((ms, steps))
+        check(ok and encode_counts == flash_launches and len(readings[1][1]) >= 2,
+              f"ViT-H f32 {cls.__name__} (opt_steps {brs.opt_steps}): set_image launches "
+              f"{ {n: c for n, c in encode_counts.items() if c} } (28/4); get_prediction "
+              "launches no kernel; the conflicting pair takes 2 steps or more; no step with "
+              "sufficient decrease raised the loss")
+        for i, (ms, steps) in enumerate(readings):
+            print(f"  ViT-H {cls.__name__} {('first click', 'with the conflicting pair')[i]}: "
+                  f"{ms:.1f} ms, {len(steps)} steps, "
+                  f"{sum(s.linesearch_steps for s in steps)} line-search evaluations; loss "
+                  f"{steps[0].value:.5g} -> " + ", ".join(f"{s.value_after:.5g}" for s in steps)
+                  + f"  [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate_cli.main(["vit_tiny", "--datasets", "synthetic", "--num-samples", "2",
+                                "--n-clicks", "3", "--mode", "InputBRS", "--checkpoint",
+                                str(ckpt)])
+    table = buf.getvalue()
+    check(rc == 0 and "synthetic" in table and "NoC@90%" in table,
+          f"cli.evaluate vit_tiny --mode InputBRS on the card ({time.perf_counter() - t0:.1f} s)")
+    print(table.rstrip())
+    print(f"classifier and BRS phase {time.perf_counter() - phase_t:.1f} s")
 
 
 def main() -> int:
@@ -2768,6 +3161,9 @@ def main() -> int:
     # ----------------------------------------------------------------- parallel
     parallel_phase(dev, card, vit_h, reset_counts, counts, flash_launches, train_launches,
                    {"W4": w4_launches, "W4A8": a8_launches, "cached int8": int8_launches})
+
+    # ------------------------------------------------------ classifiers, BRS
+    classifier_brs_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -14,8 +14,12 @@ Datasets: ``synthetic`` and ``synthetic_hard`` (seeded scenes), the named
 benchmarks GrabCut/Berkeley/DAVIS/COCO_MVal/PascalVOC/SBD (path from
 ``config.yml`` unless ``--dataset-path`` is given), or any images/ + masks/
 folder at ``--dataset-path``. Runs on the CUDA card unless ``--platform
-cpu`` is given. ``--mode f-BRS`` and ``InputBRS`` raise: the BRS
-predictors are not ported (ROADMAP, Queue 1, "BRS predictors").
+cpu`` is given. ``--mode InputBRS`` and ``--mode f-BRS`` refine every click
+by L-BFGS over the mask prompt or the embedding's per-channel scale and
+bias (``evaluation/predictors.py``)::
+
+    python -m sam_quantization_tpu_torch.cli.evaluate vit_tiny --datasets synthetic \
+        --num-samples 2 --n-clicks 3 --mode InputBRS --platform cpu
 """
 
 from __future__ import annotations
@@ -49,10 +53,6 @@ def main(argv=None):
     add_model_args(p)
     add_platform_arg(p)
     args = p.parse_args(argv)
-    if args.mode != "NoBRS":
-        raise NotImplementedError(
-            f"--mode {args.mode}: the BRS predictors are not ported "
-            "(ROADMAP, Queue 1, 'BRS predictors')")
 
     from sam_quantization_tpu_torch.data.datasets import (
         ImageMaskDataset, get_dataset, preprocess_for_eval,
@@ -60,21 +60,23 @@ def main(argv=None):
     from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
     from sam_quantization_tpu_torch.evaluation import click_eval, metrics
     from sam_quantization_tpu_torch.evaluation.predictors import (
-        Crops, SamEvalPredictor, ZoomIn,
+        Crops, FeatureBRSPredictor, InputBRSPredictor, SamEvalPredictor, ZoomIn,
     )
     from sam_quantization_tpu_torch.predictor import SamPredictor
 
     model, _ = build_model(args, device_of(args))
     size = model.config.image_encoder.img_size
-    use_predictor = args.with_flip or args.zoom_in or args.crops
+    use_predictor = args.mode != "NoBRS" or args.with_flip or args.zoom_in or args.crops
     if use_predictor:
         crops = None
         if args.crops:
             ch, cw = (int(v) for v in args.crops.lower().split("x"))
             crops = Crops(crop_size=(ch, cw))
-        eval_pred = SamEvalPredictor(
-            SamPredictor(model), with_flip=args.with_flip,
-            zoom_in=ZoomIn(target_size=size) if args.zoom_in else None, crops=crops)
+        cls = {"InputBRS": InputBRSPredictor, "f-BRS": FeatureBRSPredictor}.get(
+            args.mode, SamEvalPredictor)
+        eval_pred = cls(SamPredictor(model), with_flip=args.with_flip,
+                        zoom_in=ZoomIn(target_size=size) if args.zoom_in else None,
+                        crops=crops)
     else:
         encode, decode = click_eval.make_sam_backend(model)
 

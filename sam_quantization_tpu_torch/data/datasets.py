@@ -338,12 +338,14 @@ def shard_indices(n: int, num_shards: int, shard: int, seed: int = 0, shuffle=Tr
 
 def resize_nearest(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """Nearest-neighbour resize of a 2-D array with half-pixel centres, the
-    indices computed as ``jax.image.resize(..., "nearest")`` computes them:
-    floor((i + 0.5) * in / out) in float32, product first."""
+    indices computed as ``jax.image.resize(..., "nearest")`` computes them
+    once XLA has folded its ``(i + 0.5) * in / out``: floor((i + 0.5) * c)
+    in float32, c = float32(in) * float32(1 / out) rounded to float32."""
     t = torch.as_tensor(np.ascontiguousarray(mask))
     for axis, n in enumerate(size):
         m = t.shape[axis]
-        idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).long()
+        c = float(np.float32(m) * (np.float32(1) / np.float32(n)))
+        idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * c).long()
         t = t.index_select(axis, idx)
     return t.numpy()
 

@@ -10,9 +10,14 @@ Interface: ``set_input_image(image)`` once, then ``get_prediction(clicker)``
 returns a probability map in the original frame — the contract the NoC
 evaluator consumes (ref inference/evaluation.py:35-56).
 
-The BRS refinements (input-BRS and f-BRS) are not ported: the JAX package
-runs them on optax's L-BFGS with its zoom line search, and parity needs a
-copy of that optimizer (ROADMAP, Queue 1, "BRS predictors").
+The BRS refinements (the reference's inference/predictors/brs.py:9-307, as
+the JAX package adapts them to SAM): :class:`InputBRSPredictor` optimizes an
+additive low-res mask prompt, :class:`FeatureBRSPredictor` a per-channel
+scale and bias on the cached image embedding, each so that the decoded
+low-res logits agree with every click, by L-BFGS with optax's zoom line
+search (``evaluation/lbfgs.py``). The encoder runs once per image (its
+kernels); the mask decoder runs eagerly under autograd, which takes the
+gradient of the optimized variables only.
 """
 
 from __future__ import annotations
@@ -21,9 +26,12 @@ import math
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from sam_quantization_tpu_torch.evaluation.clicker import Click
-from sam_quantization_tpu_torch.predictor import SamPredictor
+from sam_quantization_tpu_torch.evaluation.lbfgs import StepInfo, lbfgs_minimize
+from sam_quantization_tpu_torch.models import sam as sam_lib
+from sam_quantization_tpu_torch.predictor import MAX_POINTS, SamPredictor
 
 
 class SamEvalPredictor:
@@ -232,6 +240,139 @@ class ZoomIn:
         out = prob.copy()
         out[y0:y1, x0:x1] = _sigmoid(logits)
         return out
+
+
+class _BRSPredictor(SamEvalPredictor):
+    """What both BRS predictors share: the padded point prompt of every
+    click, the click-consistency hinge on the low-res logits, the L-BFGS
+    loop, and the map in the original frame. ``last_steps`` holds the
+    :class:`~sam_quantization_tpu_torch.evaluation.lbfgs.StepInfo` of each
+    optimizer step of the last prediction."""
+
+    def __init__(self, predictor, opt_steps: int, reg_weight: float = 1e-3, **kw):
+        super().__init__(predictor, **kw)
+        self.opt_steps = opt_steps
+        self.reg_weight = reg_weight
+        self.last_steps: List[StepInfo] = []
+
+    def _prompts(self, clicks: List[Click]):
+        """(coords, labels) in the model frame, padded to ``MAX_POINTS``
+        slots, and (row / 4, col / 4, positive) of each click on the low-res
+        grid, as JAX's predictors build them."""
+        pred = self.predictor
+        coords = np.zeros((1, MAX_POINTS, 2), np.float32)
+        labels = -np.ones((1, MAX_POINTS), np.float32)
+        click_px = []
+        for i, c in enumerate(clicks[:MAX_POINTS]):
+            pc = pred.transform.apply_coords(
+                np.array([[c.coords[1], c.coords[0]]], np.float32), pred.original_size
+            )[0]
+            coords[0, i] = pc
+            labels[0, i] = 1.0 if c.is_positive else 0.0
+            click_px.append((pc[1] / 4.0, pc[0] / 4.0, labels[0, i]))
+        dev = pred.device
+        points = (torch.from_numpy(coords).to(dev), torch.from_numpy(labels).to(dev))
+        return points, torch.from_numpy(np.asarray(click_px, np.float32)).to(dev)
+
+    @staticmethod
+    def _hinge(low: torch.Tensor, click_px: torch.Tensor) -> torch.Tensor:
+        """Sum of squared violations: positive clicks need a logit > 0,
+        negative ones < 0, on the (4h, 4w) low-res logits."""
+        ys = torch.clamp(click_px[:, 0].to(torch.int32), 0, low.shape[0] - 1).long()
+        xs = torch.clamp(click_px[:, 1].to(torch.int32), 0, low.shape[1] - 1).long()
+        vals = low[ys, xs]
+        viol = torch.where(click_px[:, 2] > 0.5, torch.clamp_min(-vals, 0.0),
+                           torch.clamp_min(vals, 0.0))
+        return torch.sum(viol**2)
+
+    def _refine(self, clicker, make_loss, decode, init) -> np.ndarray:
+        """Minimize ``make_loss(features, points, click_px)`` over ``init``,
+        then ``decode(features, points, variables)`` the low-res logits and
+        map them to the original frame. Runs outside inference mode on a
+        float32 copy of the cached embedding (an inference tensor)."""
+        pred = self.predictor
+        with torch.inference_mode(False):
+            features = pred.features.float().clone()
+            points, click_px = self._prompts(clicker.get_clicks())
+            loss = make_loss(features, points, click_px)
+            self.last_steps = []
+            best = lbfgs_minimize(loss, init, self.opt_steps, on_step=self.last_steps.append)
+            with torch.no_grad():
+                low_res = decode(features, points, best)
+                masks = sam_lib.postprocess_masks(pred.model, low_res, pred.input_size,
+                                                  pred.original_size)
+        prob = _sigmoid(masks[0, 0].cpu().numpy())
+        self.prev_prediction = prob
+        return prob
+
+
+class InputBRSPredictor(_BRSPredictor):
+    """Backpropagating refinement (input-BRS): optimize an additive low-res
+    mask-input map so the prediction agrees with every click (the JAX
+    ``InputBRSPredictor``, counterpart of inference/predictors/brs.py
+    InputBRS, with L-BFGS over the mask prompt instead of the raw image)."""
+
+    def __init__(self, predictor, opt_steps: int = 10, reg_weight: float = 1e-3, **kw):
+        super().__init__(predictor, opt_steps, reg_weight, **kw)
+
+    def get_prediction(self, clicker, prev_mask=None) -> np.ndarray:
+        model = self.predictor.model
+        h, w = model.config.prompt_encoder.image_embedding_size
+
+        def decode(features, points, variables):
+            (mask_in,) = variables
+            valid = torch.ones((1,), dtype=torch.bool, device=mask_in.device)
+            low_res, _ = sam_lib.decode_masks(model, features, points=points,
+                                              mask_inputs=mask_in, mask_valid=valid,
+                                              multimask_output=False)
+            return low_res  # (1, 1, 4h, 4w)
+
+        def make_loss(features, points, click_px):
+            def loss(variables):
+                low = decode(features, points, variables)[0, 0]
+                return (self._hinge(low, click_px)
+                        + self.reg_weight * torch.sum(variables[0] ** 2))
+            return loss
+
+        init = (torch.zeros((1, 4 * h, 4 * w, 1), dtype=torch.float32,
+                            device=self.predictor.device),)
+        return self._refine(clicker, make_loss, decode, init)
+
+
+class FeatureBRSPredictor(_BRSPredictor):
+    """f-BRS: optimize a per-channel scale and bias on the cached image
+    embedding so the decoded mask agrees with every click (the JAX
+    ``FeatureBRSPredictor``, counterpart of the reference's f-BRS-B mode,
+    inference/predictors/brs.py: auxiliary variables on backbone features;
+    JAX's unread ``lr`` is not taken: the line search sets the steps)."""
+
+    def __init__(self, predictor, opt_steps: int = 15, reg_weight: float = 1e-3, **kw):
+        super().__init__(predictor, opt_steps, reg_weight, **kw)
+
+    def get_prediction(self, clicker, prev_mask=None) -> np.ndarray:
+        model = self.predictor.model
+
+        def decode(features, points, variables):
+            scale, bias = variables
+            C = features.shape[-1]
+            feats = features * (1.0 + scale.reshape(1, 1, 1, C)) + bias.reshape(1, 1, 1, C)
+            low_res, _ = sam_lib.decode_masks(model, feats, points=points,
+                                              multimask_output=False)
+            return low_res
+
+        def make_loss(features, points, click_px):
+            def loss(variables):
+                low = decode(features, points, variables)[0, 0]
+                reg = self.reg_weight * (torch.sum(variables[0] ** 2)
+                                         + torch.sum(variables[1] ** 2))
+                return self._hinge(low, click_px) + reg
+            return loss
+
+        C = self.predictor.features.shape[-1]
+        dev = self.predictor.device
+        init = (torch.zeros((C,), dtype=torch.float32, device=dev),
+                torch.zeros((C,), dtype=torch.float32, device=dev))
+        return self._refine(clicker, make_loss, decode, init)
 
 
 def _sigmoid(x):

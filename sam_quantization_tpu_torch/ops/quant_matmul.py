@@ -58,7 +58,7 @@ only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -164,14 +164,19 @@ def true_divide(a: torch.Tensor, d: float) -> torch.Tensor:
     return a / torch.full((), d, dtype=a.dtype, device=a.device)
 
 
-def quantize_activations_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8 quantization: ``(xq int8 (M, K),
     scale float32 (M, 1))``, bit for bit the JAX function: float32 first,
     the amax clamped at 1e-8, a multiply by the reciprocal (a divide would
     round some half-way points the other way), round half to even, on
-    either device (:func:`true_divide`)."""
+    either device (:func:`true_divide`). ``amax`` (float32 (M, 1)): the
+    token abs-max to quantize at where the token is wider than ``x`` (a
+    row-parallel shard's slice, its amax reduced over the group); by
+    default x's own."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = true_divide(torch.clamp_min(amax, 1e-8), 127.0)
     xq = torch.clamp(torch.round(xf * (1.0 / scale)), -127, 127).to(torch.int8)
     return xq, scale
@@ -276,9 +281,13 @@ def quant_matmul_a8(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
 def quant_matmul_a8_xla(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     """The JAX package's float32 simulation of W-A8: the quantized
     activations times the dequantized float32 weight, times the token scale."""
-    xq, xs = quantize_activations_int8(x)
+    return _a8_xla(*quantize_activations_int8(x), p, x.dtype)
+
+
+def _a8_xla(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
+            dtype: torch.dtype) -> torch.Tensor:
     y = torch.matmul(xq.float(), dequantize(p, torch.float32))
-    return (y * xs).to(x.dtype)
+    return (y * xs).to(dtype)
 
 
 def quant_matmul_a8_sym_native(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
@@ -286,9 +295,13 @@ def quant_matmul_a8_sym_native(x: torch.Tensor, p: PackedLinear) -> torch.Tensor
     scale group (in float64, which holds it), each rounded to float32 as
     JAX's int32 result is, scaled per group and summed, times the token
     scale."""
+    return _a8_sym_native(*quantize_activations_int8(x), p, x.dtype)
+
+
+def _a8_sym_native(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
+                   dtype: torch.dtype) -> torch.Tensor:
     if not p.sym:
         raise ValueError("quant_matmul_a8_sym_native: the layer's grid is not symmetric")
-    xq, xs = quantize_activations_int8(x)
     w = (unpack_to_int(p) - (1 << (p.bits - 1))).to(torch.float64)
     K, N = w.shape
     G = p.num_groups
@@ -298,7 +311,7 @@ def quant_matmul_a8_sym_native(x: torch.Tensor, p: PackedLinear) -> torch.Tensor
     else:
         acc = torch.matmul(xd.reshape(-1, G, K // G).transpose(0, 1), w.reshape(G, K // G, N))
         y = torch.einsum("gmn,gn->mn", acc.to(torch.float32), p.scales)
-    return (y * xs).to(x.dtype)
+    return (y * xs).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -356,16 +369,26 @@ def int8_matmul(x: torch.Tensor, p: IntLinear) -> torch.Tensor:
         INT8_MATMULS["int8_matmul_pre"] += 1
         acc = _int_mm(x, w8).float()
         return (acc * (p.scales[0] * p.in_scale)[None, :]).to(torch.bfloat16)
+    if p.in_scale is None:
+        return int8_token_product(*quantize_activations_int8(x), p, x.dtype)
+    xq = quantize_static(x, p.in_scale)
+    if G != 1:
+        return _int8_scaled(xq, p.in_scale, p, x.dtype)
     INT8_MATMULS["int8_matmul"] += 1
-    if p.in_scale is not None:
-        xq, xs = quantize_static(x, p.in_scale), p.in_scale
-    else:
-        xq, xs = quantize_activations_int8(x)
+    acc = _int_mm(xq, w8).float()
+    return (acc * (p.scales[0] * p.in_scale)[None, :]).to(x.dtype)
+
+
+def _int8_scaled(xq: torch.Tensor, xs: torch.Tensor, p: IntLinear,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """int8_matmul on activations already quantized at scales ``xs`` (per
+    token (M, 1), or a static scalar for grouped weights)."""
+    INT8_MATMULS["int8_matmul"] += 1
+    M, K = xq.shape
+    w8 = p.w8.t() if p.layout == "nk" else p.w8  # (K, N)
+    G = p.num_groups
     if G == 1:
-        acc = _int_mm(xq, w8).float()
-        if p.in_scale is not None:
-            return (acc * (p.scales[0] * xs)[None, :]).to(x.dtype)
-        y = acc * p.scales[0][None, :]
+        y = _int_mm(xq, w8).float() * p.scales[0][None, :]
     else:
         if p.layout != "kn":
             raise ValueError("int8_matmul: grouped weights need the kn layout")
@@ -374,9 +397,30 @@ def int8_matmul(x: torch.Tensor, p: IntLinear) -> torch.Tensor:
         # in float64, so the float64 multiply-add rounded to float32 is the
         # fused one (but for a tie of the double rounding) on either device.
         g = K // G
-        y = torch.zeros((M, p.out_features), dtype=torch.float64, device=x.device)
+        y = torch.zeros((M, p.out_features), dtype=torch.float64, device=xq.device)
         for i in range(G):
             acc = _int_mm(xq[:, i * g:(i + 1) * g], w8[i * g:(i + 1) * g]).float()
             y = (acc.double() * p.scales[i].double() + y).float().double()
         y = y.float()
-    return (y * xs).to(x.dtype)
+    return (y * xs).to(dtype)
+
+
+def int8_token_product(xq: torch.Tensor, xs: torch.Tensor, layer,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """``xq (M, K) int8`` at token scales ``xs (M, 1)`` (as
+    :func:`quantize_activations_int8` gives them) times a layer that takes
+    per-token int8 activations -> ``(M, N)`` in ``dtype``: a ``PackedLinear``
+    with ``act_bits`` 8 by the W-A8 route :func:`quant_matmul` takes (its
+    kernels, or the split-plane 3-bit paths), an ``IntLinear`` without
+    ``in_scale`` by :func:`int8_matmul`'s dynamic branch. A row-parallel
+    shard passes its slice of the tokens quantized at the whole token's
+    amax (``parallel/mesh.row_parallel``)."""
+    if isinstance(layer, IntLinear):
+        if layer.in_scale is not None:
+            raise ValueError("int8_token_product: the layer quantizes at a static in_scale")
+        return _int8_scaled(xq, xs, layer, dtype)
+    if layer.act_bits != 8:
+        raise ValueError("int8_token_product: the layer takes no int8 activations")
+    if layer.bits == 3:
+        return (_a8_sym_native if layer.sym else _a8_xla)(xq, xs, layer, dtype)
+    return a8_matmul(xq, xs, layer, dtype, sym=layer.sym)

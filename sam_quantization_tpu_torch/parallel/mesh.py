@@ -23,7 +23,10 @@ A packed low-bit layer shards the same way. A column shard takes whole
 columns of ``qweight``, ``scales`` and ``zeros``; a row shard cuts K, so it
 must take whole pack blocks and whole quantization groups (or lie inside
 one group, whose scales it shares), and :func:`shard_params` refuses a
-``tp`` for which it does not.
+``tp`` for which it does not. A row shard of a layer that quantizes its
+input per token to int8 (W-A8, or a cached-int8 layer with no static scale)
+quantizes its slice at the token amax all-reduced (MAX) over the group, so
+its integers are the unsharded layer's.
 
 JAX's ``tp_constrain`` and the ``PartitionSpec`` trees have no counterpart:
 the shard a rank holds is its spec.
@@ -43,6 +46,7 @@ from torch import nn
 from sam_quantization_tpu_torch.nn import functional as F
 from sam_quantization_tpu_torch.nn.layers import Linear
 from sam_quantization_tpu_torch.nn.packed import IntLinear, PackedLinear
+from sam_quantization_tpu_torch.ops import quant_matmul
 from sam_quantization_tpu_torch.parallel.distributed import all_gather_cat
 
 # ---------------------------------------------------------------------------
@@ -162,10 +166,35 @@ def column_parallel(layer: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
     return layer(copy_to_tp(x, group))
 
 
+def _takes_int8_tokens(layer) -> bool:
+    """Whether ``layer`` quantizes its input per token to int8 at run time:
+    a W-A8 ``PackedLinear``, or an ``IntLinear`` with no static scale."""
+    return ((isinstance(layer, PackedLinear) and layer.act_bits == 8)
+            or (isinstance(layer, IntLinear) and layer.in_scale is None))
+
+
+def _int8_row_product(layer, x: torch.Tensor, group) -> torch.Tensor:
+    """A per-token int8 row shard's partial product: the token amax of this
+    rank's slice of x, MAX-reduced over the group (exact), quantizes the
+    slice as the unsharded layer quantizes the whole token (JAX's GSPMD
+    program reduces the same amax across shards)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    amax = x2.detach().float().abs().amax(dim=-1, keepdim=True)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    xq, xs = quant_matmul.quantize_activations_int8(x2, amax)
+    y = quant_matmul.int8_token_product(xq, xs, layer, x.dtype)
+    return y.reshape(*lead, y.shape[-1])
+
+
 def row_parallel(layer: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
     """A row shard on its share of the inputs: the partial products summed
-    over the group, then the whole bias once."""
-    y = reduce_from_tp(F.linear_product(x, layer), group)
+    over the group, then the whole bias once. A layer that quantizes its
+    input per token takes the token amax over the group first."""
+    if _takes_int8_tokens(layer):
+        y = reduce_from_tp(_int8_row_product(layer, x, group), group)
+    else:
+        y = reduce_from_tp(F.linear_product(x, layer), group)
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
     return y
@@ -293,9 +322,6 @@ def _cut_layer(layer, cols: Optional[torch.Tensor], k0: int = 0, k1: int = 0, wh
                 out.bias.copy_(layer.bias[c])
             return out
         ks = k1 - k0
-        if layer.act_bits == 8:
-            raise ValueError(f"{what}: int8 activations quantize per token over the whole "
-                             "input, which a row shard does not hold; serve it with tp=1")
         if ks % layer.pack_block:
             raise ValueError(f"{what}: a row shard of {ks} input rows cuts pack blocks of "
                              f"{layer.pack_block}; pick a tp that gives whole pack blocks")
@@ -319,9 +345,6 @@ def _cut_layer(layer, cols: Optional[torch.Tensor], k0: int = 0, k1: int = 0, wh
             return IntLinear(w8, layer.scales[:, c],
                              None if layer.bias is None else layer.bias[c],
                              layer.in_scale, groupsize=layer.groupsize, layout=layer.layout)
-        if layer.in_scale is None:
-            raise ValueError(f"{what}: per-token int8 activations quantize over the whole "
-                             "input, which a row shard does not hold; serve it with tp=1")
         g = layer.groupsize or layer.in_features
         g0, g1, gs = _cut_groups(g, k0, k1, what)
         w8 = layer.w8[:, k0:k1] if layer.layout == "nk" else layer.w8[k0:k1, :]

@@ -9,9 +9,10 @@ V, computes JAX's body (float32 logits, plain softmax, the rel bias added)
 and all-gathers the output rows, so the activations stay replicated and the
 rest of the encoder runs as before.
 
-No kernel runs here, in JAX or in the port: the body is eager. The
-collectives are forward-only (``torch.distributed.all_gather``), so this is
-an inference path; training takes the tensor-parallel branch.
+No kernel runs here, in JAX or in the port: the body is eager. It is
+differentiable, as JAX's ``shard_map`` body is: the gathers are autograd
+operators, and the replicated inputs' gradients are summed over the group,
+so every rank holds the full gradient of each input.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from sam_quantization_tpu_torch.parallel.distributed import all_gather_cat
-from sam_quantization_tpu_torch.parallel.mesh import group_of
+from sam_quantization_tpu_torch.parallel.mesh import copy_to_tp, group_of
 
 # ---------------------------------------------------------------------------
 # Active-group context: the encoder's production call site. The model code
@@ -59,6 +60,27 @@ def active_sp(seq_len: int):
     return group
 
 
+class _GatherRows(torch.autograd.Function):
+    """``all_gather_cat`` along ``dim`` as an autograd operator. Its backward
+    takes this rank's rows of the incoming gradient: summed over the group
+    first where each rank holds a part of it (``partial``: K and V, which
+    every rank's queries read), as it is where every rank holds all of it
+    (the output rows, gathered onto every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int, partial: bool):
+        ctx.group, ctx.dim, ctx.partial, ctx.rows = group, dim, partial, x.shape[dim]
+        return all_gather_cat(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.rows, ctx.rows), None, None, None
+
+
 def _body(q, k, v, rel_h, rel_w, scale):
     """JAX's shard body: (B, nh, Lq, hd) queries against (B, nh, L, hd) keys."""
     s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
@@ -83,20 +105,21 @@ def sp_attention(
     q/k/v: (B, nh, L, hd), the same on every rank; rel_h: (B, nh, L, kh);
     rel_w: (B, nh, L, kw) (kh * kw = L), or both None. Each rank computes
     its L/n query rows against the all-gathered K/V; the output rows are
-    all-gathered into (B, nh, L, hd) on every rank.
+    all-gathered into (B, nh, L, hd) on every rank. Under autograd every
+    rank's gradient of each input is the full one (copy-to-tp: the ranks'
+    shares are summed over the group).
     """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("sp_attention is forward-only: its all-gathers carry "
-                                  "no gradient")
     L = q.shape[2]
     n, r = group.size(), dist.get_rank(group)
     rows = slice(r * (L // n), (r + 1) * (L // n))
-    k_full = all_gather_cat(k[:, :, rows], group, dim=2)
-    v_full = all_gather_cat(v[:, :, rows], group, dim=2)
-    has_rel = rel_h is not None
-    out = _body(q[:, :, rows], k_full, v_full, rel_h[:, :, rows] if has_rel else None,
-                rel_w[:, :, rows] if has_rel else None, scale)
-    return all_gather_cat(out, group, dim=2)
+    q, k, v = (copy_to_tp(t, group) for t in (q, k, v))
+    k_full = _GatherRows.apply(k[:, :, rows], group, 2, True)
+    v_full = _GatherRows.apply(v[:, :, rows], group, 2, True)
+    rel = (None, None)
+    if rel_h is not None:
+        rel = (copy_to_tp(rel_h, group)[:, :, rows], copy_to_tp(rel_w, group)[:, :, rows])
+    out = _body(q[:, :, rows], k_full, v_full, *rel, scale)
+    return _GatherRows.apply(out, group, 2, False)
 
 
 def sp_attention_reference(q, k, v, rel_h, rel_w, scale) -> torch.Tensor:

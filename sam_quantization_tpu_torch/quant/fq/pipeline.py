@@ -207,9 +207,10 @@ def states_to(states, device) -> ObserverStates:
 # ---------------------------------------------------------------------------
 
 
-def _calibrate(run, items: list, fqcfg: FQConfig, overrides) -> QParams:
+def calibrate(run, items: list, fqcfg: FQConfig, overrides=None) -> QParams:
     """Stream ``items`` through ``run(item, ctx)``, the last in
-    ``last_calib`` mode; the states carry from batch to batch."""
+    ``last_calib`` mode; the states carry from batch to batch. Returns the
+    qparams of the last batch's context."""
     state: ObserverStates = {}
     qparams: QParams = {}
     with torch.no_grad(), full_float32():
@@ -228,7 +229,7 @@ def calibrate_encoder(encoder, fqcfg: FQConfig, batches: Iterable[torch.Tensor],
     params (fq_vit/test_quant.py:276-292 and model_open_last_calibrate).
     ``overrides``: per-point observer / bits / skip rules
     (``quant.overrides.QuantOverrides``)."""
-    return _calibrate(lambda x, ctx: encoder(x, "eager", ctx), list(batches), fqcfg, overrides)
+    return calibrate(lambda x, ctx: encoder(x, "eager", ctx), list(batches), fqcfg, overrides)
 
 
 def quantize_encoder(encoder, fqcfg: FQConfig, qparams: QParams, overrides=None):
@@ -282,7 +283,7 @@ def calibrate_sam(model: sam_lib.Sam, samples, fqcfg: FQConfig, max_points: int 
     (S, S)) pairs; the click lands at the gt's centre of mass. ``overrides``:
     per-point rules (quant.overrides), the reference's per-op
     init_quantize_config overrides (script/custimized_quant.py:56-147)."""
-    return _calibrate(lambda s, ctx: _sam_forward(model, s[0], s[1], max_points, ctx),
+    return calibrate(lambda s, ctx: _sam_forward(model, s[0], s[1], max_points, ctx),
                       list(samples), fqcfg, overrides)
 
 

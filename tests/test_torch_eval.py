@@ -292,9 +292,18 @@ def test_cli_evaluate_names_a_checkpoint_directory():
 
 
 @pytest.mark.parametrize("mode", ["InputBRS", "f-BRS"])
-def test_cli_evaluate_brs_raises(mode):
-    with pytest.raises(NotImplementedError, match="BRS"):
-        tevaluate.main(["vit_tiny", "--mode", mode, "--platform", "cpu"])
+def test_cli_evaluate_brs_raises(mode, capsys):
+    """The BRS modes, which raised before they were ported, now run: one
+    scene, one click, the NoC table printed. One torch thread: hundreds of
+    tiny decoder steps, which more threads only slow on a shared CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert tevaluate.main(["vit_tiny", "--mode", mode, "--platform", "cpu",
+                               "--num-samples", "1", "--n-clicks", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    assert "NoC@90%" in capsys.readouterr().out
 
 
 def test_cli_infer_eval_matches_jax(pth):

@@ -1325,3 +1325,88 @@ def test_one_rank_nccl_sp_attention_on_card(cuda):
         assert torch.equal(out, sp_attention.sp_attention_reference(q, k, v, rh, rw, 0.125))
     finally:
         distributed.destroy()
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_int8_row_shards_and_sp_grad_on_card(cuda):
+    """In a one-rank NCCL world a per-token int8 row shard (W4A8 sym g32 and
+    cached int8 with no act scales) equals the layer's own forward bit for
+    bit: the all-reduced amax and partial product of one rank are its own
+    (the W4A8 one launches ``quant_matmul_a8_sym`` once); and
+    ``sp_attention``'s float32 gradients equal the reference's within 1e-5."""
+    from sam_quantization_tpu_torch.parallel import distributed, mesh, sp_attention
+
+    layer = _packed_a8(31, 256, 96, 4, 32, True, cuda)
+    int8 = tpacked.cache_int8(torch.nn.ModuleDict({"l": _packed_a8(33, 256, 96, 4, 32, True,
+                                                                   cuda)}), skip=None)["l"]
+    x = _randn(34, 3, 50, 256).to(cuda)
+    q, k, v = (_randn(35 + j, 1, 4, 256, 32).to(cuda) for j in range(3))
+    rh, rw = (_randn(38 + j, 1, 4, 256, 16).to(cuda) for j in range(2))
+    w = _randn(40, 1, 4, 256, 32).to(cuda)
+    distributed.initialize("nccl", init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+                           world_size=1, rank=0)
+    try:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+        with torch.no_grad():
+            for lay, launches in ((layer, 1), (int8, 0)):
+                tqm.reset_launch_counts()
+                got = mesh.row_parallel(lay, x, group)
+                assert tqm.LAUNCHES["quant_matmul_a8_sym"] == launches
+                assert torch.equal(got, lay(x))
+        grads = []
+        for fn in (lambda *a: sp_attention.sp_attention(*a, 32**-0.5, group),
+                   lambda *a: sp_attention.sp_attention_reference(*a, 32**-0.5)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v, rh, rw)]
+            grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
+        for a, b in zip(*grads):
+            assert float((a - b).abs().max()) <= 1e-5
+    finally:
+        distributed.destroy()
+
+
+@pytest.mark.gpu
+def test_classifier_and_brs_on_card(cuda):
+    """A small DeiT and Swin on the card against the CPU (float32 logits rel.
+    L2 1e-4), launching no kernel; InputBRS and f-BRS on a seeded vit_tiny
+    at opt_steps 2, card against CPU on one click, max |d prob| 1e-3
+    (chip_smoke.py's BRS_CARD_TOL)."""
+    import copy
+
+    from sam_quantization_tpu_torch.evaluation import predictors as tpred
+    from sam_quantization_tpu_torch.evaluation.clicker import Click
+    from sam_quantization_tpu_torch.models import sam as tsam
+    from sam_quantization_tpu_torch.models import swin_classifier as tswin
+    from sam_quantization_tpu_torch.models import vit_classifier as tvit
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+
+    x = _randn(50, 2, 32, 32, 3)
+    for m in (tvit.init(tvit.ViTClassifierConfig(img_size=32, patch_size=8, embed_dim=32,
+                                                 depth=2, num_heads=2, num_classes=10,
+                                                 distilled=True), 0, "cpu"),
+              tswin.init(tswin.SwinConfig(img_size=32, patch_size=4, embed_dim=16,
+                                          depths=(2, 2), num_heads=(2, 4), window_size=4,
+                                          num_classes=10), 0, "cpu")):
+        for mod in (tfa, tqm, tfm, tpr):
+            mod.reset_launch_counts()
+        with torch.no_grad():
+            ref, got = m(x), copy.deepcopy(m).to(cuda)(x.to(cuda)).cpu()
+        assert float((got - ref).norm() / ref.norm()) <= 1e-4
+        assert all(n == 0 for c in (tfa.LAUNCHES, tqm.LAUNCHES, tfm.LAUNCHES, tpr.LAUNCHES)
+                   for n in c.values())
+
+    class OneClick:
+        def get_clicks(self):
+            return [Click(is_positive=True, coords=(60, 70))]
+
+    image = (np.random.default_rng(51).random((128, 128, 3)) * 255).astype(np.uint8)
+    model = tsam.init(CONFIGS["vit_tiny"], 0, "cpu")
+    for cls in (tpred.InputBRSPredictor, tpred.FeatureBRSPredictor):
+        maps = []
+        for m in (model, copy.deepcopy(model).to(cuda)):
+            p = cls(SamPredictor(m), opt_steps=2)
+            p.set_input_image(image)
+            maps.append(p.get_prediction(OneClick()))
+        assert float(np.abs(maps[0] - maps[1]).max()) <= 1e-3

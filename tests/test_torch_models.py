@@ -344,11 +344,12 @@ def test_rel_pos_resize_is_refused():
 
 
 def test_port_imports_no_jax():
-    """No file of the port, nor chip_smoke.py, imports JAX or the JAX package."""
+    """No file of the port, nor chip_smoke.py, imports JAX, optax or the JAX
+    package, at the top of a module or inside a function."""
     files = sorted((REPO / "sam_quantization_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     # \b after the name: "sam_quantization_tpu_torch" does not match
-    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|sam_quantization_tpu)\b", re.M)
+    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|optax|sam_quantization_tpu)\b", re.M)
     offenders = [str(f) for f in files if bad.search(f.read_text())]
     assert not offenders, offenders
     assert len(files) > 10
@@ -360,7 +361,10 @@ def test_port_imports_no_jax():
                    "native.py", "evaluation/metrics.py", "evaluation/clicker.py",
                    "evaluation/click_eval.py", "evaluation/predictors.py", "data/datasets.py",
                    "utils/config.py", "cli/evaluate.py", "quant/gptq.py",
-                   "quant/overrides.py", "quant/analysis.py", "cli/quantize.py"):
+                   "quant/overrides.py", "quant/analysis.py", "cli/quantize.py",
+                   "models/vit_classifier.py", "models/swin_classifier.py",
+                   "cli/test_quant.py", "evaluation/lbfgs.py", "data/points_sampler.py",
+                   "data/augment.py", "parallel/mesh.py", "parallel/sp_attention.py"):
         assert REPO / "sam_quantization_tpu_torch" / module in files, module
     for src in ("flash_windowed.cu", "flash_attn.cu", "quant_matmul.cu", "fused_mlp.cu",
                 "probe_packed.cu", "probe_heads.cu", "host_runtime.cpp"):
