@@ -154,6 +154,30 @@ Run from the repository root on a machine with one CUDA card. It
     quantizing at the all-reduced token amax) and ``sp_attention``'s
     gradients against the reference's; its two-rank world also holds W4A8 tp 2
     against tp 1 and the two-rank gradients.
+19. the export tail (``export.py``, ``export_onnx/``, ``csrc/aoti_runner.cpp``,
+    ``cli.export``, ``utils/experiment.Profiler``, ``sam.forward``), on the
+    seeded ViT-H: (b) the ONNX decoder at SAM's widths (3 clicks) built from
+    the card's model, byte-equal to the one built from a CPU copy of its
+    decoder, run by the numpy runtime on a kernel-path ``set_image``
+    embedding against ``SamDecoderModule`` on the card (float32, both mask
+    gates); (d) ``torch.export`` of the ViT-H decoder and float32 encoder,
+    saved, loaded and run against the eager module (the .pt2 files in
+    ``build/chip_export/``, deleted after), and a W4 and a W4A8 vit_tiny
+    encoder exported on the card: their programs hold the kernel ops and
+    launch the dequant-matmul kernels 16 times a run, none in the export,
+    and the AOTInductor packager refuses them; (e) AOTInductor: a
+    cached-int8 vit_tiny encoder (sym W4 g128, static scales from one seeded
+    image) compiled for the card and run from Python and by the C++ runner
+    (built with ``g++`` against this PyTorch, CUDA libraries linked) against
+    its eager encoder (the decoder package is held by the CPU tests); (c)
+    the ONNX ViT-B float32 encoder through the numpy runtime against the
+    card's eager encoder, and ViT-H's refused before anything is serialized
+    (past protobuf's 2 GiB); (f) ``Profiler(2, 2, 6)`` around 10 bf16
+    ``set_image`` calls, whose Chrome trace names 6 x 28/4 flash kernels;
+    (a) ``sam.forward`` in bf16 at B = 2 (28/4 launches) against the same
+    forward in float32 on the eager path, and against per-image encode +
+    decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
+    --format onnx``. Each part's seconds are printed.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
@@ -368,6 +392,28 @@ SP_GRAD_TOL = 1e-5
 # tests read 3e-7 at vit_tiny; over 32 blocks the steps cascade, as at tp
 # 1 against the eager path), so the W4A8 f32 embedding bound.
 A8_TP2_TOL = A8_F32_TOL
+# Step 19 (export). sam.forward in bf16 through the kernels at B = 2
+# against the same forward in float32 on the eager path: BATCH_TOL, the bf16
+# kernel path's bound against float32 eager (step 4). Against per-image
+# encode + decode through the same kernels: FORWARD_SPLIT_TOL, set from the
+# first H100 run (5.846e-5): cuBLAS may tile a GEMM of 2x the rows
+# otherwise, which moves a few bf16 roundings, well below one bf16 step
+# (2**-8) of rel. L2. The ONNX decoder's numpy runtime against
+# SamDecoderModule on the card (float32, TF32 off), max |d|: masks and
+# low-res logits ONNX_MASK_TOL, IoU ONNX_IOU_TOL; the ViT-B ONNX encoder's
+# numpy runtime against the card's eager encoder, rel. L2 ONNX_ENC_TOL:
+# float32 sums in another order on each side. torch.export programs against
+# their eager module (the same aten ops and, for packed layers, the same
+# kernels): EXPORT_TOL. The cached-int8 AOTInductor package (fused Triton
+# pointwise code) against its eager encoder: INT8_F32_TOL (an activation
+# within rounding of an int8 point may flip, and flips cascade over the
+# blocks, as between step 10's two paths).
+ONNX_MASK_TOL, ONNX_IOU_TOL, ONNX_ENC_TOL = 1e-3, 1e-4, 1e-4
+EXPORT_TOL, FORWARD_SPLIT_TOL = 1e-5, 5e-3
+# The cached-int8 AOTInductor encoder is vit_tiny: ViT-B's compile for the
+# card took 202.5 s on an H100, past the step's budget for it (about 180 s).
+ONNX_ENCODER, AOTI_ENCODER = "vit_b", "vit_tiny"
+PROFILE_WINDOW = (2, 2, 6)  # Profiler wait, warmup, active around 10 set_image calls
 FAILURES = []
 
 
@@ -1900,6 +1946,356 @@ def classifier_brs_phase(dev, card: str, build, reset_counts, counts, zero: dict
     print(f"classifier and BRS phase {time.perf_counter() - phase_t:.1f} s")
 
 
+def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
+                 flash_launches: dict) -> None:
+    """The export tail (module docstring, step 19), on the float32 ViT-H:
+    (b) the ONNX decoder, (d) ``torch.export`` (and the packed vit_tiny
+    encoders), (c) the ONNX encoder (ViT-B; ViT-H refused), (e) the
+    cached-int8 vit_tiny AOTInductor package and the C++ runner; then (a)'s
+    float32 eager forward, and on the bf16 encoder (f) the Profiler and (a)
+    ``sam.forward``; and (g) ``cli.export``."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch import export as ex
+    from sam_quantization_tpu_torch import export_onnx
+    from sam_quantization_tpu_torch.export_onnx import _wire
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.ops import _build
+    from sam_quantization_tpu_torch.ops.quant_matmul import KERNEL_OPS
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import act_scales as act_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
+    from sam_quantization_tpu_torch.utils.experiment import Profiler
+
+    phase_t = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    work = repo / "build" / "chip_export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    seconds = {}
+    r = np.random.default_rng(19)
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+        return float((a - b).norm() / b.norm())
+
+    def maxabs(a, b):
+        return float((torch.as_tensor(a).double().cpu() - torch.as_tensor(b).double().cpu())
+                     .abs().max())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def seeded(name):
+        """``name`` from seed 0, rel-pos tables drawn from seed 1 (as vit_h())."""
+        m = build_sam.sam_model_registry[name](device=dev, seed=0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for blk in m.image_encoder.blocks:
+                for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+                    t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.2)
+        return m
+
+    def run_runner(package, feeds, tag):
+        in_dir, out_dir = work / f"{tag}_in", work / f"{tag}_out"
+        in_dir.mkdir()
+        out_dir.mkdir()
+        for k, v in feeds.items():
+            v = v.detach().float().cpu().contiguous().numpy()
+            v.tofile(in_dir / f"{k}.bin")
+            (in_dir / f"{k}.shape").write_text(" ".join(map(str, v.shape)))
+        t = time.perf_counter()
+        proc = subprocess.run([str(_build.aoti_runner()), str(package), str(in_dir),
+                               str(out_dir)], capture_output=True, text=True, timeout=600)
+        ran = time.perf_counter() - t
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:] + proc.stderr[-3000:])
+            return None, ran
+        got = {}
+        for f in sorted(out_dir.glob("*.bin")):
+            shape = tuple(int(x) for x in f.with_suffix(".shape").read_text().split())
+            got[f.stem] = torch.from_numpy(np.fromfile(f, np.float32).reshape(shape))
+        return got, ran
+
+    try:
+        model = build()  # ViT-H float32
+        cfg = model.config
+        h, w = cfg.prompt_encoder.image_embedding_size
+        size = cfg.image_encoder.img_size
+        x = torch.from_numpy(r.standard_normal((1, size, size, 3)).astype(np.float32)).to(dev)
+        image = r.integers(0, 256, (size, size, 3), dtype=np.uint8)
+
+        # (b) first for its kernel-path embedding: set_image through the
+        # float32 kernels, then the ONNX decoder at SAM's widths, built from
+        # the card's model and from a CPU copy of its decoder.
+        predictor = SamPredictor(model)
+        reset_counts()
+        _, seconds["(b) set_image"] = timed(lambda: predictor.set_image(image))
+        check(counts() == flash_launches, "export (b): kernel-path set_image, 28/4 flash launches")
+        emb = predictor.features.float()  # (1, 64, 64, 256)
+        blob, seconds["(b) ONNX decoder export"] = timed(
+            lambda: export_onnx.export_decoder_onnx(model, num_points=3))
+        cpu = sam_lib.Sam(cfg, device="cpu")
+        cpu.prompt_encoder.load_state_dict(model.prompt_encoder.state_dict())
+        cpu.mask_decoder.load_state_dict(model.mask_decoder.state_dict())
+        same_bytes = export_onnx.export_decoder_onnx(cpu, num_points=3) == blob
+        del cpu
+        rt = export_onnx.runtime.load(blob)
+        coords = torch.tensor([[[0.3, 0.4], [0.6, 0.7], [0.8, 0.15]]], device=dev) * size
+        labels = torch.tensor([[1.0, 0.0, 1.0]], device=dev)
+        module = ex.SamDecoderModule(model).eval()
+        errs, mask_in, host = [], torch.zeros(1, 4 * h, 4 * w, 1, device=dev), 0.0
+        for has in (0.0, 1.0):
+            has_t = torch.full((1,), has, device=dev)
+            with torch.no_grad():
+                want = module(emb, coords, labels, mask_in, has_t)
+            feeds = {"image_embeddings": emb.permute(0, 3, 1, 2), "point_coords": coords,
+                     "point_labels": labels, "mask_input": mask_in.permute(0, 3, 1, 2),
+                     "has_mask_input": has_t}
+            t = time.perf_counter()
+            got = rt.run({k: v.cpu().contiguous().numpy() for k, v in feeds.items()})
+            host += time.perf_counter() - t
+            errs.append([maxabs(got[k], v) for k, v in zip(ex.DECODER_OUTPUTS, want)])
+            mask_in = want[2].permute(0, 2, 3, 1).contiguous()  # the next click's mask input
+        seconds["(b) numpy runtime, 2 runs"] = host
+        worst = [max(e[i] for e in errs) for i in range(3)]
+        check(same_bytes and worst[0] <= ONNX_MASK_TOL and worst[1] <= ONNX_IOU_TOL
+              and worst[2] <= ONNX_MASK_TOL,
+              f"export (b): ONNX decoder ({len(blob)} bytes, 3 points) card bytes == CPU copy's "
+              f"bytes {same_bytes}; numpy runtime vs SamDecoderModule on the card, has_mask 0 "
+              f"and 1, max |d| masks {worst[0]:.3e} (<= {ONNX_MASK_TOL}), IoU {worst[1]:.3e} "
+              f"(<= {ONNX_IOU_TOL}), low-res {worst[2]:.3e}")
+        print(f"  ONNX decoder: {len(blob)} bytes, export {seconds['(b) ONNX decoder export']:.2f}"
+              f" s, numpy runtime {host / 2:.2f} s a run (host)  [{card}]")
+        del rt, blob
+
+        # (d) torch.export: the ViT-H decoder and float32 encoder, saved,
+        # loaded and run against the eager module.
+        args = (emb, coords, labels, torch.zeros(1, 4 * h, 4 * w, 1, device=dev),
+                torch.zeros(1, device=dev))
+        with torch.no_grad():
+            want = module(*args)
+            want_enc = sam_lib.encode_image(model, x, "eager")
+        reset_counts()
+        _, seconds["(d) decoder export + save"] = timed(
+            lambda: ex.export_decoder(model, str(work / "decoder.pt2"), num_points=3))
+        fn, seconds["(d) decoder load"] = timed(lambda: ex.load_exported(str(work / "decoder.pt2")))
+        with torch.no_grad():
+            got = fn(*args)
+        dec_err = max(rel(a, b) for a, b in zip(got, want))
+        _, seconds["(d) encoder export + save"] = timed(
+            lambda: ex.export_encoder(model, str(work / "encoder.pt2")))
+        pt2_bytes = (work / "encoder.pt2").stat().st_size
+        fn, seconds["(d) encoder load"] = timed(lambda: ex.load_exported(str(work / "encoder.pt2")))
+        with torch.no_grad():
+            got_enc, seconds["(d) encoder run"] = timed(lambda: fn(x))
+        del fn
+        (work / "encoder.pt2").unlink()
+        enc_err = rel(got_enc, want_enc)
+        check(dec_err <= EXPORT_TOL and enc_err <= EXPORT_TOL and counts() == zero,
+              f"export (d): torch.export ViT-H decoder rel L2 {dec_err:.3e}, float32 encoder "
+              f"({pt2_bytes / 1e9:.2f} GB .pt2) rel L2 {enc_err:.3e} vs eager (<= {EXPORT_TOL}); "
+              "no kernel launched")
+        del got_enc, want_enc
+
+        # W4 and W4A8 encoders exported on the card hold the kernel ops: no
+        # launch while exported, 16 a run of the loaded program; the
+        # AOTInductor packager refuses them.
+        tiny = build_sam.sam_model_registry["vit_tiny"](device=dev, seed=3)
+        seq.rtn_quantize_encoder(tiny.image_encoder,
+                                 seq.GPTQConfig(bits=4, groupsize=32, sym=True))
+        xt = torch.from_numpy(r.standard_normal((1, 128, 128, 3)).astype(np.float32)).to(dev)
+        for act_bits, name in ((0, "quant_matmul"), (8, "quant_matmul_a8_sym")):
+            tiny.image_encoder = packed_lib.with_act_bits(tiny.image_encoder, act_bits)
+            path = str(work / f"w4a{act_bits}.pt2")
+            reset_counts()
+            ex.export_encoder(tiny, path)
+            exported_counts = counts()
+            fn = ex.load_exported(path)
+            held = len(ex.kernel_ops_held(torch.export.load(path)))
+            with torch.no_grad():
+                reset_counts()
+                got_w4 = fn(xt)
+                run_counts = counts()
+                reset_counts()
+                want_w4 = sam_lib.encode_image(tiny, xt, "eager")
+                eager_counts = counts()
+            try:
+                ex.export_encoder_aoti(tiny, str(work / "aoti_w4"))
+                refused = "not refused"
+            except ValueError as e:
+                refused = str(e)
+            w4_err = rel(got_w4, want_w4)
+            check(exported_counts == zero and held == 16 and run_counts[name] == 16
+                  and run_counts == eager_counts and w4_err <= EXPORT_TOL
+                  and KERNEL_OPS[act_bits // 8] in refused and not (work / "aoti_w4").exists(),
+                  f"export (d): W4{'A8' if act_bits else ''} vit_tiny encoder exported on the "
+                  f"card holds {held} kernel ops (16), launches {exported_counts[name]} {name} "
+                  f"in the export (0) and {run_counts[name]} a run (16, as eager: "
+                  f"{eager_counts[name]}); rel L2 vs eager {w4_err:.3e} (<= {EXPORT_TOL}); "
+                  f"AOTInductor: {refused[:90]}")
+        del tiny, fn
+
+        # (e) AOTInductor: the runner, built with g++ against this PyTorch.
+        t = time.perf_counter()
+        runner = _build.aoti_runner()
+        seconds["(e) runner build"] = time.perf_counter() - t
+
+        # (c) ViT-H's float32 encoder is past protobuf's 2 GiB: refused
+        # before anything is built.
+        t = time.perf_counter()
+        try:
+            export_onnx.export_encoder_onnx(model)
+            refused = "not refused"
+        except ValueError as e:
+            refused = str(e)
+        refuse_ms = (time.perf_counter() - t) * 1e3
+        del model, module, predictor, emb, want
+        torch.cuda.empty_cache()
+
+        # (c) the ONNX encoder: ViT-B float32 through the numpy runtime.
+        enc_model = seeded(ONNX_ENCODER)
+        blob, seconds["(c) ONNX encoder export"] = timed(
+            lambda: export_onnx.export_encoder_onnx(enc_model))
+        export_onnx.runtime.check_model(_wire.parse("ModelProto", blob))
+        rt = export_onnx.runtime.load(blob)
+        del blob
+        t = time.perf_counter()
+        got = rt.run({"input": x.permute(0, 3, 1, 2).cpu().contiguous().numpy()})
+        seconds["(c) numpy runtime"] = time.perf_counter() - t
+        with torch.no_grad():
+            want = sam_lib.encode_image(enc_model, x, "eager").permute(0, 3, 1, 2)
+        err = rel(got["image_embeddings"], want)
+        nbytes = len(_wire.serialize(rt.model))
+        del rt, got, enc_model
+        check(err <= ONNX_ENC_TOL and "2 GiB" in refused,
+              f"export (c): ONNX {ONNX_ENCODER} encoder ({nbytes} bytes) numpy runtime vs the "
+              f"card's eager encoder rel L2 {err:.3e} (<= {ONNX_ENC_TOL}); ViT-H: {refused}")
+        print(f"  ONNX {ONNX_ENCODER} encoder: export {seconds['(c) ONNX encoder export']:.1f} s, "
+              f"numpy runtime {seconds['(c) numpy runtime']:.1f} s (host); ViT-H refused in "
+              f"{refuse_ms:.1f} ms  [{card}]")
+        torch.cuda.empty_cache()
+
+        # (e) a cached-int8 encoder (RTN sym W4 g128, static scales from
+        # one seeded image, margin 1.1) through aoti_runner.
+        qmodel = seeded(AOTI_ENCODER)
+        s_e = qmodel.config.image_encoder.img_size
+        x = torch.from_numpy(np.random.default_rng(191).standard_normal((1, s_e, s_e, 3))
+                             .astype(np.float32)).to(dev)
+        act = act_lib.calibrate_act_scales(qmodel.image_encoder, [x], margin=1.1)
+        seq.rtn_quantize_encoder(qmodel.image_encoder,
+                                 seq.GPTQConfig(bits=4, groupsize=128, sym=True))
+        packed_lib.cache_int8(qmodel.image_encoder, act_scales=act,
+                              skip=packed_lib.default_serve_skip(qmodel.config.image_encoder.embed_dim))
+        with torch.no_grad():
+            want = sam_lib.encode_image(qmodel, x, "eager")
+        _, seconds["(e) int8 encoder compile"] = timed(
+            lambda: ex.export_encoder_aoti(qmodel, str(work / "aoti_enc")))
+        with torch.no_grad():
+            got_py, seconds["(e) int8 encoder from Python"] = timed(
+                lambda: ex.load_aoti(str(work / "aoti_enc"))(x))
+        got_cc, seconds["(e) int8 encoder runner"] = run_runner(
+            work / "aoti_enc", {"image": x}, "enc")
+        py_err = rel(got_py, want)
+        cc_err = rel(got_cc["image_embeddings"], want) if got_cc else float("inf")
+        both = rel(got_cc["image_embeddings"], got_py) if got_cc else float("inf")
+        check(py_err <= INT8_F32_TOL and cc_err <= INT8_F32_TOL,
+              f"export (e): cached-int8 {AOTI_ENCODER} AOTInductor encoder (sym W4 g128, "
+              f"{len(act)} static scales) vs its eager encoder rel L2 from Python {py_err:.3e}, "
+              f"by aoti_runner {cc_err:.3e} (<= {INT8_F32_TOL}; runner vs Python {both:.3e}); "
+              f"compile {seconds['(e) int8 encoder compile']:.1f} s; runner {runner.name}")
+        del qmodel, want, got_py
+        torch.cuda.empty_cache()
+
+        # (a) first the float32 forward on the eager path; (f) the Profiler
+        # around 10 bf16 ViT-H set_image calls, then (a) sam.forward on the
+        # same bf16 encoder through the kernels.
+        model = build()
+        images = torch.from_numpy(r.integers(0, 256, (2, size, size, 3)).astype(np.float32))
+        images, pts = images.to(dev), torch.tensor([[[0.2, 0.3], [0.7, 0.65]],
+                                                    [[0.5, 0.5], [0.1, 0.9]]], device=dev) * size
+        labs = torch.tensor([[1.0, 0.0], [1.0, 1.0]], device=dev)
+        with torch.no_grad():
+            reset_counts()
+            plain, seconds["(a) float32 eager forward B=2"] = timed(
+                lambda: sam_lib.forward(model, images, pts, labs, multimask_output=True,
+                                        attn_impl="eager"))
+            plain_counts = counts()
+        model.image_encoder.to(torch.bfloat16)
+        predictor = SamPredictor(model)
+        wait, warmup, active = PROFILE_WINDOW
+        t = time.perf_counter()
+        with Profiler(str(work / "profile"), wait, warmup, active) as prof:
+            for _ in range(wait + warmup + active):
+                predictor.set_image(image)
+                torch.cuda.synchronize()
+                prof.step()
+        seconds["(f) profiled set_image x10"] = time.perf_counter() - t
+        with open(prof.trace_path) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        traced = {n: sum(n in k for k in kernels) for n in ("flash_windowed", "flash_global")}
+        check(traced == {"flash_windowed": 28 * active, "flash_global": 4 * active},
+              f"export (f): Profiler{PROFILE_WINDOW} trace of 10 set_image calls names the flash "
+              f"kernels {traced} (28/4 x {active}); {pathlib.Path(prof.trace_path).name}, "
+              f"{pathlib.Path(prof.trace_path).stat().st_size} bytes")
+        del prof, predictor
+
+        with torch.no_grad():
+            reset_counts()
+            (masks, iou, low), seconds["(a) forward B=2"] = timed(
+                lambda: sam_lib.forward(model, images, pts, labs, multimask_output=True))
+            launched = counts()
+            errs = []
+            for i in range(2):
+                x1 = sam_lib.preprocess(model, images[i:i + 1]).to(torch.bfloat16)
+                low1, iou1 = sam_lib.decode_masks(
+                    model, sam_lib.encode_image(model, x1).float(),
+                    points=(pts[i:i + 1], labs[i:i + 1]), multimask_output=True)
+                errs += [rel(low[i], low1[0]), rel(iou[i], iou1[0]),
+                         rel(masks[i], sam_lib.resize_bilinear(low1, (size, size))[0])]
+        ok = (masks.shape == (2, 3, size, size) and iou.shape == (2, 3)
+              and low.shape == (2, 3, 4 * h, 4 * w) and bool(torch.isfinite(masks).all()))
+        vs_plain = max(rel(a, b) for a, b in zip((masks, iou, low), plain))
+        check(ok and launched == flash_launches and plain_counts == zero
+              and vs_plain <= BATCH_TOL and max(errs) <= FORWARD_SPLIT_TOL,
+              f"export (a): sam.forward ViT-H bf16 B=2, 2 clicks each: launches "
+              f"{ {n: c for n, c in launched.items() if c} } (28/4 a forward); rel L2 vs the "
+              f"float32 eager forward (no launch) {vs_plain:.3e} (<= {BATCH_TOL}), vs per-image "
+              f"encode + decode {max(errs):.3e} (<= {FORWARD_SPLIT_TOL})")
+        del model, images, masks, low, plain
+        torch.cuda.empty_cache()
+
+        # (g) the CLI, as a user runs it.
+        out = work / "cli_decoder.onnx"
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sam_quantization_tpu_torch.cli.export",
+                               "vit_h", "--format", "onnx", "--output", str(out)],
+                              cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds["(g) cli.export vit_h onnx"] = time.perf_counter() - t
+        try:
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            line = {}
+        check(proc.returncode == 0 and line.get("format") == "onnx"
+              and line.get("bytes") == out.stat().st_size and line.get("opset") == 11,
+              f"export (g): cli.export vit_h --format onnx exit {proc.returncode}: {line}")
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("  export seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"  [{card}]")
+    print(f"export phase {time.perf_counter() - phase_t:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3164,6 +3560,9 @@ def main() -> int:
 
     # ------------------------------------------------------ classifiers, BRS
     classifier_brs_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
+
+    # ------------------------------------------------------------------ export
+    export_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -41,6 +41,9 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--num-clicks", type=int, default=11)
     p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sbd-dir", default=None,
+                   help="accepted so that a JAX command line parses; not read (nor by the "
+                   "JAX trainer): training runs on seeded synthetic scenes")
     p.add_argument("--seed", type=int, default=0)
     from sam_quantization_tpu_torch.cli import add_platform_arg, device_of
 

@@ -127,3 +127,27 @@ def postprocess_masks(
     m = resize_bilinear(masks, (size, size))
     m = m[..., : input_size[0], : input_size[1]]
     return resize_bilinear(m, tuple(original_size))
+
+
+def forward(
+    model: Sam,
+    images: torch.Tensor,
+    point_coords: torch.Tensor,
+    point_labels: torch.Tensor,
+    multimask_output: bool = False,
+    attn_impl: str = "kernel",
+    ctx=NULL_CTX,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """End-to-end batched point-prompt forward (JAX sam.py:126-151, ref
+    Sam.forward). images: (B, H, W, 3) raw; point_coords: (B, N, 2); labels:
+    (B, N). Returns (mask logits at img_size, iou_predictions, low-res logits).
+    The encoder runs in the dtype of its weights and the decoder in float32,
+    as in the predictor."""
+    dtype = model.image_encoder.patch_embed.proj.weight.dtype
+    emb = encode_image(model, preprocess(model, images).to(dtype), attn_impl, ctx)
+    low_res, iou = decode_masks(
+        model, emb.float(), points=(point_coords, point_labels),
+        multimask_output=multimask_output, ctx=ctx,
+    )
+    size = model.config.image_encoder.img_size
+    return resize_bilinear(low_res, (size, size)), iou, low_res

@@ -174,3 +174,37 @@ def launch(name: str, *args) -> None:
     err = getattr(load(name), symbol)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def aoti_runner() -> Path:
+    """The ``csrc/aoti_runner.cpp`` program, built with ``g++`` against this
+    PyTorch at first use into ``build/torch_kernels/aoti_runner-<hash>``.
+    It links ``libtorch_cuda`` and ``libc10_cuda`` where this PyTorch has
+    them (kept with ``--no-as-needed``: the runner names no CUDA symbol, but
+    a CUDA package needs them loaded). Raises ``RuntimeError`` with the
+    compiler output if the build fails."""
+    from torch.utils.cpp_extension import include_paths
+
+    src = CSRC / "aoti_runner.cpp"
+    lib_dir = Path(torch.__file__).resolve().parent / "lib"
+    libs = ["torch", "torch_cpu", "c10"] + [
+        n for n in ("torch_cuda", "c10_cuda") if (lib_dir / f"lib{n}.so").exists()]
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    flags = ["-O2", "-std=c++20", f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+             *(f"-I{p}" for p in include_paths()), f"-L{lib_dir}", f"-Wl,-rpath,{lib_dir}",
+             "-Wl,--no-as-needed", *(f"-l{n}" for n in libs)]
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"aoti_runner-{h}"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(["g++", str(src), *flags, "-o", tmp], capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"aoti_runner build failed (g++ exit {proc.returncode}):\n"
+                           + proc.stdout + proc.stderr)
+    os.chmod(tmp, 0o755)
+    os.replace(tmp, target)  # atomic: a concurrent caller never runs half a file
+    return target

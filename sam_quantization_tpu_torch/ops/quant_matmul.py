@@ -53,7 +53,14 @@ to PyTorch's int8 GEMM. ``INT8_MATMULS`` counts those calls, the ones on an
 int8 input (int8-pre) apart.
 
 The wrappers launch a kernel for a CUDA tensor and use the plain version
-only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+only for a CPU tensor. ``LAUNCHES`` counts kernel launches. ``torch.export``
+cannot trace a launch through ``ctypes``, so while it traces a CUDA tensor
+the wrappers call the custom ops ``sam_quantization_tpu_torch::quant_matmul``
+and ``::a8_matmul`` (:data:`KERNEL_OPS`) instead: the exported program
+records the op, whose CUDA implementation is the same launch, so a program
+exported on the card launches the kernel, as JAX's export on a TPU holds
+``_qmm_kernel``. Outside an export the wrappers launch directly: a call
+through a Python custom op costs far more host time than the launch.
 """
 
 from __future__ import annotations
@@ -134,22 +141,44 @@ def quant_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
         return quant_matmul_plain(x, p)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for {x.device}")
-    name = "quant_matmul3" if p.bits == 3 else "quant_matmul"
-    check_cuda_operands(name, x, p)
-    N = p.out_features
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    check_cuda_operands("quant_matmul3" if p.bits == 3 else "quant_matmul", x, p)
+    args = (x, p.qweight, p.qweight_hi if p.bits == 3 else None, p.scales, p.zeros, p.bits,
+            p.groupsize, p.pack_block, p.out_features)
+    if torch.compiler.is_exporting():
+        return quant_matmul_op(*args)
+    return _launch_quant_matmul(*args)
+
+
+def _launch_quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                         qweight_hi: Optional[torch.Tensor], scales: torch.Tensor,
+                         zeros: torch.Tensor, bits: int, groupsize: int, pack_block: int,
+                         out_features: int) -> torch.Tensor:
+    """Launch ``quant_matmul`` (``quant_matmul3`` at 3 bits) on checked CUDA
+    operands."""
+    M, K = x.shape
+    out = torch.empty((M, out_features), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    hi = p.qweight_hi.data_ptr() if p.bits == 3 else None
+    hi = qweight_hi.data_ptr() if bits == 3 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
-            "quant_matmul", _build.DTYPE_CODE[x.dtype], p.bits, x.data_ptr(),
-            p.qweight.data_ptr(), hi, p.scales.data_ptr(), p.zeros.data_ptr(), out.data_ptr(),
-            M, K, N, p.groupsize, p.pack_block, stream,
+            "quant_matmul", _build.DTYPE_CODE[x.dtype], bits, x.data_ptr(), qweight.data_ptr(),
+            hi, scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), M, K, out_features,
+            groupsize, pack_block, stream,
         )
-    LAUNCHES[name] += 1
+    LAUNCHES["quant_matmul3" if bits == 3 else "quant_matmul"] += 1
     return out
+
+
+quant_matmul_op = torch.library.custom_op(
+    "sam_quantization_tpu_torch::quant_matmul", _launch_quant_matmul, mutates_args=(),
+    device_types="cuda")
+
+
+@quant_matmul_op.register_fake
+def _(x, qweight, qweight_hi, scales, zeros, bits, groupsize, pack_block, out_features):
+    return x.new_empty((x.shape[0], out_features))
 
 
 # ---------------------------------------------------------------------------
@@ -248,20 +277,47 @@ def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.
     if xs.device != xq.device:
         raise ValueError(f"{name}: xs on {xs.device}, xq on {xq.device}")
     check_packed_on(name, xq.device, p)
-    N = p.out_features
-    out = torch.empty((M, N), dtype=dtype, device=xq.device)
+    args = (xq, xs, p.qweight, p.scales, None if sym else p.zeros, p.bits, p.groupsize,
+            p.pack_block, p.out_features, sym, dtype)
+    if torch.compiler.is_exporting():
+        return a8_matmul_op(*args)
+    return _launch_a8_matmul(*args)
+
+
+def _launch_a8_matmul(xq: torch.Tensor, xs: torch.Tensor, qweight: torch.Tensor,
+                      scales: torch.Tensor, zeros: Optional[torch.Tensor], bits: int,
+                      groupsize: int, pack_block: int, out_features: int, sym: bool,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``quant_matmul_a8_sym`` (``sym``) or ``quant_matmul_a8`` on
+    checked CUDA operands."""
+    M, K = xq.shape
+    out = torch.empty((M, out_features), dtype=dtype, device=xq.device)
     if M == 0:
         return out
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
-            "quant_matmul_a8", _build.DTYPE_CODE[dtype], p.bits, int(sym), xq.data_ptr(),
-            xs.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
-            None if sym else p.zeros.data_ptr(), out.data_ptr(), M, K, N, p.groupsize,
-            p.pack_block, stream,
+            "quant_matmul_a8", _build.DTYPE_CODE[dtype], bits, int(sym), xq.data_ptr(),
+            xs.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+            None if sym else zeros.data_ptr(), out.data_ptr(), M, K, out_features, groupsize,
+            pack_block, stream,
         )
-    LAUNCHES[name] += 1
+    LAUNCHES["quant_matmul_a8_sym" if sym else "quant_matmul_a8"] += 1
     return out
+
+
+a8_matmul_op = torch.library.custom_op(
+    "sam_quantization_tpu_torch::a8_matmul", _launch_a8_matmul, mutates_args=(),
+    device_types="cuda")
+
+
+@a8_matmul_op.register_fake
+def _(xq, xs, qweight, scales, zeros, bits, groupsize, pack_block, out_features, sym, dtype):
+    return xq.new_empty((xq.shape[0], out_features), dtype=dtype)
+
+
+# The custom ops an exported program may hold (op overload packet names).
+KERNEL_OPS = ("sam_quantization_tpu_torch::quant_matmul", "sam_quantization_tpu_torch::a8_matmul")
 
 
 def quant_matmul_a8_sym(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:

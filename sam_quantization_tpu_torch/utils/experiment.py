@@ -1,9 +1,11 @@
-"""Experiment directories, logging and a scalar writer (stdlib only).
+"""Experiment directories, logging, a scalar writer and a scheduled profiler.
 
-The port's own copy of the parts of ``sam_quantization_tpu/utils/experiment.py``
-that the trainer uses: auto-numbered experiment directories with resume by
-prefix (ref utils/exp.py), a console + file logger, and the period-averaged
-scalar writer (ref utils/log.py) appending to ``scalars.jsonl``.
+The port's own copy of ``sam_quantization_tpu/utils/experiment.py``:
+auto-numbered experiment directories with resume by prefix (ref
+utils/exp.py), a console + file logger, tqdm output routed into a logger and
+the period-averaged scalar writer (ref utils/log.py) appending to
+``scalars.jsonl``, and :class:`Profiler`, a ``torch.profiler`` trace of a
+window of steps (ref analysis/profiler.py:59-124).
 """
 
 from __future__ import annotations
@@ -63,6 +65,27 @@ def setup_logger(log_dir: Optional[str] = None, rank: int = 0) -> logging.Logger
     return logger
 
 
+class TqdmToLogger:
+    """File-like adapter routing tqdm output into a logger
+    (ref utils/log.py:19-42)."""
+
+    def __init__(self, logger: logging.Logger, level=logging.INFO, mininterval=5.0):
+        self.logger = logger
+        self.level = level
+        self.mininterval = mininterval
+        self._last = 0.0
+        self._buf = ""
+
+    def write(self, buf):
+        self._buf = buf.strip("\r\n\t ")
+
+    def flush(self):
+        now = time.time()
+        if self._buf and now - self._last >= self.mininterval:
+            self.logger.log(self.level, self._buf)
+            self._last = now
+
+
 class ScalarWriterAvg:
     """Period-averaged scalar writer to JSONL: every scalar is averaged over
     ``dump_period`` updates and appended to ``scalars.jsonl``."""
@@ -90,3 +113,54 @@ class ScalarWriterAvg:
 
     def close(self):
         self._file.close()
+
+
+class Profiler:
+    """A ``torch.profiler`` trace of a window of ``step()`` calls, counted as
+    the JAX package's ``Profiler`` counts them: the trace starts at the
+    ``(wait + warmup)``-th call and stops at the ``active``-th call after it,
+    so it holds the work of ``active`` steps. It records CPU activity, and
+    the CUDA card's when there is one, and writes a Chrome trace
+    (``trace_steps<first>-<last>.json``, the 1-based steps traced) to
+    ``log_dir``; ``trace_path`` names it and ``profile`` holds the
+    ``torch.profiler.profile`` for ``key_averages()``. Leaving the context
+    ends a trace still open."""
+
+    def __init__(self, log_dir: str, wait: int = 2, warmup: int = 2, active: int = 6):
+        self.log_dir = log_dir
+        self.wait, self.warmup, self.active = wait, warmup, active
+        self._step = 0
+        self._tracing = None
+        self.profile = None
+        self.trace_path: Optional[str] = None
+
+    def step(self):
+        self._step += 1
+        start = self.wait + self.warmup
+        if self._step == start and self._tracing is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._tracing = profile(activities=activities)
+            self._tracing.start()
+        elif self._tracing is not None and self._step >= start + self.active:
+            self._stop()
+
+    def _stop(self):
+        prof, self._tracing = self._tracing, None
+        prof.stop()
+        first = self.wait + self.warmup + 1
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.trace_path = os.path.join(self.log_dir, f"trace_steps{first}-{self._step}.json")
+        prof.export_chrome_trace(self.trace_path)
+        self.profile = prof
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._tracing is not None:
+            self._stop()

@@ -1410,3 +1410,30 @@ def test_classifier_and_brs_on_card(cuda):
             p.set_input_image(image)
             maps.append(p.get_prediction(OneClick()))
         assert float(np.abs(maps[0] - maps[1]).max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_exported_packed_encoder_launches_kernels_on_card(cuda, tmp_path):
+    """A W4 and a W4A8 vit_tiny encoder exported on the card record the
+    kernel ops (``tqm.KERNEL_OPS``); the loaded programs launch the
+    dequant-matmul kernels, none while exporting, 16 a run, and compute what
+    the eager encoder computes with the same kernels."""
+    from sam_quantization_tpu_torch import export as texport
+    from sam_quantization_tpu_torch.models import build_sam
+    from sam_quantization_tpu_torch.models import sam as tsam
+    from sam_quantization_tpu_torch.quant import sequential as tseq
+
+    m = build_sam.sam_model_registry["vit_tiny"](device=cuda, seed=3)
+    tseq.rtn_quantize_encoder(m.image_encoder, tseq.GPTQConfig(bits=4, groupsize=32, sym=True))
+    x = _randn(4, 1, 128, 128, 3).to(cuda)
+    for act_bits, name in ((0, "quant_matmul"), (8, "quant_matmul_a8_sym")):
+        m.image_encoder = tpacked.with_act_bits(m.image_encoder, act_bits)
+        path = str(tmp_path / f"a{act_bits}.pt2")
+        tqm.reset_launch_counts()
+        program = texport.export_encoder(m, path)
+        assert len(texport.kernel_ops_held(program)) == 16 and tqm.LAUNCHES[name] == 0
+        with torch.no_grad():
+            got = texport.load_exported(path)(x)
+            assert tqm.LAUNCHES[name] == 16
+            want = tsam.encode_image(m, x, "eager")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
