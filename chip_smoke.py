@@ -19,7 +19,9 @@ Run from the repository root on a machine with one CUDA card. It
    their tensor-core instructions, the HGMMA count that ``cuobjdump -sass``
    finds in each instantiation (and no other kernel in the probes'
    libraries; in ``flash_attn``'s, float32 kernels of FFMA and no
-   tensor-core instruction beside them), and the W-A8 kernels
+   tensor-core instruction beside them; the float32 packed-weight body,
+   FFMA and no tensor-core instruction, with ptxas's spill bytes, 0 for
+   each instantiation), and the W-A8 kernels
    their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
@@ -46,8 +48,9 @@ Run from the repository root on a machine with one CUDA card. It
    dequantized weights on the eager path (float32 and bfloat16), then it is
    served like the dense model, with exact launch counts per image, and one
    ``set_image`` is profiled;
-6. W3 encode: the same ViT-H at 3 bits, one bfloat16 encode with its
-   launch counts, held against its dequantized dense model;
+6. W3 encode: the same ViT-H at 3 bits, one float32 and one bfloat16
+   encode with their launch counts, held against its dequantized dense
+   model;
 7. W4A8 main path: the same ViT-H, RTN symmetric 4-bit (group 128) with
    int8 activations on every block linear (``bench.py --a8``'s
    configuration): held against its dequantized dense model (float32 and
@@ -106,8 +109,9 @@ Run from the repository root on a machine with one CUDA card. It
     card (2 synthetic 1024 scenes; seconds, the column loop's share, the
     128 losses), its artifact loaded as ``cli.infer --load`` loads it and
     served in float32 and bfloat16 with W4's exact launch counts and held
-    against its dequantized dense model; the GPTQ and RTN encoders' errors
-    on a held-out scene are printed as a reading;
+    against its dequantized dense model, its float32 ``set_image`` timed
+    (median of 3 after a warm-up: the evaluation path's encode); the GPTQ
+    and RTN encoders' errors on a held-out scene are printed as a reading;
 16. FQ-ViT (``quant/fq/``, ``quant/observers.py``, ``cli.quantize --method
     fq``, FQ serving in ``cli.infer``): ``vit_tiny_synth`` calibrated in
     float32 on the card and on the CPU from the same two normalised scenes
@@ -179,7 +183,8 @@ Run from the repository root on a machine with one CUDA card. It
     decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
     --format onnx``. Each part's seconds are printed.
 
-The line before the last is a JSON object with one entry per kernel; the last
+The line before the last is a JSON object with one entry per kernel build
+(its ``dtype``; the packed-weight kernels in float32 and bfloat16); the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
 line, when there is no CUDA device, when the package is missing, or when any
 check fails.
@@ -466,6 +471,27 @@ def tensor_core_counts(library: pathlib.Path, nvcc: str, pattern: str) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
+def ptxas_usage(log: str, pattern: str) -> dict:
+    """{key: (spill store bytes, spill load bytes, registers)} of each kernel
+    whose mangled name matches ``pattern`` in ``nvcc -Xptxas -v`` output (the
+    key is the pattern's groups, as in :func:`tensor_core_counts`)."""
+    import re
+
+    usage, key = {}, None
+    for line in log.splitlines():
+        m = re.search(pattern, line)
+        if m and ("Function properties for" in line or "Compiling entry function" in line):
+            key = m.groups()
+            usage.setdefault(key, [None, None, None])
+        elif key and (sp := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            usage[key][0], usage[key][1] = int(sp.group(1)), int(sp.group(2))
+        elif key and (used := re.search(r"Used (\d+) registers", line)):
+            usage[key][2] = int(used.group(1))
+            key = None
+    return {k: tuple(v) for k, v in usage.items()}
+
+
 def print_device_profile(what: str, fn, ranges=()) -> dict:
     """Run ``fn`` once under torch.profiler; print device time by kernel, the
     kernel groups, and the share of the wall time the device was busy. Each
@@ -678,6 +704,17 @@ def gptq_encoder_phase(dev, card: str, name: str, build, image, launches: dict,
             check(bool(torch.isfinite(e).all()) and rel_err <= tol,
                   f"GPTQ W4 {name} encode {tag} vs dequantized dense float32 eager: rel L2 "
                   f"{rel_err:.3e} (<= {tol})")
+            if dtype == torch.float32:  # the evaluation path's encode (click_eval)
+                ms = []
+                for _ in range(3):  # after the warm-up set_image above
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    predictor.set_image(image)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                ms.sort()
+                print(f"GPTQ W4 {name} float32 set_image ({h}x{w}): median {ms[1]:.2f} ms, "
+                      f"min {ms[0]:.2f}, max {ms[2]:.2f} over 3  [{card}]")
     gptq_err = float((gptq_out - fp_out).norm() / fp_out.norm())
     print(f"GPTQ W4 g128 {name}, held-out scene, encoder rel. L2 vs float32 (random weights, "
           f"a reading): GPTQ {gptq_err:.4e}, RTN {rtn_err:.4e}")
@@ -2364,6 +2401,26 @@ def main() -> int:
         check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values()),
               f"{name} bf16 instantiations, HGMMA in SASS: " + ", ".join(
                   f"W{b} epilogue {e} {c[0]}" for (b, e), c in sorted(tc_counts.items())))
+    # The float32 packed-weight body (qmm_f32_kernel<BITS, EPI, WIDE> of
+    # qmm_f32.cuh), bits 2, 3, 4, 8 in quant_matmul and 2, 4, 8 with both
+    # epilogues in fused_mlp, each with both word loaders (WIDE: tiles of
+    # one 128-row pack block): FFMA and no HGMMA or HMMA (tensor cores would
+    # mean TF32), and 0 bytes of spill stores and loads in ptxas's report of
+    # each instantiation (read where this run built the library).
+    f32_pattern = r"qmm_f32_kernelILi(\d+)ELi(\d+)ELb(\d)E"
+    for name, want in (("quant_matmul", {(b, "0", w) for b in "2348" for w in "01"}),
+                       ("fused_mlp", {(b, e, w) for b in "248" for e in "01" for w in "01"})):
+        mix = tensor_core_counts(_build.library_path(name), _build._nvcc(), f32_pattern)
+        usage = ptxas_usage(logs[name], f32_pattern) if name in logs else {}
+        check(set(mix) == want and all(c[4] > 0 and c[0] == c[1] == 0 for c in mix.values())
+              and (name not in logs or (set(usage) == want and all(
+                  u[0] == u[1] == 0 for u in usage.values()))),
+              f"{name} float32 instantiations, FFMA / HGMMA+HMMA in SASS, ptxas spill "
+              f"stores / loads bytes, registers: " + ", ".join(
+                  f"W{b} epilogue {e}{' wide' if w == '1' else ''} {c[4]} / {c[0] + c[1]}, "
+                  + ("{} / {} B, {} regs".format(*usage[b, e, w]) if (b, e, w) in usage
+                     else "ptxas log not read (cached build)")
+                  for (b, e, w), c in sorted(mix.items())))
     # The W-A8 kernels (bits 2, 4, 8; sym and asym; float32 and bf16 out):
     # the 12 main-build instantiations run int8 wgmma (IGMMA), the 12 FINE
     # ones int8 mma.sync (IMMA).
@@ -2825,10 +2882,9 @@ def main() -> int:
                   f"max|d| {wrong_err:.3e}, {'taken' if wrong_ok else 'rejected'}), "
                   f"launches {launched}")
             del cut
-            slow = dtype == torch.float32 and name == "fused_mlp"
-            r["ms"] = cuda_ms(kernel, 3 if slow else 20)
-            r["plain_ms"] = cuda_ms(lambda: plain(x), 3 if slow else 10)
-            r["library_ms"] = cuda_ms(library, 3 if slow else 20)
+            r["ms"] = cuda_ms(kernel, 20)
+            r["plain_ms"] = cuda_ms(lambda: plain(x), 10)
+            r["library_ms"] = cuda_ms(library, 20)
             bound(r, tag)
             print(f"{name} {shape} {tag} (M {x.shape[0]}): kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
@@ -3073,6 +3129,8 @@ def main() -> int:
             e = sam_lib.encode_image(model, x.to(dtype), "kernel").float()
             torch.cuda.synchronize()
             check(counts() == w4_launches, f"W4 encode {tag}: launches {counts()}")
+            if dtype == torch.float32:  # the float32 rows' launches in the kernels line
+                f32_launches = {k: counts()[k] for k in ("quant_matmul", "fused_mlp")}
             rel_err = float((e - ref).norm() / ref.norm())
             check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all())
                   and rel_err <= tol, f"W4 encode {tag} vs dequantized dense float32 eager: "
@@ -3083,21 +3141,26 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # W3: split-plane 3-bit never fuses, so all four linears of a block
-        # run quant_matmul3.
+        # run quant_matmul3 (float32 held as the W4 float32 encode, the
+        # flash kernels against eager).
         model.image_encoder = dense_encoder
         seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=3, groupsize=128))
         ref = packed_lib.dense_copy(model.image_encoder)(x, "eager").float()
-        model.image_encoder.to(torch.bfloat16)
-        reset_counts()
-        e = sam_lib.encode_image(model, x.to(torch.bfloat16), "kernel").float()
-        torch.cuda.synchronize()
-        w3_launches = counts()
-        check(w3_launches == {**flash_launches, "quant_matmul3": 128},
-              f"W3 encode bfloat16: launches {w3_launches}")
-        rel_err = float((e - ref).norm() / ref.norm())
-        check(bool(torch.isfinite(e).all()) and rel_err <= BF16_TOL,
-              f"W3 encode bfloat16 vs dequantized dense float32 eager: rel L2 {rel_err:.3e} "
-              f"(<= {BF16_TOL})")
+        for dtype, tol in ((torch.float32, W4_F32_TOL), (torch.bfloat16, BF16_TOL)):
+            tag = str(dtype).split(".")[1]
+            model.image_encoder.to(dtype)
+            reset_counts()
+            e = sam_lib.encode_image(model, x.to(dtype), "kernel").float()
+            torch.cuda.synchronize()
+            w3_launches = counts()
+            check(w3_launches == {**flash_launches, "quant_matmul3": 128},
+                  f"W3 encode {tag}: launches {w3_launches}")
+            rel_err = float((e - ref).norm() / ref.norm())
+            check(bool(torch.isfinite(e).all()) and rel_err <= tol,
+                  f"W3 encode {tag} vs dequantized dense float32 eager: rel L2 {rel_err:.3e} "
+                  f"(<= {tol})")
+            if dtype == torch.float32:
+                f32_launches["quant_matmul3"] = w3_launches["quant_matmul3"]
         launches["quant_matmul3"] = w3_launches["quant_matmul3"]
         del model, dense_encoder, ref, e
         torch.cuda.empty_cache()
@@ -3582,12 +3645,17 @@ def main() -> int:
                "probe_presplit": ("probe_heads.cu", "tools/packed_probe.py:111"),
                "probe_pair": ("probe_heads.cu", "tools/global_stage_probe.py:183"),
                "probe_pair_bias": ("probe_heads.cu", "tools/global_stage_probe.py:316")}
+    # One row per kernel in its JSON_DTYPE build, then the float32 builds of
+    # the packed-weight kernels (their launches from the float32 encodes).
+    rows = [(name, JSON_DTYPE.get(name, "bfloat16"), launches[name]) for name in sources]
+    rows += [(name, "float32", n) for name, n in f32_launches.items()]
     kernels = []
-    for name, (src, replaces) in sources.items():
-        r = report[(name, JSON_DTYPE.get(name, "bfloat16"))]
+    for name, dtype, n in rows:
+        src, replaces = sources[name]
+        r = report[(name, dtype)]
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
+            "name": name, "dtype": dtype, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

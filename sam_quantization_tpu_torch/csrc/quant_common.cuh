@@ -1,7 +1,7 @@
 // Shared pieces of the packed-weight kernels (quant_matmul.cu, fused_mlp.cu,
-// quant_matmul_a8.cu, qmm_tc.cuh): loading and decoding packed words,
-// filling shared-memory tiles of dequantized weights and of activations
-// (float32, bfloat16 or int8), and the launch helper.
+// quant_matmul_a8.cu, qmm_tc.cuh, qmm_f32.cuh): loading and decoding packed
+// words, filling shared-memory tiles of activations (float32, bfloat16 or
+// int8), and the launch helper.
 //
 // Layout (sam_quantization_tpu/nn/packed.py, kept word for word): K is split
 // into pack blocks of `pb` rows (a multiple of the values per word, at most
@@ -102,44 +102,12 @@ __device__ __forceinline__ int grid_value(int word, int hi, int s, int hs) {
   return q;
 }
 
-// Write the PER dequantized values of a loaded word to out[s * step].
-template <int BITS, typename T>
-__device__ __forceinline__ void store_word(T* out, int step, int i, int rpp, int word, int hi,
-                                           float sc, float zr) {
-  const int hs = BITS == 3 && i >= (rpp >> 1);
-#pragma unroll
-  for (int s = 0; s < Packing<BITS>::PER; ++s)
-    out[s * step] = from_f32<T>(dequant(grid_value<BITS>(word, hi, s, hs), zr, sc));
-}
-
 // Word row wr of a tile: its in-block word row i and the tile row of its
 // pack block (rpp word rows per pack block of pb rows).
 __device__ __forceinline__ void locate_row(int wr, int rpp, int pb, int& i, int& row0) {
   const int blk = wr / rpp;
   i = wr - blk * rpp;
   row0 = blk * pb;
-}
-
-// dst[r * ld + c] = w[k0 + r, n0 + c] for the kt rows of a tile (kt =
-// tile_rows(pb)) and NC columns, word by word; zero outside K and N.
-template <typename T, int BITS, int NC, int NTHREADS>
-__device__ __forceinline__ void fill_weight_tile(T* dst, int ld, const int32_t* __restrict__ qw,
-                                                 const int32_t* __restrict__ qw_hi,
-                                                 const float* __restrict__ scales,
-                                                 const float* __restrict__ zeros, int k0, int K,
-                                                 int n0, int N, int pb, int groupsize, int kt) {
-  constexpr int PER = Packing<BITS>::PER;
-  const int rpp = pb / PER;
-#pragma unroll 4
-  for (int w = threadIdx.x; w < (kt / PER) * NC; w += NTHREADS) {
-    int i, row0, word, hi;
-    float sc, zr;
-    const int c = w % NC;
-    locate_row(w / NC, rpp, pb, i, row0);
-    load_word<BITS>(qw, qw_hi, scales, zeros, k0 + row0, i, rpp, n0 + c, K, N, groupsize, word,
-                    hi, sc, zr);
-    store_word<BITS>(dst + (row0 + i) * ld + c, rpp * ld, i, rpp, word, hi, sc, zr);
-  }
 }
 
 // Shared tile dst[r * ld + c] = x[m0 + r, k0 + c] for r < ROWS, c < COLS;

@@ -13,73 +13,25 @@
 // k / groupsize, so every shape is taken.
 //
 // What bounds it on an H100: at ViT-H (qkv: M 4900, K 1280, N 3840, 4-bit,
-// g 128) the product is 48.2 GFLOP against ~53 MB moved (bf16 x 12.5 MB,
-// out 37.6 MB, packed weights with scales and zeros 2.8 MB): 49 us of bf16
-// tensor-core time against 16 us of memory, so it is bound by operations.
+// g 128) the product is 48.2 GFLOP against ~53 MB moved in bf16 (x 12.5 MB,
+// out 37.6 MB, packed weights with scales and zeros 2.8 MB; ~103 MB in
+// float32): 49 us of bf16 tensor-core time, or 0.72 ms at the 67 TFLOP/s
+// float32 FFMA peak, against 16 (31) us of memory, so it is bound by
+// operations in both types.
 //
 // Design: bfloat16 runs the tensor-core body of qmm_tc.cuh (wgmma products,
-// the weight decode overlapped with them; its note has the layout and the
-// arithmetic). float32 inputs take a CUDA-core FMA path: one block owns a
-// (64, 64) output tile and walks K in tiles of whole pack blocks
-// (tile_rows), staged in shared memory without a pipeline. Every block
-// dequantizes the weight columns it needs, so the weights are unpacked
-// M / 256 (bf16) or M / 64 (f32) times in all.
+// the weight decode overlapped with them), float32 the register-tiled FFMA
+// body of qmm_f32.cuh (8 x 8 accumulators a thread, 4 FMAs per shared word,
+// x by cp.async into a second stage while the FMAs run, the next weight
+// tile's words loaded into registers ahead of its decode); their notes have
+// the layouts and the arithmetic. The weights are decoded M / 256 (bf16) or
+// M / 128 (f32) times in all.
+#include "qmm_f32.cuh"
 #include "qmm_tc.cuh"
 
 namespace samq_quant {
 
-constexpr int THREADS = 256;
-
-// ------------------------------------------------------------------ float32
-constexpr int FBM = 64, FBN = 64;
-constexpr int FXLD = KT + 4;  // float pitch of the x tile: 16-byte rows, rows 4 banks apart
-constexpr size_t F32_SMEM = ((size_t)FBM * FXLD + (size_t)KT * FBN) * sizeof(float);
-
-template <int BITS>
-__global__ void __launch_bounds__(THREADS)
-    qmm_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ qw,
-                   const int32_t* __restrict__ qw_hi, const float* __restrict__ scales,
-                   const float* __restrict__ zeros, float* __restrict__ out, int M, int K, int N,
-                   int pb, int groupsize, bool vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Xs = reinterpret_cast<float*>(smem);  // FBM x FXLD
-  float* Ws = Xs + FBM * FXLD;                 // KT x FBN
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int kt = tile_rows(pb);
-  for (int k0 = 0; k0 < K; k0 += kt) {
-    __syncthreads();
-    fill_x_tile<float, FBM, KT, THREADS>(Xs, FXLD, x, m0, M, k0, K, kt, vec);
-    fill_weight_tile<float, BITS, FBN, THREADS>(Ws, FBN, qw, qw_hi, scales, zeros, k0, K, n0, N,
-                                                pb, groupsize, kt);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kt; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[(ty + 16 * i) * FXLD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk * FBN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[(long)m * N + n] = acc[i][j];
-    }
-}
+static_assert(tc::BN == f32::BN, "one column-tile guard for both bodies");
 
 template <int BITS>
 static int run(int dtype, const void* x, const int32_t* qw, const int32_t* qw_hi,
@@ -89,10 +41,8 @@ static int run(int dtype, const void* x, const int32_t* qw, const int32_t* qw_hi
     return tc::run<BITS, tc::PLAIN>(static_cast<const __nv_bfloat16*>(x), qw, qw_hi, s, z,
                                     nullptr, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g,
                                     stream);
-  const dim3 grid((M + FBM - 1) / FBM, (N + FBN - 1) / FBN);
-  return launch(qmm_f32_kernel<BITS>, grid, THREADS, F32_SMEM, stream,
-                static_cast<const float*>(x), qw, qw_hi, s, z, static_cast<float*>(out), M, K,
-                N, pb, g, vec_ok(x, K, tile_rows(pb), 4));
+  return f32::run<BITS, f32::PLAIN>(static_cast<const float*>(x), qw, qw_hi, s, z, nullptr,
+                                    static_cast<float*>(out), M, K, N, pb, g, stream);
 }
 
 }  // namespace samq_quant
@@ -104,7 +54,7 @@ extern "C" int samq_quant_matmul(int dtype, int bits, const void* x, const void*
                                  void* out, int M, int K, int N, int groupsize, int pack_block,
                                  void* stream) {
   using namespace samq_quant;
-  if ((dtype != 0 && dtype != 1) || M < 1 || N > 65535 * FBN ||
+  if ((dtype != 0 && dtype != 1) || M < 1 || N > 65535 * f32::BN ||
       !packing_ok(bits, K, N, pack_block, groupsize) || (bits == 3 && qweight_hi == nullptr))
     return (int)cudaErrorInvalidValue;
   const int32_t* qw = static_cast<const int32_t*>(qweight);

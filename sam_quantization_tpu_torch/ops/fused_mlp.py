@@ -2,10 +2,11 @@
 call, and its plain PyTorch version.
 
 Counterpart of ``sam_quantization_tpu/ops/fused_mlp.py`` (replaces
-``_fused_mlp_kernel``). In bfloat16 the C function runs two launches of the
-tensor-core body (``csrc/qmm_tc.cuh``), the first with the GELU epilogue
-into an (M, H) bfloat16 scratch tensor that the wrapper allocates; in
-float32 one launch keeps the hidden activation on chip. The numerics are
+``_fused_mlp_kernel``). The C function runs two launches of one body, the
+tensor-core body in bfloat16 (``csrc/qmm_tc.cuh``) and the register-tiled
+FFMA body in float32 (``csrc/qmm_f32.cuh``), the first with the GELU
+epilogue into an (M, H) scratch tensor in x's dtype that the wrapper
+allocates, the second from it. The numerics are
 the TPU kernel's, in its order:
 ``h = gelu_tanh(x @ W1 + b1)`` in float32, rounded to x's dtype, then
 ``h @ W2`` with float32 accumulation, rounded to x's dtype; ``b2`` is added
@@ -103,18 +104,15 @@ def fused_mlp(x: torch.Tensor, p1: PackedLinear, p2: PackedLinear) -> torch.Tens
         b1 = p1.bias if p1.bias is not None else torch.zeros(H, device=x.device)
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         if M:
-            # h (M, H) between the two bfloat16 launches; float32 needs none.
-            hidden = (torch.empty((M, H), dtype=x.dtype, device=x.device)
-                      if x.dtype == torch.bfloat16 else None)
+            hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)  # h between launches
             with torch.cuda.device(x.device):
                 stream = torch.cuda.current_stream().cuda_stream
                 _build.launch(
                     "fused_mlp", _build.DTYPE_CODE[x.dtype], p1.bits, x2.data_ptr(),
                     p1.qweight.data_ptr(), p1.scales.data_ptr(), p1.zeros.data_ptr(),
                     b1.data_ptr(), p2.qweight.data_ptr(), p2.scales.data_ptr(),
-                    p2.zeros.data_ptr(), out.data_ptr(),
-                    None if hidden is None else hidden.data_ptr(), M, K, H, N, p1.groupsize,
-                    p1.pack_block, p2.groupsize, p2.pack_block, stream,
+                    p2.zeros.data_ptr(), out.data_ptr(), hidden.data_ptr(), M, K, H, N,
+                    p1.groupsize, p1.pack_block, p2.groupsize, p2.pack_block, stream,
                 )
             LAUNCHES["fused_mlp"] += 1
     if p2.bias is not None:

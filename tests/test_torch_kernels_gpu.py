@@ -504,9 +504,24 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, bits, M, K, N, g):
 @pytest.mark.parametrize("bits,g", [(4, 128), (4, 32), (8, 64), (2, 0), (4, "pb"), (8, "pb"),
                                     (2, "pb")])
 @pytest.mark.parametrize("M,K,H,N", [(64, 128, 512, 128), (45, 256, 1024, 384),
-                                     (33, 128, 512, 1408),  # two column groups
+                                     (33, 128, 512, 1408),  # ragged last column tile
                                      (4096, 1280, 5120, 1280)])
 def test_fused_mlp_kernel_matches_plain(cuda, dtype, bits, g, M, K, H, N):
+    _fused_mlp_case(cuda, dtype, bits, g, M, K, H, N)
+
+
+# The float32 body's edges in the MLP: M 129 is one row past a 128-row
+# tile, N 2560 twice the 1280 columns a block of the one-launch float32
+# kernel this body replaced took. (bfloat16 at this shape reads one or two
+# output steps past QTOL's bound at pack blocks 12 and 80: ROADMAP Queue 3.)
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,g", [(4, 128), (4, 32), (8, 64), (2, 0), (4, "pb"), (8, "pb"),
+                                    (2, "pb")])
+def test_fused_mlp_f32_tile_edges_on_card(cuda, bits, g):
+    _fused_mlp_case(cuda, "f32", bits, g, 129, 256, 1024, 2560)
+
+
+def _fused_mlp_case(cuda, dtype, bits, g, M, K, H, N):
     tdt = DTYPES[dtype][0]
     odd = g == "pb"
     if odd:
@@ -527,6 +542,53 @@ def test_fused_mlp_kernel_matches_plain(cuda, dtype, bits, g, M, K, H, N):
     assert tfm.LAUNCHES["fused_mlp"] == before + 1
     ref = tfm.fused_mlp_plain(x, p1, p2)
     _check_rel(out, ref if p2.bias is None else ref + p2.bias.to(tdt), dtype)
+
+
+# The float32 body's tile edges (csrc/qmm_f32.cuh: 128 x 128 output tiles,
+# K tiles of whole pack blocks): M 129 and N 136 leave one row or 8 columns
+# in the last tile, M 4900 and N 3840 are ViT-H's qkv, and K 96 at pack
+# block 48 (groups of 48) is a single short K tile (3-bit packs no block
+# of 48).
+F32_EDGE_CASES = [(bits, M, K, N, g) for bits in (2, 3, 4, 8)
+                  for M, K, N, g in ((129, 384, 3840, 128), (4900, 1280, 136, 128),
+                                     (129, 96, 136, 48), (4900, 96, 3840, 48))
+                  if not (bits == 3 and g == 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,M,K,N,g", F32_EDGE_CASES)
+def test_quant_matmul_f32_tile_edges_on_card(cuda, bits, M, K, N, g):
+    p = _packed(12, K, N, bits, g, cuda)
+    assert p.pack_block == g and (g != 48 or tqm.tile_rows(g) == K)
+    x = _randn(13, M, K).to(cuda)
+    name = "quant_matmul3" if bits == 3 else "quant_matmul"
+    before = dict(tqm.LAUNCHES)
+    out = tqm.quant_matmul(x, p)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES == {**before, name: before[name] + 1} and out.shape == (M, N)
+    _check_rel(out, tqm.quant_matmul_plain(x, p), "f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_mlp_refuses_a_null_hidden_on_card(cuda, dtype):
+    """The C function takes the (M, H) scratch in both types: without it it
+    returns an error and launches nothing."""
+    from sam_quantization_tpu_torch.ops import _build
+
+    tdt = DTYPES[dtype][0]
+    p1, p2 = _packed(24, 128, 512, 4, 32, cuda), _packed(26, 512, 128, 4, 32, cuda)
+    x = _randn(28, 8, 128).to(cuda, tdt)
+    out = torch.full((8, 128), 7.0, dtype=tdt, device=cuda)
+    with pytest.raises(RuntimeError, match="fused_mlp: kernel launch failed"):
+        _build.launch(
+            "fused_mlp", _build.DTYPE_CODE[tdt], 4, x.data_ptr(), p1.qweight.data_ptr(),
+            p1.scales.data_ptr(), p1.zeros.data_ptr(), p1.bias.data_ptr(),
+            p2.qweight.data_ptr(), p2.scales.data_ptr(), p2.zeros.data_ptr(), out.data_ptr(),
+            None, 8, 128, 512, 128, p1.groupsize, p1.pack_block, p2.groupsize, p2.pack_block,
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
 
 
 @pytest.mark.gpu
@@ -668,6 +730,21 @@ def test_a8_main_build_runs_int8_wgmma(cuda):
             assert imma > 0 and igmma == 0, (bits, sym, out, igmma, imma)
         else:
             assert igmma > 0 and imma == 0, (bits, sym, out, igmma, imma)
+
+
+@pytest.mark.gpu
+def test_f32_packed_body_runs_ffma_on_card(cuda):
+    """Every instantiation of the float32 packed-weight body (qmm_f32_kernel
+    <BITS, EPI, WIDE>: bits 2/3/4/8 plain in quant_matmul, 2/4/8 with both
+    epilogues in fused_mlp, each with both word loaders) holds FFMA and no
+    tensor-core product (HGMMA, HMMA: that would be TF32)."""
+    for name, want in (("quant_matmul", {(b, "0", w) for b in "2348" for w in "01"}),
+                       ("fused_mlp", {(b, e, w) for b in "248" for e in "01" for w in "01"})):
+        counts = _sass_counts(name, r"qmm_f32_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                              ("FFMA", "HGMMA", "HMMA"))
+        assert set(counts) == want, (name, sorted(counts))
+        for key, (ffma, hgmma, hmma) in counts.items():
+            assert ffma > 0 and hgmma == hmma == 0, (name, key, ffma, hgmma, hmma)
 
 
 @pytest.mark.gpu
