@@ -18,10 +18,13 @@ Run from the repository root on a machine with one CUDA card. It
    body (P1-P5, bfloat16 ``flash_whole`` and ``flash_rowblock``) also show
    their tensor-core instructions, the HGMMA count that ``cuobjdump -sass``
    finds in each instantiation (and no other kernel in the probes'
-   libraries; in ``flash_attn``'s, float32 kernels of FFMA and no
-   tensor-core instruction beside them; the float32 packed-weight body,
-   FFMA and no tensor-core instruction, with ptxas's spill bytes, 0 for
-   each instantiation), and the W-A8 kernels
+   libraries, nor in ``flash_attn``'s but float32 kernels of the body
+   below; the float32 bodies, attention (``csrc/flash_f32.cuh`` in
+   ``flash_attn``, ``flash_windowed`` and ``flash_global``) and
+   packed-weight, FFMA and no tensor-core instruction, with ptxas's spill
+   bytes, 0 for each instantiation; the bfloat16 ``fused_mlp``'s hidden
+   h read against its plain version's at pack blocks 12 and 80), and the
+   W-A8 kernels
    their IGMMA (int8 wgmma, main
    build) and IMMA (int8 mma.sync, FINE build) counts; the W-A8 kernels'
    bound rejects their plain version with x's last K tile left out too),
@@ -2443,9 +2446,8 @@ def main() -> int:
     # flash_rowblock, with and without a rel grid, 16. Each holds HGMMA, so
     # no bfloat16 launch of those kernels can reach an FFMA product loop.
     # Beside them flash_attn holds only the float32 register-tiled body
-    # (flash_attn_f32_kernel<HDP, REL>, 16): FFMA, and no HGMMA or HMMA
-    # (tensor cores would mean TF32); the probes' libraries hold no other
-    # kernel.
+    # (flash_f32.cuh, as flash_attn_f32_kernel<HDP, REL>, 16); the probes'
+    # libraries hold no other kernel.
     hdps = [str(h) for h in range(16, 129, 16)]
     for name, want in (("probe_heads", {(m, e, b, h) for m, e, b in (
             ("0", "1", "0"), ("1", "1", "0"), ("1", "0", "0"), ("2", "1", "0"), ("1", "1", "1"),
@@ -2464,16 +2466,39 @@ def main() -> int:
         cuda_core = tensor_core_counts(lib, _build._nvcc(), r"flash_attn_f32_kernelILi(\d+)ELb(\d)E")
         others = sorted(k[0] for k in tensor_core_counts(lib, _build._nvcc(), r"Function : (\w+)")
                         if "probe_tc_kernel" not in k[0] and "flash_attn_f32_kernel" not in k[0])
-        check(not others, f"{name}: no kernel but probe_tc_kernel and flash_attn_f32_kernel "
-                          f"({others})")
-        if name == "flash_attn":
-            check(set(cuda_core) == {(h, r) for h in hdps for r in "01"}
-                  and all(c[4] > 0 and c[0] == c[1] == 0 for c in cuda_core.values()),
-                  "flash_attn: float32 flash_attn_f32_kernel (HDP, rel), FFMA and no HGMMA/HMMA: "
-                  + ", ".join(f"{h}/{r} {c[4]}/{c[0] + c[1]}"
-                              for (h, r), c in sorted(cuda_core.items(), key=lambda x: int(x[0][0]))))
-        else:
+        check(not others, f"{name}: no kernel but probe_tc_kernel and flash_f32.cuh's body "
+                          f"(flash_attn_f32_kernel) ({others})")
+        if name != "flash_attn":
             check(not cuda_core, f"{name}: no float32 head-split kernel")
+    # Every float32 attention build runs flash_f32.cuh's register-tiled
+    # body: flash_attn_f32_kernel<HDP, REL> (flash_whole, flash_rowblock),
+    # flash_windowed_f32_kernel<HDP, OutT> and flash_global_f32_kernel<HDP,
+    # BIAS, OutT> (BIAS 1 the rel rows in shared memory; BIAS 2 rel_w in
+    # registers, built only for the tiles where they fit, flash_f32.cuh's
+    # regs_bias_fits), hd tiles 16..128, float and int8 out: FFMA and no
+    # HGMMA or HMMA in each (tensor cores would mean TF32), and 0 bytes of
+    # spill stores and loads in ptxas's report (read where this run built
+    # the library).
+    for name, pattern, want in (
+            ("flash_attn", r"flash_attn_f32_kernelILi(\d+)ELb(\d)E",
+             {(h, r) for h in hdps for r in "01"}),
+            ("flash_windowed", r"flash_windowed_f32_kernelILi(\d+)E(f|a)E",
+             {(h, o) for h in hdps for o in "fa"}),
+            ("flash_global", r"flash_global_f32_kernelILi(\d+)ELi(\d)E(f|a)E",
+             {(h, b, o) for h in hdps for b in "12" for o in "fa"
+              if b == "1" or h not in ("32", "64", "96")})):
+        mix = tensor_core_counts(_build.library_path(name), _build._nvcc(), pattern)
+        usage = ptxas_usage(logs[name], pattern) if name in logs else {}
+        spills = sorted({u[0] + u[1] for u in usage.values()})
+        regs = sorted({u[2] for u in usage.values()})
+        check(set(mix) == want and all(c[4] > 0 and c[0] == c[1] == 0 for c in mix.values())
+              and (name not in logs or (set(usage) == want and spills == [0])),
+              f"{name} float32 body ({len(mix)} instantiations): FFMA "
+              f"{min((c[4] for c in mix.values()), default=0)}-"
+              f"{max((c[4] for c in mix.values()), default=0)}, HGMMA+HMMA "
+              f"{max((c[0] + c[1] for c in mix.values()), default=0)}, ptxas spill bytes "
+              + (f"{spills}, registers {regs[0]}-{regs[-1]}" if regs
+                 else "not read (cached build)"))
 
     gen = torch.Generator(device=dev)
 
@@ -2952,6 +2977,63 @@ def main() -> int:
             del x, out, ref, cut
         torch.cuda.empty_cache()
 
+    # bfloat16 fused_mlp at M 129, N 2560 with pack blocks 12 (W8, K 768, H
+    # 3072) and 80 (W2, K 1280, H 5120): both sides round h to bf16 between
+    # the products, so a one-step flip of h (the first product's float32 sum
+    # order) can move an output past rel_ok. Read the kernel's h against the
+    # plain version's: the elements that differ and by how many bf16 steps,
+    # and those that differ by more than one step and more than 2^-22 of the
+    # pre-activation sum's scale S = |x| @ |W1| + |b1| (none: past one step
+    # only near zero, where a bf16 step is finer than float32 resolves the
+    # sum); the output against the plain second product fed the kernel's
+    # own h, at rel_ok.
+    def bf16_ordinal(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    def fused_mlp_with_hidden(x, p1, p2):
+        """(out, h): the kernel's C function with an (M, H) scratch read here
+        (a comparison launch, not counted)."""
+        (M_, K_), H_, N_ = x.shape, p1.out_features, p2.out_features
+        out = torch.empty((M_, N_), dtype=x.dtype, device=dev)
+        hidden = torch.empty((M_, H_), dtype=x.dtype, device=dev)
+        _build.launch(
+            "fused_mlp", _build.DTYPE_CODE[x.dtype], p1.bits, x.data_ptr(),
+            p1.qweight.data_ptr(), p1.scales.data_ptr(), p1.zeros.data_ptr(),
+            p1.bias.data_ptr(), p2.qweight.data_ptr(), p2.scales.data_ptr(),
+            p2.zeros.data_ptr(), out.data_ptr(), hidden.data_ptr(), M_, K_, H_, N_,
+            p1.groupsize, p1.pack_block, p2.groupsize, p2.pack_block,
+            torch.cuda.current_stream().cuda_stream)
+        return out, hidden
+
+    gen.manual_seed(8)
+    for bits, g_, K_, H_ in ((8, 12, 768, 3072), (2, 80, 1280, 5120)):
+        Mh, Nh = 129, 2560
+        x = randn(Mh, K_, dtype=torch.bfloat16)
+        l1 = packed_lib.quantize_rtn(randn(K_, H_, std=0.05), bits, g_, bias=randn(H_, std=0.01))
+        l2 = packed_lib.quantize_rtn(randn(H_, Nh, std=0.05), bits, g_)
+        out, hk = fused_mlp_with_hidden(x, l1, l2)
+        w1 = packed_lib.dequantize(l1).to(torch.bfloat16).float()
+        hp = fm.gelu_tanh(torch.matmul(x.float(), w1) + l1.bias).to(torch.bfloat16)
+        steps = (bf16_ordinal(hk) - bf16_ordinal(hp)).abs()
+        S = torch.matmul(x.float().abs(), w1.abs()) + l1.bias.abs()
+        dh = (hk.float() - hp.float()).abs()
+        far = int(((steps > 1) & (dh > 2.0**-22 * S)).sum())
+        dh_multi = float(dh[steps > 1].max()) if bool((steps > 1).any()) else 0.0
+        ref = torch.matmul(hk.float(), packed_lib.dequantize(l2).to(torch.bfloat16).float()).to(
+            torch.bfloat16)
+        err, ok = rel_ok(out, ref, torch.bfloat16)
+        err_plain, ok_plain = rel_ok(out, fm.fused_mlp_plain(x, l1, l2), torch.bfloat16)
+        check(ok and far == 0 and {l1.pack_block, l2.pack_block} == {g_},
+              f"fused_mlp bfloat16 W{bits} pack block {g_} (M {Mh}, K {K_}, H {H_}, N {Nh}): h "
+              f"differs from the plain h in {int((steps > 0).sum())} of {steps.numel()} "
+              f"elements, {int((steps > 1).sum())} by more than one bf16 step (at most "
+              f"{int(steps.max())}; max |d| there {dh_multi:.3e}, "
+              f"{far} past 2^-22 S); out vs the plain second "
+              f"product of the kernel's h max|d| {err:.3e}; vs the plain version max|d| "
+              f"{err_plain:.3e} ({'within' if ok_plain else 'past'} rel_ok)")
+        del x, l1, l2, w1, hk, hp, out, ref, S, dh
+
     # ------------------------------------------------------------ W-A8 kernels
     # ViT-H, B = 1, RTN groups of 128 with int8 activations: qkv/proj on the
     # 4900 windowed tokens, lin1/lin2 on the 4096 global ones, 4-bit, both
@@ -3130,7 +3212,8 @@ def main() -> int:
             torch.cuda.synchronize()
             check(counts() == w4_launches, f"W4 encode {tag}: launches {counts()}")
             if dtype == torch.float32:  # the float32 rows' launches in the kernels line
-                f32_launches = {k: counts()[k] for k in ("quant_matmul", "fused_mlp")}
+                f32_launches = {k: counts()[k] for k in ("flash_windowed", "flash_global",
+                                                         "quant_matmul", "fused_mlp")}
             rel_err = float((e - ref).norm() / ref.norm())
             check(tuple(e.shape) == (1, 64, 64, 256) and bool(torch.isfinite(e).all())
                   and rel_err <= tol, f"W4 encode {tag} vs dequantized dense float32 eager: "
@@ -3646,7 +3729,8 @@ def main() -> int:
                "probe_pair": ("probe_heads.cu", "tools/global_stage_probe.py:183"),
                "probe_pair_bias": ("probe_heads.cu", "tools/global_stage_probe.py:316")}
     # One row per kernel in its JSON_DTYPE build, then the float32 builds of
-    # the packed-weight kernels (their launches from the float32 encodes).
+    # the serving attention and packed-weight kernels (their launches from
+    # the float32 W4 encode).
     rows = [(name, JSON_DTYPE.get(name, "bfloat16"), launches[name]) for name in sources]
     rows += [(name, "float32", n) for name, n in f32_launches.items()]
     kernels = []

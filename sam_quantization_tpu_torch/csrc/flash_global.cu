@@ -27,8 +27,17 @@
 //   the tensor cores; the 64 x 64 rel grid reads rel_w by column pairs and
 //   rel_h once per tile, with no index table (with the table alone it took
 //   1.9x as long).
-// - float32: one block per 64 query rows, both products on the CUDA cores
-//   (flash_common.cuh's attend_rows), bound by operations at 67 TFLOP/s.
+// - float32 (flash_f32.cuh, the body of every float32 attention build):
+//   one block per 64 query rows, both products on the CUDA cores in FFMA,
+//   bound by operations at 67 TFLOP/s (1.28 ms at ViT-H). Where kw divides
+//   64 (ViT-H: 64) each thread holds its rel_w' in registers and a tile's
+//   rel_h' slice rides in the K/V ring (BIAS_REGS: 107,520 bytes at hd 80,
+//   two stages and two blocks an SM); any other kw (128 on a 2048 px image),
+//   and the head tiles where those registers spill (flash_f32.cuh's
+//   register policy), keep the block's rel rows in shared memory
+//   (BIAS_ROWS). The wrapper pads hd to a multiple of 4 and aligns the
+//   operands (16-byte copies); other operands take 4-byte copies.
+#include "flash_f32.cuh"
 #include "flash_tc.cuh"
 
 namespace samq {
@@ -56,20 +65,22 @@ __device__ __forceinline__ Problem<T> global_problem(const T* q, const T* k, con
   return P;
 }
 
-// float32: the CUDA-core body.
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_global_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ rel_h,
-                        const T* __restrict__ rel_w, OutT* __restrict__ out, int L, int hd,
-                        int kh, int kw, float q_scale, float ois) {
-  const Problem<T> P = global_problem(q, k, v, rel_h, rel_w, L, hd, kh, kw, q_scale);
-  attend_rows<T, OutT>(P, blockIdx.x * BQ, out + (long)blockIdx.y * L * hd, hd, ois);
+// float32: the register-tiled CUDA-core body.
+template <int HDP, int BIAS, typename OutT>
+__global__ void __launch_bounds__(f32t::THREADS, f32t::global_blocks(HDP))
+    flash_global_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ rel_h,
+                            const float* __restrict__ rel_w, OutT* __restrict__ out, int L,
+                            int hd, int kh, int kw, float q_scale, float ois, bool vec,
+                            int stages) {
+  const Problem<float> P = global_problem(q, k, v, rel_h, rel_w, L, hd, kh, kw, q_scale);
+  f32t::attend<HDP, BIAS, OutT, f32t::qk_unroll(false, HDP)>(
+      P, blockIdx.x * f32t::BQ, out + (long)blockIdx.y * L * hd, hd, ois, stages, vec);
 }
 
 // bfloat16: the tensor-core body, hd padded to HDP in shared memory only.
 template <int HDP, typename OutT>
-__global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
+__global__ void __launch_bounds__(tc::NTHREADS, tc::min_blocks<HDP>())
     flash_global_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -81,15 +92,29 @@ __global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
                                        hd, ois, vec);
 }
 
-template <typename T, typename OutT>
-static int run(const void* q, const void* k, const void* v, const void* rh, const void* rw,
-               void* out, int BH, int L, int hd, int kh, int kw, float q_scale, float ois,
-               cudaStream_t stream) {
-  const dim3 grid((L + BQ - 1) / BQ, BH);
-  return launch(flash_global_kernel<T, OutT>, grid, smem_bytes(hd, kh, kw), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(rh), static_cast<const T*>(rw), static_cast<OutT*>(out), L,
-                hd, kh, kw, q_scale, ois);
+template <typename OutT>
+static int run_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                   void* out, int BH, int L, int hd, int kh, int kw, float q_scale, float ois,
+                   cudaStream_t stream) {
+  const bool vec = f32t::vec_ok(hd, {q, k, v});
+  return tc::dispatch_hdp(hd, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const dim3 grid((L + f32t::BQ - 1) / f32t::BQ, BH);
+    const auto with_bias = [&](auto bias) {
+      constexpr int BIAS = decltype(bias)::value;
+      return f32t::launch<HDP, BIAS, f32t::global_blocks(HDP)>(
+          flash_global_f32_kernel<HDP, BIAS, OutT>, grid, kh, kw, stream,
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(rh),
+          static_cast<const float*>(rw), static_cast<OutT*>(out), L, hd, kh, kw, q_scale, ois,
+          vec);
+    };
+    if constexpr (f32t::regs_bias_fits(HDP)) {
+      if (f32t::bias_for(HDP, kw) == f32t::BIAS_REGS)
+        return with_bias(std::integral_constant<int, f32t::BIAS_REGS>{});
+    }
+    return with_bias(std::integral_constant<int, f32t::BIAS_ROWS>{});
+  });
 }
 
 template <typename OutT>
@@ -103,11 +128,11 @@ static int run_tc(const void* q, const void* k, const void* v, const void* rh, c
   return tc::dispatch_hdp(hd, [&](auto hdp) {
     constexpr int HDP = decltype(hdp)::value;
     const dim3 grid((L + tc::BQ - 1) / tc::BQ, BH);
-    return launch(flash_global_tc_kernel<HDP, OutT>, grid, tc::smem_bytes(HDP, kh, kw),
-                  stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(rh),
-                  static_cast<const bf16*>(rw), static_cast<OutT*>(out), L, hd, kh, kw, q_scale,
-                  ois, vec);
+    return launch(flash_global_tc_kernel<HDP, OutT>, grid, tc::NTHREADS,
+                  tc::smem_bytes(HDP, kh, kw), stream, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<const bf16*>(rh), static_cast<const bf16*>(rw),
+                  static_cast<OutT*>(out), L, hd, kh, kw, q_scale, ois, vec);
   });
 }
 
@@ -125,8 +150,8 @@ extern "C" int samq_flash_global(int dtype, int out_int8, const void* q, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return out_int8
-               ? run<float, int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s)
-               : run<float, float>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s);
+               ? run_f32<int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s)
+               : run_f32<float>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s);
   if (dtype == 1)
     return out_int8
                ? run_tc<int8_t>(q, k, v, rel_h, rel_w, out, BH, L, hd, kh, kw, q_scale, ois, s)

@@ -1,9 +1,9 @@
 // Tensor-core body of the bfloat16 attention kernels (flash_global.cu,
-// flash_windowed.cu): the function of flash_common.cuh's attend_rows, with
-// both products on Hopper's warpgroup MMA (wgmma). The float32
-// instantiations keep attend_rows (tensor cores would mean TF32).
+// flash_windowed.cu), with both products on Hopper's warpgroup MMA
+// (wgmma). Their float32 builds run flash_f32.cuh's body on the CUDA cores
+// (tensor cores would mean TF32).
 //
-// Numerics, step for step those of attend_rows (flash_common.cuh:6-17):
+// Numerics, step for step those of flash_common.cuh:10-21 with T = bf16:
 //   qs   = round_bf16(q * (scale * log2 e)),  rel' = round_bf16(rel * log2 e)
 //   s    = f32 sum_d qs k  +  (rel_w'[m, n % kw] + rel_h'[m, n // kw])
 //   p    = exp2(clip(s, -60, 64) - 64);  sum p over the unrounded f32 p
@@ -63,7 +63,7 @@ constexpr int BK = 64;             // keys a tile
 constexpr float P_SCALE = 0x1p64f;  // p is carried times 2^64 (see above)
 constexpr int STAGES = 2;          // K/V stages of the ring
 
-static_assert(2 * WG == NTHREADS, "samq::launch starts NTHREADS threads");
+constexpr int NTHREADS = 2 * WG;   // threads a block
 
 // Dynamic shared memory of a block: the stages of K and V tiles, the qs
 // tile, the bf16 rel tiles of its rows, and a 64-entry key index table per

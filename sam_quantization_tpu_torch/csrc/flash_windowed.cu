@@ -29,8 +29,15 @@
 //   of the product work is padding. At ViT-H 800 blocks run two to an SM
 //   (three rounds on 132 SMs and a short fourth); the per-block set-up and
 //   the wait on each product, not the bytes, bound it.
-// - float32: one block per 64 query rows (flash_common.cuh's attend_rows),
-//   both products on the CUDA cores.
+// - float32 (flash_f32.cuh, the body of every float32 attention build):
+//   one block per (64 query rows, head, window), grid (4, 16, 25) at
+//   ViT-H, both products on the CUDA cores in FFMA, K and V by cp.async into
+//   a two-stage ring straight from the qkv rows at row stride 3C (16-byte
+//   copies where hd % 4 == 0 and qkv is 16-byte aligned, else 4-byte ones),
+//   the 14 + 14 rel rows in shared memory (BIAS_ROWS: 112,640 bytes at hd
+//   80, two blocks an SM). The block of the last 4 rows and the tile of the
+//   last 4 keys skip their empty row and key groups.
+#include "flash_f32.cuh"
 #include "flash_tc.cuh"
 
 namespace samq {
@@ -59,21 +66,22 @@ __device__ __forceinline__ Problem<T> windowed_problem(const T* qkv, const T* re
   return P;
 }
 
-// float32: the CUDA-core body.
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel,
-                          OutT* __restrict__ out, int L, int nh, int hd, int kh, int kw,
-                          float q_scale, float ois) {
-  const Problem<T> P = windowed_problem(qkv, rel, L, nh, hd, kh, kw, q_scale);
+// float32: the register-tiled CUDA-core body.
+template <int HDP, typename OutT>
+__global__ void __launch_bounds__(f32t::THREADS, 2)
+    flash_windowed_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ rel,
+                              OutT* __restrict__ out, int L, int nh, int hd, int kh, int kw,
+                              float q_scale, float ois, bool vec, int stages) {
+  const Problem<float> P = windowed_problem(qkv, rel, L, nh, hd, kh, kw, q_scale);
   const long C = (long)nh * hd;
   OutT* o = out + (long)blockIdx.z * L * C + (long)blockIdx.y * hd;
-  attend_rows<T, OutT>(P, blockIdx.x * BQ, o, C, ois);
+  f32t::attend<HDP, f32t::BIAS_ROWS, OutT, f32t::qk_unroll(false, HDP)>(
+      P, blockIdx.x * f32t::BQ, o, C, ois, stages, vec);
 }
 
 // bfloat16: the tensor-core body, hd padded to HDP in shared memory only.
 template <int HDP, typename OutT>
-__global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
+__global__ void __launch_bounds__(tc::NTHREADS, tc::min_blocks<HDP>())
     flash_windowed_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                              const __nv_bfloat16* __restrict__ rel, OutT* __restrict__ out,
                              int L, int nh, int hd, int kh, int kw, float q_scale, float ois,
@@ -84,13 +92,19 @@ __global__ void __launch_bounds__(NTHREADS, tc::min_blocks<HDP>())
   tc::attend_rows_tc<HDP, true, OutT>(P, blockIdx.x * tc::BQ, o, C, ois, vec);
 }
 
-template <typename T, typename OutT>
-static int run(const void* qkv, const void* rel, void* out, int NW, int L, int nh, int hd,
-               int kh, int kw, float q_scale, float ois, cudaStream_t stream) {
-  const dim3 grid((L + BQ - 1) / BQ, nh, NW);
-  return launch(flash_windowed_kernel<T, OutT>, grid, smem_bytes(hd, kh, kw), stream,
-                static_cast<const T*>(qkv), static_cast<const T*>(rel), static_cast<OutT*>(out),
-                L, nh, hd, kh, kw, q_scale, ois);
+template <typename OutT>
+static int run_f32(const void* qkv, const void* rel, void* out, int NW, int L, int nh, int hd,
+                   int kh, int kw, float q_scale, float ois, cudaStream_t stream) {
+  // Rows of 3 nh hd values, head slices at hd: all 16-byte aligned iff hd % 4 == 0.
+  const bool vec = f32t::vec_ok(hd, {qkv});
+  return tc::dispatch_hdp(hd, [&](auto hdp) {
+    constexpr int HDP = decltype(hdp)::value;
+    const dim3 grid((L + f32t::BQ - 1) / f32t::BQ, nh, NW);
+    return f32t::launch<HDP, f32t::BIAS_ROWS>(
+        flash_windowed_f32_kernel<HDP, OutT>, grid, kh, kw, stream,
+        static_cast<const float*>(qkv), static_cast<const float*>(rel), static_cast<OutT*>(out),
+        L, nh, hd, kh, kw, q_scale, ois, vec);
+  });
 }
 
 template <typename OutT>
@@ -102,9 +116,10 @@ static int run_tc(const void* qkv, const void* rel, void* out, int NW, int L, in
   return tc::dispatch_hdp(hd, [&](auto hdp) {
     constexpr int HDP = decltype(hdp)::value;
     const dim3 grid((L + tc::BQ - 1) / tc::BQ, nh, NW);
-    return launch(flash_windowed_tc_kernel<HDP, OutT>, grid, tc::smem_bytes(HDP, kh, kw),
-                  stream, static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel),
-                  static_cast<OutT*>(out), L, nh, hd, kh, kw, q_scale, ois, vec);
+    return launch(flash_windowed_tc_kernel<HDP, OutT>, grid, tc::NTHREADS,
+                  tc::smem_bytes(HDP, kh, kw), stream, static_cast<const bf16*>(qkv),
+                  static_cast<const bf16*>(rel), static_cast<OutT*>(out), L, nh, hd, kh, kw,
+                  q_scale, ois, vec);
   });
 }
 
@@ -120,8 +135,8 @@ extern "C" int samq_flash_windowed(int dtype, int out_int8, const void* qkv, con
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return out_int8 ? run<float, int8_t>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s)
-                    : run<float, float>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s);
+    return out_int8 ? run_f32<int8_t>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s)
+                    : run_f32<float>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s);
   if (dtype == 1)
     return out_int8
                ? run_tc<int8_t>(qkv, rel, out, NW, L, nh, hd, kh, kw, q_scale, ois, s)

@@ -25,13 +25,14 @@ epilogue ``clip(round(o * (1/sum p) * out_inv_scale), -127, 127)``.
 In bfloat16 every kernel runs both products on Hopper's tensor cores
 (wgmma): the windowed and bias3d global kernels on ``csrc/flash_tc.cuh``'s
 body, ``flash_whole`` and ``flash_rowblock`` on ``csrc/probe_tc.cuh``'s (K
-and V by TMA from a producer warp). The float32 instantiations run both
-products on the CUDA cores: ``flash_whole`` and ``flash_rowblock`` on the
-register-tiled body of ``csrc/flash_attn.cu`` (K and V by cp.async),
-``flash_windowed`` and ``flash_global`` on ``csrc/flash_common.cuh``'s
-``attend_rows``. For the TMA and register-tiled bodies the wrapper pads hd
-to whole 16-byte rows and copies operands that do not start on 16 bytes.
-:func:`body` names the body of each route and dtype.
+and V by TMA from a producer warp). In float32 all four counters run one
+register-tiled body on the CUDA cores, ``csrc/flash_f32.cuh`` (FFMA, K and V
+by cp.async): ``flash_windowed`` reads its heads in place from the qkv rows
+(16-byte copies where hd % 4 == 0, else 4-byte ones), ``flash_global`` holds
+rel_w in registers where kw divides 64. For the head-split routes of the TMA
+and register-tiled bodies the wrapper pads hd to whole 16-byte rows and
+copies operands that do not start on 16 bytes. :func:`body` names the body
+of each route and dtype.
 
 One difference is by design: the port does not pad L, so keys n >= L do not
 exist. A row whose logits all lie below the floor therefore averages its L
@@ -206,25 +207,24 @@ def route(L: int, kv_size: Optional[Tuple[int, int]], bias3d: Optional[bool] = N
 
 # The bodies of the attention kernels; TMA_BODY and TILED_F32 are
 # csrc/flash_attn.cu's `body` argument.
-ATTEND_ROWS = 0  # flash_common.cuh's attend_rows: both products on the CUDA cores
 TMA_BODY = 1  # probe_tc.cuh: q, K and V by TMA, both products on wgmma
 TC_BODY = 2  # flash_tc.cuh's attend_rows_tc: K and V by cp.async, both products on wgmma
-TILED_F32 = 3  # flash_attn.cu's register-tiled float32 body: cp.async ring, CUDA cores
+TILED_F32 = 3  # flash_f32.cuh's register-tiled float32 body: cp.async ring, CUDA cores
 
 
 def body(name: str, dtype: torch.dtype) -> int:
     """The body that runs a head-split problem :func:`route` sends to
     ``name``, in ``dtype``. float32 keeps the CUDA cores (tensor cores would
-    mean TF32): ``flash_global`` on attend_rows, both counters of
-    csrc/flash_attn.cu on its register-tiled body (4 x 4 logits and 4 rows
-    of the output a thread, K and V in a two-stage cp.async ring, row and key
-    groups past L skipped). In bfloat16 ``flash_global`` runs flash_tc.cuh's
-    body, and both counters of csrc/flash_attn.cu the TMA body: at
-    flash_whole's ViT-H shape it took as long as flash_tc.cuh's with rel
-    tiles and less time without (PERF.md)."""
-    if name == "flash_global":
-        return TC_BODY if dtype == torch.bfloat16 else ATTEND_ROWS
-    return TMA_BODY if dtype == torch.bfloat16 else TILED_F32
+    mean TF32): every route runs csrc/flash_f32.cuh's register-tiled body
+    (4 x 4 logits and 4 rows of the output a thread, K and V in a two-stage
+    cp.async ring, row and key groups past L skipped; ``flash_global`` holds
+    rel_w in registers where kw divides 64), as ``flash_windowed`` does. In
+    bfloat16 ``flash_global`` runs flash_tc.cuh's body, and both counters of
+    csrc/flash_attn.cu the TMA body: at flash_whole's ViT-H shape it took as
+    long as flash_tc.cuh's with rel tiles and less time without (PERF.md)."""
+    if dtype != torch.bfloat16:
+        return TILED_F32
+    return TC_BODY if name == "flash_global" else TMA_BODY
 
 
 def flash_attention_relpos(
@@ -285,8 +285,8 @@ def flash_attention_relpos(
         if name == "flash_global":
             _build.launch(
                 "flash_global", _build.DTYPE_CODE[q.dtype], int(quant), q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L, hd, kh, kw,
-                float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
+                k.data_ptr(), v.data_ptr(), rh, rw, out.data_ptr(), B * nh, L, q.shape[-1], kh,
+                kw, float(scale * LOG2E), float(out_inv_scale) if quant else 0.0, stream,
             )
         else:
             _build.launch(

@@ -10,7 +10,10 @@ into heads, (25, 16, 196, 80), with 14 + 14 rel tiles and rel-less;
 all at scale hd**-0.5, each beside ``scaled_dot_product_attention`` at the
 same scale (the rel bias as ``attn_mask``); ``flash_whole`` and
 ``flash_rowblock`` also in float32 at the same shapes (the trainer's build),
-beside SDPA in float32. And the stage probes' kernels: ``probe_no_softmax``
+beside SDPA in float32; ``flash_windowed`` and ``flash_global`` also in
+float32 (the evaluation path's encode), float and int8 out, beside SDPA in
+float32 (``sdpa_whole_f32`` is the windowed yardstick: the same heads and
+mask shape). And the stage probes' kernels: ``probe_no_softmax``
 (P1) on 25 windows of the packed qkv, heads read in place, with 14 + 14 rel
 columns, beside two ``torch.bmm`` on the heads split beforehand; and, at
 the probes' shapes, ``probe_dots_floor`` (P2) on ``packed_probe``'s
@@ -76,6 +79,9 @@ def main(argv=None) -> int:
     n = torch.arange(Lw, device=dev)
     wmask = (wrh[..., n // ws] + wrw[..., n % ws]).contiguous()
     f32 = [t.float() for t in (wq, wk, wv, wrh, wrw, wmask, q, k, v)]
+    qkv32, rel32, rh32, rw32 = (t.float() for t in (qkv, rel, rh, rw))
+    ng = torch.arange(Lg, device=dev)
+    gmask32 = (rh32[..., ng // g] + rw32[..., ng % g]).contiguous()
     win = dict(nh=nh, hd=hd, kh=ws, kw=ws)
     ois = 127.0 / 4.0
     cases = {
@@ -99,6 +105,14 @@ def main(argv=None) -> int:
         "sdpa_whole_f32_norel": lambda: F.scaled_dot_product_attention(*f32[:3], scale=scale),
         "flash_rowblock_f32": lambda: fa.flash_attention_relpos(*f32[6:], None, None, scale),
         "sdpa_rowblock_f32": lambda: F.scaled_dot_product_attention(*f32[6:], scale=scale),
+        "flash_windowed_f32": lambda: fa.flash_attention_qkv_packed(qkv32, rel32, scale, **win),
+        "flash_windowed_f32_int8": lambda: fa.flash_attention_qkv_packed(
+            qkv32, rel32, scale, out_inv_scale=ois, **win),
+        "flash_global_f32": lambda: fa.flash_attention_relpos(*f32[6:], rh32, rw32, scale),
+        "flash_global_f32_int8": lambda: fa.flash_attention_relpos(
+            *f32[6:], rh32, rw32, scale, out_inv_scale=ois),
+        "sdpa_global_f32": lambda: F.scaled_dot_product_attention(*f32[6:], attn_mask=gmask32,
+                                                                  scale=scale),
     }
     # P1 on the packed qkv of the windowed stage, 14 + 14 rel columns.
     prel = (torch.randn((nw, nh, Lw, 2 * ws), generator=gen, device=dev) * 0.05).to(bf)

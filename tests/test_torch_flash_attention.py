@@ -244,14 +244,13 @@ def test_route_matches_jax_dispatch(L, kv, monkeypatch):
 
 
 # The body each route runs: float32 on the CUDA cores (the tensor cores
-# would mean TF32), flash_global on attend_rows and both counters of
-# csrc/flash_attn.cu on its register-tiled body; bfloat16 flash_global on
-# csrc/flash_tc.cuh's, both counters of csrc/flash_attn.cu on the TMA body
-# (csrc/probe_tc.cuh).
+# would mean TF32), every route on csrc/flash_f32.cuh's register-tiled body;
+# bfloat16 flash_global on csrc/flash_tc.cuh's, both counters of
+# csrc/flash_attn.cu on the TMA body (csrc/probe_tc.cuh).
 ROUTE_BODY = {("flash_global", torch.bfloat16): tfa.TC_BODY,
               ("flash_whole", torch.bfloat16): tfa.TMA_BODY,
               ("flash_rowblock", torch.bfloat16): tfa.TMA_BODY,
-              ("flash_global", torch.float32): tfa.ATTEND_ROWS,
+              ("flash_global", torch.float32): tfa.TILED_F32,
               ("flash_whole", torch.float32): tfa.TILED_F32,
               ("flash_rowblock", torch.float32): tfa.TILED_F32}
 
@@ -270,7 +269,7 @@ def test_head_split_counters_name_their_bodies(name):
     neither of the other two."""
     assert tfa.body(name, torch.float32) == tfa.TILED_F32
     assert tfa.body(name, torch.bfloat16) == tfa.TMA_BODY
-    assert tfa.TILED_F32 not in (tfa.ATTEND_ROWS, tfa.TMA_BODY, tfa.TC_BODY)
+    assert tfa.TILED_F32 not in (tfa.TMA_BODY, tfa.TC_BODY)
 
 
 @pytest.mark.parametrize("dtype,hd,pad", [(torch.float32, 18, 2), (torch.float32, 80, 0),

@@ -76,6 +76,13 @@ def _check_attn(out, ref, dtype, quant):
         _check(out, ref, dtype, quant)
 
 
+def _attn_fails(wrong, ref, dtype):
+    """The negative control of a float or bf16 output: a wrong one must
+    break the bound _check_attn holds the kernel to."""
+    with pytest.raises(AssertionError):
+        _check_attn(wrong.to(ref.dtype), ref, dtype, False)
+
+
 # The tensor-core body's edges (csrc/flash_tc.cuh): L 196 = 3 * 64 + 4 and
 # L 25 leave most of the last key tile absent; hd 16 is one depth step, hd
 # 24 pads to 32 in shared memory, hd 20 also takes the element-wise copy
@@ -106,10 +113,10 @@ def test_windowed_kernel_matches_plain(cuda, dtype, quant, nh, hd, ws):
     assert tfa.LAUNCHES["flash_windowed"] == before + 1
     ref = tfa.flash_windowed_plain(qkv, rel, hd**-0.5, out_inv_scale=ois, **kw)
     _check_attn(out, ref, dtype, quant)
-    if dtype == "bf16" and not quant:  # the last key tile left out of p.v
+    if not quant:  # the last key tile left out of p.v
         skip = qkv.clone()
         skip[:, L - (L % 64 or 64):, 2 * nh * hd:] = 0
-        _hs_fails(tfa.flash_windowed_plain(skip, rel, hd**-0.5, **kw), ref)
+        _attn_fails(tfa.flash_windowed_plain(skip, rel, hd**-0.5, **kw), ref, dtype)
 
 
 @pytest.mark.gpu
@@ -130,10 +137,71 @@ def test_global_kernel_matches_plain(cuda, dtype, quant, nh, hd, g):
     assert tfa.LAUNCHES["flash_global"] == before + 1
     ref = tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois)
     _check_attn(out, ref, dtype, quant)
-    if dtype == "bf16" and not quant:
+    if not quant:
         skip = v.clone()
         skip[..., L - 64:, :] = 0
-        _hs_fails(tfa.flash_attention_plain(q, k, skip, rh, rw, hd**-0.5), ref)
+        _attn_fails(tfa.flash_attention_plain(q, k, skip, rh, rw, hd**-0.5), ref, dtype)
+
+
+# float32 flash_windowed (csrc/flash_f32.cuh) reads a head's rows in place
+# from the qkv rows: 16-byte copies where hd % 4 == 0 and qkv starts on 16
+# bytes, 4-byte copies otherwise, in the same kernel. hd 18 and 10 are not
+# multiples of 4; "offset" starts qkv one float past a 16-byte boundary (a
+# view into a larger buffer). L 196 and 25 leave the last key tile 4 and
+# 25 keys.
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nh,hd,ws,offset", [(2, 18, 14, 0), (2, 80, 14, 1), (3, 16, 5, 1),
+                                             (2, 10, 5, 1), (1, 128, 14, 1)])
+def test_windowed_f32_reads_any_row_layout_on_card(cuda, quant, nh, hd, ws, offset):
+    NW, L = 3, ws * ws
+    base = _randn(30, NW * L * 3 * nh * hd + offset).to(cuda)
+    qkv = base[offset:].view(NW, L, 3 * nh * hd)
+    assert qkv.is_contiguous() and (qkv.data_ptr() % 16 != 0) == bool(offset)
+    rel = _randn(31, NW, nh, L, 2 * ws).to(cuda)
+    kw = dict(nh=nh, hd=hd, kh=ws, kw=ws)
+    ref = tfa.flash_windowed_plain(qkv, rel, hd**-0.5, **kw)
+    ois = 127.0 / float(ref.abs().max()) if quant else None
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention_qkv_packed(qkv, rel, hd**-0.5, out_inv_scale=ois, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**before, "flash_windowed": before["flash_windowed"] + 1}
+    _check_attn(out, tfa.flash_windowed_plain(qkv, rel, hd**-0.5, out_inv_scale=ois, **kw),
+                "f32", quant)
+    if not quant:
+        skip = qkv.clone()
+        skip[:, L - (L % 64 or 64):, 2 * nh * hd:] = 0
+        _attn_fails(tfa.flash_windowed_plain(skip, rel, hd**-0.5, **kw), ref, "f32")
+
+
+# float32 flash_global (csrc/flash_f32.cuh) by the layout of its bias: kw
+# dividing 64 holds rel_w' in registers and a tile's rel_h' slice (64 / kw
+# values a row) in the ring (kw 16 four values, kw 8 and 1 a slice that
+# varies along a thread's keys; hd 100, a 112-column tile, one block an
+# SM); kw 128 (a 2048 px image's grid, L 16384: nh 1) keeps the rel rows in
+# shared memory (one block an SM), and so does hd 18 at kw 32 (a 32-column
+# tile, where the registers would spill; the wrapper pads hd to 20).
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nh,hd,kh,kw", [(1, 80, 128, 128), (2, 80, 64, 16), (2, 48, 128, 8),
+                                         (1, 16, 1024, 1), (1, 18, 32, 32), (1, 100, 64, 64)])
+def test_global_f32_bias_layouts_on_card(cuda, quant, nh, hd, kh, kw):
+    L = kh * kw
+    q, k, v = (_randn(s, 1, nh, L, hd).to(cuda) for s in (32, 33, 34))
+    rh, rw = _randn(35, 1, nh, L, kh).to(cuda), _randn(36, 1, nh, L, kw).to(cuda)
+    assert tfa.route(L, (kh, kw)) == "flash_global"
+    ref = tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5)
+    ois = 127.0 / float(ref.abs().max()) if quant else None
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention_relpos(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**before, "flash_global": before["flash_global"] + 1}
+    assert out.shape == q.shape
+    _check_attn(out, tfa.flash_attention_plain(q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois),
+                "f32", quant)
+    if not quant:
+        _attn_fails(tfa.flash_attention_plain(q, k, _last_tile_skipped(v, L), rh, rw, hd**-0.5),
+                    ref, "f32")
 
 
 @pytest.mark.gpu
@@ -184,6 +252,51 @@ def test_all_below_floor_rows_on_card(cuda, kernel, quant, hd):
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[kernel] == before + 1
     _check_attn(out, plain(ois), "bf16", quant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash_windowed", "flash_global"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hd", [80, 18])
+def test_all_below_floor_rows_f32_on_card(cuda, kernel, quant, hd):
+    """The float32 builds (csrc/flash_f32.cuh) on rows whose logits all lie
+    below the clamp floor, built as the bfloat16 case above builds them:
+    every real key gets p = 2^-124 and absent keys none, so each row is the
+    mean of its L real values (p v lies in the subnormal range, which the
+    float32 FMAs keep). hd 18 takes the 4-byte copies (flash_windowed) or
+    the wrapper's padding (flash_global)."""
+    if kernel == "flash_windowed":
+        nh, ws = 2, 14
+        L = ws * ws
+        qkv = _randn(24, 3, L, 3 * nh * hd)
+        qkv[..., 2 * nh * hd:] = qkv[..., 2 * nh * hd:].clamp(-1, 1) * 0.2
+        qkv = qkv.to(cuda)
+        rel = torch.full((3, nh, L, 2 * ws), -50.0, device=cuda)
+        kw = dict(nh=nh, hd=hd, kh=ws, kw=ws)
+        fn = lambda ois=None: tfa.flash_attention_qkv_packed(  # noqa: E731
+            qkv, rel, hd**-0.5, out_inv_scale=ois, **kw)
+        plain = lambda ois=None: tfa.flash_windowed_plain(  # noqa: E731
+            qkv, rel, hd**-0.5, out_inv_scale=ois, **kw)
+        mean = qkv[..., 2 * nh * hd:].mean(dim=1, keepdim=True)
+    else:
+        nh, g = 2, 32
+        L = g * g
+        q, k = (_randn(s, 1, nh, L, hd).to(cuda) for s in (25, 26))
+        v = (_randn(27, 1, nh, L, hd).clamp(-1, 1) * 0.2).to(cuda)
+        rh, rw = (torch.full((1, nh, L, g), -50.0, device=cuda) for _ in range(2))
+        fn = lambda ois=None: tfa.flash_attention_relpos(  # noqa: E731
+            q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois)
+        plain = lambda ois=None: tfa.flash_attention_plain(  # noqa: E731
+            q, k, v, rh, rw, hd**-0.5, out_inv_scale=ois)
+        mean = v.mean(dim=-2, keepdim=True)
+    ref = plain()
+    assert float((ref - mean).abs().max()) <= 1e-6
+    ois = 127.0 / float(ref.abs().max()) if quant else None
+    before = tfa.LAUNCHES[kernel]
+    out = fn(ois)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[kernel] == before + 1
+    _check_attn(out, plain(ois), "f32", quant)
 
 
 # L, (kh, kw) or None, and the kernel JAX's dispatch would reach
@@ -512,13 +625,78 @@ def test_fused_mlp_kernel_matches_plain(cuda, dtype, bits, g, M, K, H, N):
 
 # The float32 body's edges in the MLP: M 129 is one row past a 128-row
 # tile, N 2560 twice the 1280 columns a block of the one-launch float32
-# kernel this body replaced took. (bfloat16 at this shape reads one or two
-# output steps past QTOL's bound at pack blocks 12 and 80: ROADMAP Queue 3.)
+# kernel this body replaced took.
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits,g", [(4, 128), (4, 32), (8, 64), (2, 0), (4, "pb"), (8, "pb"),
                                     (2, "pb")])
 def test_fused_mlp_f32_tile_edges_on_card(cuda, bits, g):
     _fused_mlp_case(cuda, "f32", bits, g, 129, 256, 1024, 2560)
+
+
+def _bf16_steps(a, b):
+    """|a - b| in bf16 steps, element by element (the distance of their bit
+    patterns in the order of the values; +0 and -0 are one value)."""
+    def ordinal(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+# The same shape in bfloat16 (csrc/qmm_tc.cuh). Both sides round h to bf16
+# between the products, so a one-step flip of h, from the first product's
+# float32 sum order, can move an output by more than QTOL's two steps (at
+# pack blocks 12 and 80, W8 K 768 H 3072 and W2 K 1280 H 5120, the output
+# read 0.0625 and 0.125 against the plain version). So each case reads the
+# kernel's own h (the scratch its two launches share) and holds it to the
+# plain version's h: within one bf16 step, or, near zero, where a bf16 step
+# is finer than float32 resolves the pre-activation sum, within 2^-22 of
+# that sum's scale, S = |x| @ |W1| + |b1| (on the card a few elements near
+# zero differ by many steps, but by less than one float32 rounding of S:
+# the sum order, not the body); and the output equal,
+# at QTOL, to the plain second product fed the kernel's h. The C function
+# is called with a scratch the test reads; the wrapper's output must equal
+# it bit for bit (the bf16 body adds no atomics).
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,g", [(4, 128), (4, 32), (8, 64), (2, 0), (4, "pb"), (8, "pb"),
+                                    (2, "pb")])
+def test_fused_mlp_bf16_tile_edges_on_card(cuda, bits, g):
+    bf, M, N = torch.bfloat16, 129, 2560
+    K, H = 256, 1024
+    if g == "pb":
+        (K, _), (H, g) = _odd(K, g, bits), _odd(H, g, bits)
+    p1, p2 = _packed(20, K, H, bits, g, cuda), _packed(22, H, N, bits, g, cuda)
+    x = _randn(23, M, K).to(cuda, bf)
+    out, hidden = _fused_mlp_with_hidden(x, p1, p2)
+    before = tfm.LAUNCHES["fused_mlp"]
+    assert torch.equal(tfm.fused_mlp(x, p1, p2), out + p2.bias.to(bf))
+    assert tfm.LAUNCHES["fused_mlp"] == before + 1
+    w1 = tpacked.dequantize(p1).to(bf).float()
+    h_plain = tfm.gelu_tanh(torch.matmul(x.float(), w1) + p1.bias).to(bf)
+    steps = _bf16_steps(hidden, h_plain)
+    S = torch.matmul(x.float().abs(), w1.abs()) + p1.bias.abs()
+    dh = (hidden.float() - h_plain.float()).abs()
+    far = (steps > 1) & (dh > 2.0**-22 * S)
+    assert not bool(far.any()), (int(steps.max()), int((steps > 0).sum()), int(far.sum()))
+    w2 = tpacked.dequantize(p2).to(bf).float()
+    _check_rel(out, torch.matmul(hidden.float(), w2).to(bf), "bf16")
+
+
+def _fused_mlp_with_hidden(x, p1, p2):
+    """(out without b2, h): the fused kernel's C function on x (M, K) with an
+    (M, H) scratch for h that the caller reads."""
+    from sam_quantization_tpu_torch.ops import _build
+
+    (M, K), H, N = x.shape, p1.out_features, p2.out_features
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
+    _build.launch(
+        "fused_mlp", _build.DTYPE_CODE[x.dtype], p1.bits, x.data_ptr(), p1.qweight.data_ptr(),
+        p1.scales.data_ptr(), p1.zeros.data_ptr(), p1.bias.data_ptr(), p2.qweight.data_ptr(),
+        p2.scales.data_ptr(), p2.zeros.data_ptr(), out.data_ptr(), hidden.data_ptr(), M, K, H,
+        N, p1.groupsize, p1.pack_block, p2.groupsize, p2.pack_block,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return out, hidden
 
 
 def _fused_mlp_case(cuda, dtype, bits, g, M, K, H, N):
