@@ -37,7 +37,13 @@ Run from the repository root on a machine with one CUDA card. It
    beforehand (one group, no scales) for the W-A8 kernels, which are held
    against their plain version on the same int8 input, two ``torch.bmm``
    for the dot-only probes, and ``scaled_dot_product_attention`` with scale
-   ln 2 (the bias times ln 2 as ``attn_mask``) for the softmax probes;
+   ln 2 (the bias times ln 2 as ``attn_mask``) for the softmax probes; then
+   the tuned tiles (``ops/autotune.py``, ``csrc/quant_matmul.cu``): every
+   candidate tile of ``quant_matmul`` at ViT-H's six linear shapes (W4) and
+   of ``quant_matmul3`` at qkv (W3), float32 and bfloat16, held to the
+   plain version, bit-equal to the default tile, and timed; and
+   ``tune_model_shapes`` into a temporary table (every tile's SASS and
+   ptxas spill bytes are read with the other instantiations);
 4. dense main path: builds ViT-H from seeded random weights (rel-pos tables
    filled, so the bias contributes), encodes a 1024x1024 image with the
    kernel path and the plain (eager) path in float32 and bfloat16 and
@@ -50,10 +56,14 @@ Run from the repository root on a machine with one CUDA card. It
    port; its kernel-path embedding is held against the dense model of the
    dequantized weights on the eager path (float32 and bfloat16), then it is
    served like the dense model, with exact launch counts per image, and one
-   ``set_image`` is profiled;
+   ``set_image`` is profiled; then one served bfloat16 ``set_image`` and one
+   float32 encode under a tuned table naming the non-default tiles (the
+   default where float32 has no other), with
+   W4's launch counts, each tile launched, the embedding bit-equal to the
+   default tiles';
 6. W3 encode: the same ViT-H at 3 bits, one float32 and one bfloat16
    encode with their launch counts, held against its dequantized dense
-   model;
+   model, and each again under a tuned table as in step 5;
 7. W4A8 main path: the same ViT-H, RTN symmetric 4-bit (group 128) with
    int8 activations on every block linear (``bench.py --a8``'s
    configuration): held against its dequantized dense model (float32 and
@@ -185,9 +195,18 @@ Run from the repository root on a machine with one CUDA card. It
     forward in float32 on the eager path, and against per-image encode +
     decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
     --format onnx``. Each part's seconds are printed.
+20. rel-pos resize (``models/image_encoder.get_rel_pos``): a ViT-H global
+    attention whose 127-row tables are resized for grids 48 and 32 (shrunk
+    to 95 and 63 rows) and 80 and 128 (grown to 159 and 255): the card's
+    resized table against the CPU's, and in float32 and bfloat16 the
+    kernel JAX's dispatch picks (``flash_rowblock`` at 48 and 80,
+    ``flash_global`` at 32 and 128) against its plain version, and the
+    module's kernel branch (one launch) against its eager branch.
 
 The line before the last is a JSON object with one entry per kernel build
-(its ``dtype``; the packed-weight kernels in float32 and bfloat16); the last
+(its ``dtype``; the packed-weight kernels in float32 and bfloat16, and the
+tuned tiles of ``quant_matmul`` and ``quant_matmul3`` other than the
+default, named by their tile); the last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
 line, when there is no CUDA device, when the package is missing, or when any
 check fails.
@@ -2336,6 +2355,184 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
     print(f"export phase {time.perf_counter() - phase_t:.1f} s")
 
 
+# Tuned tiles of the weight-only packed-weight kernels (ops/autotune.py,
+# csrc/quant_matmul.cu), at ViT-H's linear shapes, W4 (W3 at qkv)
+# with groups of 128: (what, M, K, N, bits). M 4900 is the 25 windows of 196
+# tokens, 4096 the global blocks and the MLP.
+TILE_SHAPES = (("qkv", 4900, 1280, 3840, 4), ("proj", 4900, 1280, 1280, 4),
+               ("global qkv", 4096, 1280, 3840, 4), ("global proj", 4096, 1280, 1280, 4),
+               ("lin1", 4096, 1280, 5120, 4), ("lin2", 4096, 5120, 1280, 4),
+               ("qkv", 4900, 1280, 3840, 3))
+# Rel-pos resize (step 20): a ViT-H global attention (1280 wide, 16 heads,
+# 127-row tables made for grid 64) at other grids: 48 and 32 shrink the
+# tables to 95 and 63 rows, 80 and 128 grow them to 159 and 255. JAX's
+# dispatch (ops/flash_attention.route) sends grids whose width divides 128
+# to flash_global, the others to flash_rowblock.
+REL_GRIDS = (48, 80, 32, 128)
+
+
+def tile_table(shapes, bits: int, dtype, pack_block: int = 128) -> dict:
+    """A tuned table whose entries name the candidate tiles other than the
+    default, taken in turn over ``shapes`` ((M, K, N) with groups of 128), so
+    that each of them serves at least one layer shape; the default tile
+    where it is the only candidate (float32)."""
+    from sam_quantization_tpu_torch.ops import autotune
+
+    table = {}
+    for i, (M, K, N) in enumerate(shapes):
+        cands = autotune.candidate_blocks(M, N, K, 128, pack_block, dtype)
+        others = cands[1:] or cands
+        table[autotune._key(M, K, N, 128, bits, dtype)] = list(others[i % len(others)])
+    return table
+
+
+def tile_phase(dev, card: str, randn, rel_ok, cuda_ms, repo: pathlib.Path) -> dict:
+    """Every candidate tile at TILE_SHAPES, float32 and bfloat16: held to the
+    plain version by ``rel_ok``, bit-equal to the default tile's launch
+    (every tile walks K in the same tiles, and float32 instantiates only its
+    default, so no tile changes an output's sum order), and timed by CUDA
+    events; then ``tune_model_shapes`` (ViT-H, M 4096, W4, bfloat16) into a
+    temporary table, read back from its file. Returns {(name, dtype tag,
+    tile): {"err", "ms"}} at the qkv shape."""
+    import torch
+
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.ops import autotune
+    from sam_quantization_tpu_torch.ops import quant_matmul as qm
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        for what, M, K, N, bits in TILE_SHAPES:
+            name = "quant_matmul3" if bits == 3 else "quant_matmul"
+            p = packed_lib.quantize_rtn(randn(K, N, std=K**-0.5), bits, 128)
+            x = randn(M, K, dtype=dtype)
+            ref = qm.quant_matmul_plain(x, p)
+            default = qm.quant_matmul(x, p)
+            cands = autotune.candidate_blocks(M, N, K, 128, p.pack_block, dtype)
+            check(cands[0] == qm.pick_blocks(M, N, K, 128, p.pack_block, bits, dtype)
+                  and len(cands) == len(autotune.TILES[dtype]),
+                  f"{name} W{bits} {what} {tag}: candidates {cands}, default {cands[0]}")
+            times = []
+            for tile in cands:
+                out = qm.quant_matmul_tiled(x, p, tile)
+                torch.cuda.synchronize()
+                err, ok = rel_ok(out, ref, dtype)
+                equal = torch.equal(out, default)
+                check(ok and out.dtype == dtype and equal,
+                      f"{name} W{bits} {what} {tag} tile {tile}: max|d| {err:.3e} vs plain, "
+                      f"{'bit-equal to' if equal else 'not bit-equal to'} the default tile")
+                ms = cuda_ms(lambda tile=tile: qm.quant_matmul_tiled(x, p, tile), 20)
+                times.append(ms)
+                if what == "qkv":
+                    rows[(name, tag, tile)] = dict(err=err, ms=ms)
+            print(f"{name} W{bits} {what} {tag} (M {M}, K {K}, N {N}) by tile: " + ", ".join(
+                f"{bm}x{bn}x{bk} {ms:.4f} ms" for (bm, bn, bk), ms in zip(cands, times))
+                + f"; fastest {cands[times.index(min(times))]}  [{card}]")
+            del p, x, ref, default
+    # The tuner, as tools/autotune.py runs it, into a temporary table.
+    tmp = repo / "build" / "chip_autotune"
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / "table.json"
+    path.unlink(missing_ok=True)
+    try:
+        autotune._table = None
+        t = time.perf_counter()
+        table = autotune.tune_model_shapes("vit_h", M=4096, bits=4, groupsize=128,
+                                           dtype=torch.bfloat16, path=str(path), verbose=False)
+        seconds = time.perf_counter() - t
+        on_disk = json.loads(path.read_text())
+    finally:
+        autotune._table = {}
+        shutil.rmtree(tmp, ignore_errors=True)
+    C, H = 1280, 5120
+    keys = {autotune._key(4096, K, N, 128, 4): (K, N) for K, N in ((C, 3 * C), (C, C), (C, H), (H, C))}
+    check(on_disk == table and set(table) == set(keys) and all(
+              tuple(v) in autotune.candidate_blocks(4096, keys[k][1], keys[k][0], 128, 128)
+              for k, v in table.items()),
+          f"tune_model_shapes vit_h M 4096 W4 bfloat16 in {seconds:.3f} s: {table}")
+    return rows
+
+
+def relpos_phase(dev, card: str, randn, reset_counts, counts, zero: dict, head_split_ok,
+                 cuda_ms) -> None:
+    """Step 20: a ViT-H global attention whose 127-row rel-pos tables are
+    resized (get_rel_pos) for REL_GRIDS. At each grid: the card's get_rel_pos
+    against the CPU's (float32, atol 1e-6: the resize's sums in another
+    order); in float32 and bfloat16, the attention kernel JAX's dispatch
+    picks on the resized tiles against its plain version at the head-split
+    bound (plain run a head at a time at grid 128), and the module's kernel
+    branch (one launch of that kernel, counts reset just before and read just
+    after) against its eager branch (not at grid 128, whose eager logits
+    would take 17 GB a copy) at the encode bounds (rel. L2 1e-3 float32,
+    BF16_TOL bfloat16)."""
+    import torch
+
+    from sam_quantization_tpu_torch.models import configs
+    from sam_quantization_tpu_torch.models import image_encoder as ie
+    from sam_quantization_tpu_torch.ops import flash_attention as fa
+
+    cfg = configs.VIT_H.image_encoder
+    C, nh, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    grid0 = cfg.grid_size
+    attn = ie.Attention(cfg, (grid0, grid0), gen=torch.Generator(device=dev).manual_seed(9),
+                        device=dev)
+    with torch.no_grad():
+        attn.rel_pos_h.copy_(randn(*attn.rel_pos_h.shape, std=0.2))
+        attn.rel_pos_w.copy_(randn(*attn.rel_pos_w.shape, std=0.2))
+    state = {n: t.clone() for n, t in attn.state_dict().items()}  # float32
+    scale = hd**-0.5
+    for g in REL_GRIDS:
+        L = g * g
+        route = fa.route(L, (g, g))
+        card_rel = ie.get_rel_pos(g, g, state["rel_pos_h"])
+        cpu_rel = ie.get_rel_pos(g, g, state["rel_pos_h"].cpu())
+        d_rel = float((card_rel.cpu() - cpu_rel).abs().max())
+        check(tuple(card_rel.shape) == (g, g, hd) and d_rel <= 1e-6,
+              f"get_rel_pos grid {g} (127 -> {2 * g - 1} rows), card vs CPU: max|d| "
+              f"{d_rel:.2e} (<= 1e-6)")
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, BF16_TOL)):
+            tag = str(dtype).split(".")[1]
+            attn.to(dtype)
+            attn.load_state_dict(state)  # the float32 weights, rounded to dtype
+            x = randn(1, g, g, C, dtype=dtype)
+            with torch.no_grad():
+                qkv = attn.qkv(x.reshape(1, L, C)).reshape(1, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                q, k, v = (t.contiguous() for t in qkv)
+                rel_h, rel_w = ie.decomposed_rel_pos_tiles(
+                    q.reshape(nh, L, hd), attn.rel_pos_h, attn.rel_pos_w, (g, g), (g, g))
+                rel_h = rel_h.reshape(1, nh, L, g).contiguous()
+                rel_w = rel_w.reshape(1, nh, L, g).contiguous()
+                out = fa.flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+                if g <= 80:
+                    ref = fa.flash_attention_plain(q, k, v, rel_h, rel_w, scale)
+                else:
+                    ref = torch.cat([fa.flash_attention_plain(
+                        q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], rel_h[:, h:h + 1],
+                        rel_w[:, h:h + 1], scale) for h in range(nh)], 1)
+                err, reading, ok = head_split_ok(out, ref, dtype)
+                ms = cuda_ms(lambda: fa.flash_attention_relpos(q, k, v, rel_h, rel_w, scale), 5)
+                del qkv, q, k, v, rel_h, rel_w, ref, out
+                reset_counts()
+                y = attn(x, windowed=False, attn_impl="kernel")
+                torch.cuda.synchronize()
+                launched = counts()
+                msg = ""
+                if g <= 80:
+                    y_eager = attn(x, windowed=False, attn_impl="eager")
+                    rel_err = float((y.float() - y_eager.float()).norm() / y_eager.float().norm())
+                    ok &= rel_err <= tol
+                    msg = f"; module kernel vs eager rel L2 {rel_err:.3e} (<= {tol})"
+                    del y_eager
+            check(ok and launched == {**zero, route: 1} and tuple(y.shape) == (1, g, g, C)
+                  and bool(torch.isfinite(y.float()).all()),
+                  f"rel-pos grid {g} {tag}: {route} on tables resized to {2 * g - 1} rows, "
+                  f"max|d| {err:.3e} vs plain (reading {reading:.3e}), {ms:.4f} ms{msg}; module "
+                  f"launches {({n: c for n, c in launched.items() if c})}  [{card}]")
+            del x, y
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2355,7 +2552,7 @@ def main() -> int:
     from sam_quantization_tpu_torch.models.image_encoder import BLOCK_LINEARS
     from sam_quantization_tpu_torch.nn import functional as nn_fn
     from sam_quantization_tpu_torch.nn import packed as packed_lib
-    from sam_quantization_tpu_torch.ops import _build
+    from sam_quantization_tpu_torch.ops import _build, autotune
     from sam_quantization_tpu_torch.ops import flash_attention as fa
     from sam_quantization_tpu_torch.ops import fused_mlp as fm
     from sam_quantization_tpu_torch.ops import probes as ps
@@ -2367,6 +2564,10 @@ def main() -> int:
     from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
     from sam_quantization_tpu_torch.train import trainer as trainer_lib
 
+    # No tuned table from the checkout: every phase launches the default
+    # tiles, and only the tile phase and the tuned-table runs install one
+    # (and put {} back).
+    autotune._table = {}
     dev = torch.device("cuda")
     card = gpu_line()
     print(f"gpu: {card}")
@@ -2378,7 +2579,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
+    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'}); by "
+          f"library: " + ", ".join(f"{n} {t:.1f} s" for n, t in _build.BUILD_SECONDS.items()))
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Performance Loss" in line:
@@ -2395,15 +2597,32 @@ def main() -> int:
                   f"hd{hdp} {'int8' if out == 'a' else 'bf16'} {c[0]}/{c[1]}"
                   for (hdp, out), c in sorted(tc_counts.items())))
     # And the bfloat16 packed-weight kernels: every instantiation of their
-    # body (qmm_tc_kernel<BITS, EPI>) holds HGMMA, bits 2, 3, 4, 8 in
-    # quant_matmul (plain epilogue), bits 2, 4, 8 in fused_mlp (both).
-    for name, want in (("quant_matmul", {(b, "0") for b in ("2", "3", "4", "8")}),
-                       ("fused_mlp", {(b, e) for b in ("2", "4", "8") for e in ("0", "1")})):
-        tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(),
-                                       r"qmm_tc_kernelILi(\d+)ELi(\d+)E")
-        check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values()),
+    # body (qmm_tc_kernel<BITS, EPI, TBM, TBN>) holds HGMMA, bits 2, 3, 4, 8
+    # in quant_matmul (plain epilogue) at every tile of autotune.TILES, bits
+    # 2, 4, 8 in fused_mlp (both epilogues) at the default tile; and 0 bytes
+    # of spill stores and loads in ptxas's report of each instantiation but
+    # the default tile's, which (256 x 128, 512 threads, 128 registers a
+    # thread) spills at 3 and 8 bits as it did before it took a tile:
+    # printed (read where this run built the library).
+    tc_pattern = r"qmm_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+    default_tc = tuple(map(str, autotune.TILES[torch.bfloat16][0]))
+    for name, want in (("quant_matmul", {(b, "0", str(m), str(n)) for b in "2348"
+                                         for m, n in autotune.TILES[torch.bfloat16]}),
+                       ("fused_mlp", {(b, e, *default_tc) for b in "248" for e in "01"})):
+        tc_counts = tensor_core_counts(_build.library_path(name), _build._nvcc(), tc_pattern)
+        usage = ptxas_usage(logs[name], tc_pattern) if name in logs else {}
+        spilled = {k: u for k, u in usage.items() if u[0] or u[1]}
+        check(set(tc_counts) == want and all(c[0] > 0 for c in tc_counts.values())
+              and (name not in logs or (set(usage) == want
+                                        and all(k[2:] == default_tc for k in spilled))),
               f"{name} bf16 instantiations, HGMMA in SASS: " + ", ".join(
-                  f"W{b} epilogue {e} {c[0]}" for (b, e), c in sorted(tc_counts.items())))
+                  f"W{b} epilogue {e} {m}x{n} {c[0]}"
+                  for (b, e, m, n), c in sorted(tc_counts.items()))
+              + "; ptxas " + (("spill stores / loads: " + ", ".join(
+                  f"W{k[0]} epilogue {k[1]} {k[2]}x{k[3]} {u[0]} / {u[1]} B"
+                  for k, u in sorted(spilled.items()))
+                  if spilled else "0 spill bytes") if name in logs
+                  else "log not read (cached build)"))
     # The float32 packed-weight body (qmm_f32_kernel<BITS, EPI, WIDE> of
     # qmm_f32.cuh), bits 2, 3, 4, 8 in quant_matmul and 2, 4, 8 with both
     # epilogues in fused_mlp, each with both word loaders (WIDE: tiles of
@@ -3090,6 +3309,11 @@ def main() -> int:
         del p, w8
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ tuned tiles
+    tile_rows_report = tile_phase(dev, card, randn, rel_ok, cuda_ms,
+                                  pathlib.Path(__file__).resolve().parent)
+    torch.cuda.empty_cache()
+
     # Every float32 build beside its library call and bound (the JSON line
     # carries the bfloat16 rows, and flash_whole's float32 one).
     for (name, tag), r in report.items():
@@ -3220,7 +3444,47 @@ def main() -> int:
                                       f"rel L2 {rel_err:.3e} (<= {tol})")
         predictor, launches = serve_all("W4", w4_launches)
         print_device_profile("W4 set_image", lambda: predictor.set_image(images[0]))
+
+        # Tuned tiles on the main path (ops/autotune.py's table, read by
+        # pick_blocks at each launch): run() with no table, then with counts
+        # reset just before and read just after, under a table naming the
+        # other candidate tiles (tile_table). The launches are the default
+        # run's, every launch takes a tile of the table and every tile of it
+        # is launched, and the output is bit-equal to the default run's
+        # (every tile keeps each sum's K order) or within ``tol``.
+        tile_launches = {}
+
+        def tiled_run(what, table, run, want, tol):
+            autotune._table = {}
+            base = run()
+            autotune._table = table
+            try:
+                reset_counts()
+                out = run()
+                torch.cuda.synchronize()
+                got, tiles = counts(), dict(qm.TILE_LAUNCHES)
+            finally:
+                autotune._table = {}
+            equal = torch.equal(out, base)
+            rel_err = float((out.float() - base.float()).norm() / base.float().norm())
+            named = {tuple(v) for v in table.values()}
+            check(got == want and {t for _, _, t in tiles} == named
+                  and sum(tiles.values()) == want["quant_matmul"] + want["quant_matmul3"]
+                  and (equal or rel_err <= tol),
+                  f"{what} under a table of {len(table)} entries: launches "
+                  f"{ {n: c for n, c in got.items() if c} }, by tile "
+                  f"{ {'x'.join(map(str, t)): c for (_, _, t), c in tiles.items()} }; "
+                  + ("bit-equal to" if equal else f"rel L2 {rel_err:.3e} (<= {tol}) from")
+                  + " the default tiles' output")
+            tile_launches.update(tiles)
+
+        w4_shapes = [(Mw, C, 3 * C), (Mw, C, C), (Mg, C, 3 * C), (Mg, C, C)]
+        tiled_run("W4 served set_image bfloat16", tile_table(w4_shapes, 4, torch.bfloat16),
+                  lambda: predictor.set_image(images[0]), w4_launches, BF16_TOL)
         del predictor
+        model.image_encoder.to(torch.float32)
+        tiled_run("W4 encode float32", tile_table(w4_shapes, 4, torch.float32),
+                  lambda: sam_lib.encode_image(model, x, "kernel"), w4_launches, 1e-3)
         torch.cuda.empty_cache()
 
         # W3: split-plane 3-bit never fuses, so all four linears of a block
@@ -3245,6 +3509,14 @@ def main() -> int:
             if dtype == torch.float32:
                 f32_launches["quant_matmul3"] = w3_launches["quant_matmul3"]
         launches["quant_matmul3"] = w3_launches["quant_matmul3"]
+        # Tuned tiles at all four linears: qkv and proj of both token counts,
+        # the MLP of the 4096 tokens.
+        w3_shapes = w4_shapes + [(Mg, C, H), (Mg, H, C)]
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, BF16_TOL)):
+            model.image_encoder.to(dtype)
+            tiled_run(f"W3 encode {str(dtype).split('.')[1]}", tile_table(w3_shapes, 3, dtype),
+                      lambda: sam_lib.encode_image(model, x.to(dtype), "kernel"),
+                      {**flash_launches, "quant_matmul3": 128}, tol)
         del model, dense_encoder, ref, e
         torch.cuda.empty_cache()
 
@@ -3710,6 +3982,9 @@ def main() -> int:
     # ------------------------------------------------------------------ export
     export_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
 
+    # --------------------------------------------------------- rel-pos resize
+    relpos_phase(dev, card, randn, reset_counts, counts, zero, head_split_ok, cuda_ms)
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
@@ -3743,6 +4018,26 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    # The tuned tiles of quant_matmul and quant_matmul3 other than the
+    # default: timed at the qkv shape (tile_phase), beside the default
+    # row's plain version, bound and library call (the same function at the
+    # same shape); launches from the runs under tile_table.
+    for (name, tag, tile), r in tile_rows_report.items():
+        dtype = torch.float32 if tag == "float32" else torch.bfloat16
+        if tile == autotune.default_tile(128, dtype):
+            continue
+        base = report[(name, tag)]
+        kernels.append({
+            "name": f"{name} tile {'x'.join(map(str, tile))}", "dtype": tag, "route": "cuda",
+            "source": csrc + "quant_matmul.cu", "replaces": sources[name][1],
+            "launches": tile_launches.get((name, dtype, tile), 0), "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": base["plain_ms"], "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"], "library_ms": base["library_ms"],
+        })
+    if any(k["launches"] == 0 for k in kernels):
+        print("chip_smoke: a kernel of the path was not launched: " + ", ".join(
+            f"{k['name']} {k['dtype']}" for k in kernels if k["launches"] == 0), file=sys.stderr)
+        return 1
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,15 @@
 // as zeros, and the last K tile may be short (K need not be a whole number
 // of tiles); the output is masked. __launch_bounds__(256, 1): one block an
 // SM, up to 255 registers a thread, and no spills.
+//
+// That is the default tile, the one quant_matmul.cu and fused_mlp.cu
+// launch. The body is a template on the tile (Tile below: 64 or 128 rows
+// and columns; a thread owns TBM / 16 x TBN / 16 accumulators at the same
+// rg, cg places). quant_matmul.cu instantiates only the default: the other
+// three were slower at every measured ViT-H layer shape (PERF.md), so a
+// tuned table has no other float32 tile to name. A thread sums its outputs
+// over K in the same order in every tile; only the K split (split_k, which
+// looks at the grid) changes the order of an output's sum.
 #pragma once
 
 #include <type_traits>
@@ -60,12 +69,24 @@ namespace f32 {
 using tc::BIAS_GELU;
 using tc::PLAIN;
 
-constexpr int NT = 256;              // threads of a block
-constexpr int BM = 128, BN = 128;    // the block's output tile
-constexpr int TM = 8, TN = 8;        // a thread's output tile
-constexpr int XLD = KT + 4;          // float pitch of an x row in shared memory
-constexpr int X_FLOATS = BM * XLD;   // one x stage
-constexpr size_t SMEM = (2 * (size_t)X_FLOATS + (size_t)KT * BN) * sizeof(float);
+constexpr int NT = 256;            // threads of a block
+constexpr int BM = 128, BN = 128;  // the default output tile
+constexpr int XLD = KT + 4;        // float pitch of an x row in shared memory
+
+// A block owns a (TBM, TBN) output tile, a thread TM x TN of it. Shared
+// memory: two x stages (TBM x XLD floats) and the decoded W tile (KT x TBN
+// floats): 196 KB at the default tile, 130 KB at 64 x 128, 164 KB at
+// 128 x 64, and 98 KB at 64 x 64, which alone leaves room for two blocks an
+// SM (MINB, the __launch_bounds__ minimum: at most 128 registers a thread).
+template <int TBM, int TBN>
+struct Tile {
+  static_assert((TBM == 64 || TBM == 128) && (TBN == 64 || TBN == 128), "an instantiated tile");
+  static constexpr int TM = TBM / 16, TN = TBN / 16;  // a thread's output tile
+  static constexpr int X_FLOATS = TBM * XLD;          // one x stage
+  static constexpr size_t SMEM = (2 * (size_t)X_FLOATS + (size_t)KT * TBN) * sizeof(float);
+  static constexpr int MINB = 2 * (SMEM + 1024) <= tc::SM_SMEM ? 2 : 1;
+  static_assert(SMEM <= MAX_SMEM, "shared memory of a block");
+};
 
 // Value v of a loaded word, (q - z) * s in float32. Zero points that are
 // whole numbers (every RTN and GPTQ grid; WHOLE, bz = z + 2^23, exact) take
@@ -82,13 +103,13 @@ __device__ __forceinline__ float decode(int word, int hi, int v, int hs, float s
 __device__ __forceinline__ bool whole(float z) { return z == rintf(z) && fabsf(z) < 4194304.f; }
 
 // The packed words of one weight tile, loaded a step ahead. Item it of a
-// thread is word row 2 it + tid / BN of column tid % BN, so a warp's loads
-// and its decoded stores each cover 32 consecutive columns.
-template <int BITS>
+// thread is word row (NT / TBN) it + tid / TBN of column tid % TBN, so a
+// warp's loads and its decoded stores each cover 32 consecutive columns.
+template <int BITS, int TBN>
 struct Words {
   static constexpr int PER = Packing<BITS>::PER;
-  static constexpr int ITEMS = (KT / PER) * BN / NT;
-  static_assert((KT / PER) * BN % NT == 0, "whole items");
+  static constexpr int ITEMS = (KT / PER) * TBN / NT;
+  static_assert((KT / PER) * TBN % NT == 0, "whole items");
   int w[ITEMS], h[ITEMS];
   float s[ITEMS], z[ITEMS];
 
@@ -98,12 +119,12 @@ struct Words {
   static __device__ __forceinline__ void walk(int pb, int kt, Fn fn) {
     const int rpp = pb / PER;
     int i, row0;
-    locate_row(threadIdx.x / BN, rpp, pb, i, row0);
+    locate_row(threadIdx.x / TBN, rpp, pb, i, row0);
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
-      if (it * (NT / BN) + threadIdx.x / BN >= kt / PER) break;
+      if (it * (NT / TBN) + threadIdx.x / TBN >= kt / PER) break;
       fn(it, i, row0);
-      i += NT / BN;
+      i += NT / TBN;
       while (i >= rpp) i -= rpp, row0 += pb;
     }
   }
@@ -113,44 +134,49 @@ struct Words {
                                        const float* __restrict__ scales,
                                        const float* __restrict__ zeros, int k0, int K, int n0,
                                        int N, int pb, int groupsize, int kt) {
-    const int rpp = pb / PER, n = n0 + threadIdx.x % BN;
+    const int rpp = pb / PER, n = n0 + threadIdx.x % TBN;
     walk(pb, kt, [&](int it, int i, int row0) {
       load_word<BITS>(qw, qw_hi, scales, zeros, k0 + row0, i, rpp, n, K, N, groupsize, w[it],
                       h[it], s[it], z[it]);
     });
   }
 
-  // Decode the loaded words into the W tile (row-major, BN floats a row).
+  // Decode the loaded words into the W tile (row-major, TBN floats a row).
   __device__ __forceinline__ void store(float* ws, int pb, int kt) const {
-    const int rpp = pb / PER, c = threadIdx.x % BN;
+    const int rpp = pb / PER, c = threadIdx.x % TBN;
     walk(pb, kt, [&](int it, int i, int row0) {
-      float* dst = ws + (row0 + i) * BN + c;
+      float* dst = ws + (row0 + i) * TBN + c;
       const int hs = BITS == 3 && i >= (rpp >> 1);
       const float sc = s[it], zr = z[it], bz = zr + 8388608.f;
       if (whole(zr)) {
 #pragma unroll
         for (int v = 0; v < PER; ++v)
-          dst[v * rpp * BN] = decode<BITS, true>(w[it], h[it], v, hs, sc, zr, bz);
+          dst[v * rpp * TBN] = decode<BITS, true>(w[it], h[it], v, hs, sc, zr, bz);
       } else {
 #pragma unroll
         for (int v = 0; v < PER; ++v)
-          dst[v * rpp * BN] = decode<BITS, false>(w[it], h[it], v, hs, sc, zr, bz);
+          dst[v * rpp * TBN] = decode<BITS, false>(w[it], h[it], v, hs, sc, zr, bz);
       }
     });
   }
 };
 
 // The words of tiles that are one whole pack block of 128 rows, N % 4 == 0
-// (the main path's layers): item it of a thread is word row tid / 32 + 8 it
-// of the 4 columns 4 (tid % 32), one 16-byte load of words; the tile is one
+// (the main path's layers): item it of a thread is word row tid / CG +
+// (NT / CG) it of the 4 columns 4 (tid % CG), CG = TBN / 4 column groups
+// (32 at the default tile), one 16-byte load of words; the tile is one
 // group row, so a thread loads one 16-byte scale and zero row, and stores
 // each value plane with one 16-byte store at an offset known at compile
-// time. Same values as Words, in fewer instructions.
-template <int BITS>
+// time. Same values as Words, in fewer instructions. Where a tile has fewer
+// word rows than NT / CG (2- and 3-bit words at 64 columns) the threads past
+// them are idle.
+template <int BITS, int TBN>
 struct Wide {
   static constexpr int PER = Packing<BITS>::PER, RPP = KT / PER;  // word rows of a tile
-  static constexpr int ITEMS = RPP * (BN / 4) / NT;
-  static_assert(RPP * (BN / 4) % NT == 0 && NT % 32 == 0, "whole items");
+  static constexpr int CG = TBN / 4, ROWS = NT / CG;              // column groups; rows a pass
+  static constexpr int ITEMS = (RPP + ROWS - 1) / ROWS;
+  static constexpr bool EVEN = RPP % ROWS == 0;  // every item of every thread is a word row
+  static_assert(NT % CG == 0, "whole rows a pass");
   int4 w[ITEMS], h[ITEMS];
   float4 s, z;
 
@@ -159,7 +185,7 @@ struct Wide {
                                        const float* __restrict__ scales,
                                        const float* __restrict__ zeros, int k0, int, int n0,
                                        int N, int, int groupsize, int) {
-    const int n = n0 + 4 * (threadIdx.x % 32), wr0 = threadIdx.x / 32;
+    const int n = n0 + 4 * (threadIdx.x % CG), wr0 = threadIdx.x / CG;
     const bool in = n < N;  // N % 4 == 0: all four columns or none
     const int4 zero4 = make_int4(0, 0, 0, 0);
     s = z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -170,7 +196,8 @@ struct Wide {
     }
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
-      const int wr = wr0 + (NT / 32) * it;
+      const int wr = wr0 + ROWS * it;
+      if (!EVEN && wr >= RPP) continue;
       w[it] = in ? __ldg(reinterpret_cast<const int4*>(qw + (long)(k0 / PER + wr) * N + n))
                  : zero4;
       if constexpr (BITS == 3) {
@@ -186,12 +213,13 @@ struct Wide {
                                   z.w + 8388608.f);
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
-      const int wr = threadIdx.x / 32 + (NT / 32) * it, hs = BITS == 3 && wr >= RPP / 2;
-      float* dst = ws + wr * BN + 4 * (threadIdx.x % 32);
+      const int wr = threadIdx.x / CG + ROWS * it, hs = BITS == 3 && wr >= RPP / 2;
+      if (!EVEN && wr >= RPP) continue;
+      float* dst = ws + wr * TBN + 4 * (threadIdx.x % CG);
       const int4 wd = w[it], hd = BITS == 3 ? h[it] : make_int4(0, 0, 0, 0);
 #pragma unroll
       for (int v = 0; v < PER; ++v)
-        *reinterpret_cast<float4*>(dst + v * RPP * BN) =
+        *reinterpret_cast<float4*>(dst + v * RPP * TBN) =
             make_float4(decode<BITS, WHOLE>(wd.x, hd.x, v, hs, s.x, z.x, bz.x),
                         decode<BITS, WHOLE>(wd.y, hd.y, v, hs, s.y, z.y, bz.y),
                         decode<BITS, WHOLE>(wd.z, hd.z, v, hs, s.z, z.z, bz.z),
@@ -205,30 +233,32 @@ struct Wide {
   }
 };
 
-// One (BM, BN) output tile. WIDE: the words by Wide (pb == KT, N % 4 ==
+// One (TBM, TBN) output tile. WIDE: the words by Wide (pb == KT, N % 4 ==
 // 0, aligned), else by Words. `vec`: x may be copied 16 bytes at a time
 // (vec_ok); `vec_out`: N % 4 == 0 and out 16-byte aligned. bias: float32
 // (N,), read by the BIAS_GELU epilogue only.
-template <int BITS, int EPI, bool WIDE>
-__global__ void __launch_bounds__(NT, 1)
+template <int BITS, int EPI, bool WIDE, int TBM, int TBN>
+__global__ void __launch_bounds__(NT, Tile<TBM, TBN>::MINB)
     qmm_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ qw,
                    const int32_t* __restrict__ qw_hi, const float* __restrict__ scales,
                    const float* __restrict__ zeros, const float* __restrict__ bias,
                    float* __restrict__ out, int M, int K, int N, int pb, int groupsize,
                    int kchunk, bool vec, bool vec_out) {
+  using Tl = Tile<TBM, TBN>;
+  constexpr int TM = Tl::TM, TN = Tl::TN, X_FLOATS = Tl::X_FLOATS;
   extern __shared__ __align__(128) unsigned char f32_smem[];
   float* const smem = reinterpret_cast<float*>(f32_smem);
   float* const ws = smem + 2 * X_FLOATS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * TBN;
   // K rows [kb, kb + kchunk) of this block: all of K, or one of two halves
   // of whole tiles when the grid is split along K (blockIdx.z).
   const int kt = tile_rows(pb), kb = blockIdx.z * kchunk;
   const int tiles = (min(K, kb + kchunk) - kb + kt - 1) / kt;
   auto xs = [&](int t) { return smem + (t & 1) * X_FLOATS; };
   auto copy_x = [&](int t) {
-    copy_x_tile_async<float, BM, KT, NT>(xs(t), XLD, x, m0, M, kb + t * kt, K, kt, vec);
+    copy_x_tile_async<float, TBM, KT, NT>(xs(t), XLD, x, m0, M, kb + t * kt, K, kt, vec);
   };
 
   float acc[TM][TN];
@@ -237,7 +267,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  std::conditional_t<WIDE, Wide<BITS>, Words<BITS>> wd;
+  std::conditional_t<WIDE, Wide<BITS, TBN>, Words<BITS, TBN>> wd;
   auto load = [&](int t) {
     wd.load(qw, qw_hi, scales, zeros, kb + t * kt, K, n0, N, pb, groupsize, kt);
   };
@@ -261,9 +291,12 @@ __global__ void __launch_bounds__(NT, 1)
         a[i] = *reinterpret_cast<const float4*>(xa + 16 * i * XLD + kk);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 b0 = *reinterpret_cast<const float4*>(wb + (kk + q) * BN);
-        const float4 b1 = *reinterpret_cast<const float4*>(wb + (kk + q) * BN + 64);
-        const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float b[TN];
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 bh = *reinterpret_cast<const float4*>(wb + (kk + q) * TBN + 64 * h);
+          b[4 * h] = bh.x, b[4 * h + 1] = bh.y, b[4 * h + 2] = bh.z, b[4 * h + 3] = bh.w;
+        }
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
@@ -288,7 +321,7 @@ __global__ void __launch_bounds__(NT, 1)
 
   // Epilogue: row m0 + rg + 16 i, columns n0 + 64 h + 4 cg + e.
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < TN / 4; ++h) {
     const int n = n0 + 64 * h + 4 * cg;
     float b[4] = {0.f, 0.f, 0.f, 0.f};
     if constexpr (EPI == BIAS_GELU) {
@@ -339,17 +372,18 @@ inline int split_k(long blocks, int tiles, int epi) {
   return fill(2 * blocks) > fill(blocks) + 0.05 ? 2 : 1;
 }
 
-// Launch the body on x (M, K) float32 -> out (M, N) float32.
-template <int BITS, int EPI>
+// Launch the body with a (TBM, TBN) tile on x (M, K) float32 -> out (M, N)
+// float32.
+template <int BITS, int EPI, int TBM = BM, int TBN = BN>
 inline int run(const float* x, const int32_t* qw, const int32_t* qw_hi, const float* scales,
                const float* zeros, const float* bias, float* out, int M, int K, int N, int pb,
                int groupsize, cudaStream_t stream) {
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
+  if ((N + TBN - 1) / TBN > 65535) return (int)cudaErrorInvalidValue;
   const int kt = tile_rows(pb), tiles = (K + kt - 1) / kt;
   const bool vec = vec_ok(x, K, kt, 4);
   const bool vec_out = N % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  const long blocks = (long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, split_k(blocks, tiles, EPI));
+  const long blocks = (long)((M + TBM - 1) / TBM) * ((N + TBN - 1) / TBN);
+  const dim3 grid((M + TBM - 1) / TBM, (N + TBN - 1) / TBN, split_k(blocks, tiles, EPI));
   const int kchunk = (tiles + grid.z - 1) / grid.z * kt;
   if (grid.z > 1) {
     const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(float), stream);
@@ -357,10 +391,12 @@ inline int run(const float* x, const int32_t* qw, const int32_t* qw_hi, const fl
   }
   auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (pb == KT && N % 4 == 0 && a16(qw) && a16(scales) && a16(zeros) && (BITS != 3 || a16(qw_hi)))
-    return launch(qmm_f32_kernel<BITS, EPI, true>, grid, NT, SMEM, stream, x, qw, qw_hi, scales,
-                  zeros, bias, out, M, K, N, pb, groupsize, kchunk, vec, vec_out);
-  return launch(qmm_f32_kernel<BITS, EPI, false>, grid, NT, SMEM, stream, x, qw, qw_hi, scales,
-                zeros, bias, out, M, K, N, pb, groupsize, kchunk, vec, vec_out);
+    return launch(qmm_f32_kernel<BITS, EPI, true, TBM, TBN>, grid, NT, Tile<TBM, TBN>::SMEM,
+                  stream, x, qw, qw_hi, scales, zeros, bias, out, M, K, N, pb, groupsize, kchunk,
+                  vec, vec_out);
+  return launch(qmm_f32_kernel<BITS, EPI, false, TBM, TBN>, grid, NT, Tile<TBM, TBN>::SMEM,
+                stream, x, qw, qw_hi, scales, zeros, bias, out, M, K, N, pb, groupsize, kchunk,
+                vec, vec_out);
 }
 
 }  // namespace f32

@@ -18,7 +18,12 @@
 //
 // Design. A block is four warpgroups (512 threads) and owns a (BM = 256,
 // BN = 128) output tile; warpgroup w owns rows 64 w.. and issues
-// wgmma.m64n128k16 with both operands in shared memory. K is walked in
+// wgmma.m64n128k16 with both operands in shared memory. That is the default
+// tile, the one quant_matmul.cu and fused_mlp.cu launch; the body is a
+// template on the tile (Tile below: 128 or 256 rows, 64 or 128 columns),
+// and quant_matmul.cu also instantiates 256 x 64 for a tuned table
+// (ops/autotune.py). Every tile walks K alike, so each output is the same
+// chain of k16 products whatever the tile. K is walked in
 // tiles of whole pack blocks (tile_rows(pb): 128 rows at pb 128, 96 at 48,
 // 120 at 12); a tile of fewer than 128 rows leaves zero rows in the weight
 // tile and zero columns in the x tile, so every tile runs the same chain of
@@ -79,14 +84,27 @@ __device__ __forceinline__ float gelu_tanh(float a) {
 
 namespace tc {
 
-// A block is four warpgroups, each owning 64 rows of the (BM, BN) tile.
-constexpr int WG = 128;                        // threads of a warpgroup
-constexpr int BM = 256, BN = 128;              // the block's output tile
-constexpr int NT = 4 * WG;                     // threads of a block
-constexpr int XG = KT / 8;                     // 16-byte groups of a full x tile row
-constexpr int X_BYTES = BM * KT * 2;           // x tile of a stage (64 KB)
-constexpr int STAGE = X_BYTES + KT * BN * 2;   // x and W tiles (96 KB)
-constexpr size_t SMEM = 2 * (size_t)STAGE;     // two stages (192 KB)
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int BM = 256, BN = 128;  // the default output tile
+constexpr int XG = KT / 8;         // 16-byte groups of a full x tile row
+constexpr int SM_SMEM = 233472;    // shared memory of an sm_90 SM (1 KB of it kept per block)
+
+// A block owns a (TBM, TBN) output tile: TBM / 64 warpgroups, warpgroup w
+// owning rows 64 w.., each issuing wgmma.m64n{TBN}k16. Shared memory: two
+// stages of the x tile (TBM x KT) and the decoded W tile (KT x TBN), bf16,
+// plus two mbarriers (16 bytes): 192 KB at the default tile, 128 KB at
+// 128 x 128, 160 KB at 256 x 64, 96 KB at 128 x 64, which alone leaves room
+// for two blocks an SM (MINB, the __launch_bounds__ minimum).
+template <int TBM, int TBN>
+struct Tile {
+  static_assert((TBM == 128 || TBM == 256) && (TBN == 64 || TBN == 128), "an instantiated tile");
+  static constexpr int NT = TBM / 64 * WG;               // threads of a block
+  static constexpr int X_BYTES = TBM * KT * 2;           // x tile of a stage
+  static constexpr int STAGE = X_BYTES + KT * TBN * 2;   // x and W tiles
+  static constexpr size_t SMEM = 2 * (size_t)STAGE;      // two stages
+  static constexpr int MINB = 2 * (SMEM + 16 + 1024) <= SM_SMEM ? 2 : 1;
+  static_assert(SMEM + 16 <= MAX_SMEM, "shared memory of a block");
+};
 
 enum Epilogue { PLAIN = 0, BIAS_GELU = 1 };
 
@@ -104,11 +122,12 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 // Byte offsets in the 128-byte swizzle: 16-byte chunk c of a 128-byte row is
 // stored at chunk c ^ (row % 8) of its row, 8 rows to a 1 KB atom (the atoms
 // 1 KB aligned). x tile (K-major): row m of k atom k / 64 (64 values a row),
-// atoms of 8 rows 1 KB apart, the two k atoms BM * 128 bytes apart. W tile
+// atoms of 8 rows 1 KB apart, the two k atoms TBM * 128 bytes apart. W tile
 // (MN-major): row k of n atom n / 64, rows 128 bytes apart (8-row groups
 // 1 KB), the two n atoms 16 KB apart.
+template <int TBM>
 __device__ __forceinline__ int x_off(int m, int c16) {  // c16: 16-byte chunk of the 128 k
-  return (c16 >> 3) * (BM * 128) + m * 128 + (((c16 & 7) ^ (m & 7)) << 4);
+  return (c16 >> 3) * (TBM * 128) + m * 128 + (((c16 & 7) ^ (m & 7)) << 4);
 }
 __device__ __forceinline__ int w_off(int k, int n) {
   return (n >> 6) * (KT * 128) + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4) + (n & 7) * 2;
@@ -155,6 +174,28 @@ __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t a, uint64_t b,
 }
 
 
+// The same with n 64: d (64 x 64, f32) = [d +] a (64 x 16) * b (16 x 64).
+__device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d [+]= a * b at the tile's n (TBN 64 or 128).
+template <int TBN>
+__device__ __forceinline__ void mma_n(float (&d)[TBN / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (TBN == 128) mma_n128(d, a, b, accumulate);
+  else mma_n64(d, a, b, accumulate);
+}
+
 // Value s of a loaded word as the float 2^23 + q (the bits of q under the
 // exponent of 2^23): float(q) is this less 2^23, both exact.
 template <int BITS>
@@ -166,20 +207,23 @@ __device__ __forceinline__ float biased(int word, int hi, int s, int hs) {
 // one step ahead, and their decode into a stage. Item p of a tile is word
 // row wr of the column pair (n, n + 1): lanes p & 3 take the four pairs of
 // 8 columns, (p >> 2) & 7 eight consecutive word rows, the rest walks
-// column groups, then word rows.
-template <int BITS>
+// column groups, then word rows. Where a tile has fewer items than a whole
+// number a thread (2- and 3-bit words in a 256 x 64 tile) the last ones
+// are idle.
+template <int BITS, int TBN, int NT>
 struct Weights {
   static constexpr int PER = Packing<BITS>::PER;
-  static constexpr int ITEMS = (KT / PER) * (BN / 2) / NT;  // items a thread
-  static_assert((KT / PER) % 8 == 0 && (KT / PER) * (BN / 2) % NT == 0, "whole items");
+  static constexpr int TOTAL = (KT / PER) * (TBN / 2);       // items of a tile
+  static constexpr int ITEMS = (TOTAL + NT - 1) / NT;        // items a thread
+  static_assert((KT / PER) % 8 == 0, "whole groups of 8 word rows");
   int w0[ITEMS], w1[ITEMS], h0[ITEMS], h1[ITEMS];
   float s0[ITEMS], s1[ITEMS], z0[ITEMS], z1[ITEMS];
   int off[ITEMS];  // row0 + i | i << 8 of the item's word row, -1 past the tile's word rows
 
   __device__ __forceinline__ static void item(int it, int& wr, int& n) {
     const int p = threadIdx.x + it * NT, rest = p >> 5;
-    n = (rest % (BN / 8)) * 8 + (p & 3) * 2;
-    wr = (rest / (BN / 8)) * 8 + ((p >> 2) & 7);
+    n = (rest % (TBN / 8)) * 8 + (p & 3) * 2;
+    wr = (rest / (TBN / 8)) * 8 + ((p >> 2) & 7);
   }
 
   __device__ __forceinline__ void init(int pb, int kt) {
@@ -189,7 +233,8 @@ struct Weights {
       int wr, n, i, row0;
       item(it, wr, n);
       locate_row(wr, rpp, pb, i, row0);
-      off[it] = wr < kt / PER ? (row0 + i) | (i << 8) : -1;
+      const bool live = TOTAL % NT == 0 || threadIdx.x + it * NT < TOTAL;
+      off[it] = live && wr < kt / PER ? (row0 + i) | (i << 8) : -1;
     }
   }
 
@@ -268,30 +313,34 @@ struct Weights {
   }
 };
 
-// x tiles of 128 columns by TMA: two boxes of (256 rows, 64 columns), each a
-// k atom of the layout above (the tensor map's 128-byte swizzle is the
+// x tiles of 128 columns by TMA: two boxes of (TBM rows, 64 columns), each
+// a k atom of the layout above (the tensor map's 128-byte swizzle is the
 // layout's), rows past M and columns past K filled with zeros. One thread
 // arms the stage's mbarrier with the tile's bytes and issues both copies.
 using samq_tma::mbar_init;
 using samq_tma::mbar_wait;
+template <int TBM>
 __device__ __forceinline__ void tma_x(unsigned char* xst, uint64_t* bar, const CUtensorMap* map,
                                       int k0, int m0) {
-  samq_tma::mbar_expect(bar, X_BYTES);
+  samq_tma::mbar_expect(bar, TBM * KT * 2);
 #pragma unroll
   for (int a = 0; a < 2; ++a)
     asm volatile(
         "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(xst + a * (BM * 128))),
+        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(xst + a * (TBM * 128))),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(k0 + 64 * a), "r"(m0), "r"(smem_u32(bar))
         : "memory");
 }
 
 // The x tile copies of one thread: 16-byte chunk c16 = tid % 16 (fixed per
-// thread) of rows tid / 16 + 32 it, it < 8; the 16 lanes of a half warp read
-// one 256-byte row of x and write its chunks to distinct banks.
+// thread) of rows tid / 16 + STEP it, it < 8 (STEP = 32 at 256 rows, 16 at
+// 128); the 16 lanes of a half warp read one 256-byte row of x and write its
+// chunks to distinct banks.
+template <int TBM, int NT>
 struct XCopy {
-  static constexpr int COPIES = BM * XG / NT;  // 8
-  static constexpr int STEP = NT / XG;         // rows between copies (32)
+  static constexpr int COPIES = TBM * XG / NT;  // 8
+  static constexpr int STEP = NT / XG;          // rows between copies
+  static_assert(STEP % 8 == 0, "copies STEP rows apart share a swizzle row");
   const __nv_bfloat16* src;  // row row0, column c of x
   long step;                 // STEP rows of x
   int c, rows, off;          // the thread's column; its copies inside M; its first byte
@@ -302,7 +351,7 @@ struct XCopy {
     src = x + (long)(m0 + row0) * K + c;
     step = (long)STEP * K;
     rows = m0 + row0 < M ? min(COPIES, (M - m0 - row0 + STEP - 1) / STEP) : 0;
-    off = x_off(row0, c16);  // rows STEP apart keep row0 % 8, so copy it is off + it * STEP * 128
+    off = x_off<TBM>(row0, c16);  // rows STEP apart keep row0 % 8, so copy it is off + it * STEP * 128
   }
 
   // Copy the tile whose first column is k0 (kt columns) into a stage;
@@ -329,21 +378,23 @@ struct XCopy {
   }
 };
 
-// One (BM, BN) output tile. `vec`: x rows may be copied 16 bytes at a
+// One (TBM, TBN) output tile. `vec`: x rows may be copied 16 bytes at a
 // time (vec_ok with the tile's rows); `pairs`: N is even, so a column pair
 // is one 8-byte load; `vec_out`: N % 8 == 0, the output rows take 16-byte
 // stores. bias: float32 (N,), read by the BIAS_GELU epilogue only.
-template <int BITS, int EPI>
-__global__ void __launch_bounds__(NT, 1)
+template <int BITS, int EPI, int TBM, int TBN>
+__global__ void __launch_bounds__(Tile<TBM, TBN>::NT, Tile<TBM, TBN>::MINB)
     qmm_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* __restrict__ x,
                   const int32_t* __restrict__ qw, const int32_t* __restrict__ qw_hi,
                   const float* __restrict__ scales, const float* __restrict__ zeros,
                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int K,
                   int N, int pb, int groupsize, bool tma, bool vec, bool vec_out) {
-  constexpr int R = BN / 2;  // accumulators a thread
+  using Tl = Tile<TBM, TBN>;
+  constexpr int NT = Tl::NT, STAGE = Tl::STAGE, X_BYTES = Tl::X_BYTES;
+  constexpr int R = TBN / 2;  // accumulators a thread
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * TBN;
   const int kt = tile_rows(pb), tiles = (K + kt - 1) / kt;
   const int gshift = (groupsize & (groupsize - 1)) == 0 ? __ffs(groupsize) - 1 : -1;
   const bool pairs = (N & 1) == 0;
@@ -356,18 +407,18 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
 
   // Rows kt..KT-1 of the B tiles are never decoded: zeros, once.
-  for (int i = tid; i < 2 * (KT - kt) * (BN / 8); i += NT) {
-    const int st = i / ((KT - kt) * (BN / 8)), j = i % ((KT - kt) * (BN / 8));
-    *reinterpret_cast<uint4*>(ws(st) + w_off(kt + j / (BN / 8), (j % (BN / 8)) * 8)) =
+  for (int i = tid; i < 2 * (KT - kt) * (TBN / 8); i += NT) {
+    const int st = i / ((KT - kt) * (TBN / 8)), j = i % ((KT - kt) * (TBN / 8));
+    *reinterpret_cast<uint4*>(ws(st) + w_off(kt + j / (TBN / 8), (j % (TBN / 8)) * 8)) =
         make_uint4(0, 0, 0, 0);
   }
 
-  Weights<BITS> w;
+  Weights<BITS, TBN, NT> w;
   w.init(pb, kt);
-  const XCopy xc(x, m0, M, K);
+  const XCopy<TBM, NT> xc(x, m0, M, K);
   auto copy_x = [&](int t) {  // x of tile t into stage t % 2
     if (!tma) xc.copy(xs(t & 1), x, t * kt, K, kt, vec);
-    else if (tid == 0) tma_x(xs(t & 1), bars + (t & 1), &xmap, t * kt, m0);
+    else if (tid == 0) tma_x<TBM>(xs(t & 1), bars + (t & 1), &xmap, t * kt, m0);
   };
   if (tma && tid == 0) {
     mbar_init(bars);
@@ -376,7 +427,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
   __syncthreads();
   copy_x(0);
-  const int rpp = pb / Weights<BITS>::PER;
+  const int rpp = pb / Weights<BITS, TBN, NT>::PER;
   auto load = [&](int t) {
     w.load(qw, qw_hi, scales, zeros, t * kt, K, n0, N, pb, groupsize, gshift, pairs);
   };
@@ -399,14 +450,14 @@ __global__ void __launch_bounds__(NT, 1)
     // 1's decode and tile t + 2's loads. Step ks of A starts 32 bytes into
     // the row of k atom ks / 4 (the hardware applies the swizzle to the
     // sum); SBO 1 KB between 8-row groups. B: 8-row groups of k 1 KB apart
-    // (SBO), the two n atoms KT * 128 apart (LBO).
+    // (SBO), the n atoms (two at 128 columns) KT * 128 apart (LBO).
     if (t + 1 < tiles) copy_x(t + 1);
     fence_regs(acc);
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KT / 16; ++ks)
-      mma_n128(acc, desc(xa + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
-               desc(wb + ks * 2048, KT * 128, 1024), 1);
+      mma_n<TBN>(acc, desc(xa + (ks >> 2) * (TBM * 128) + (ks & 3) * 32, 16, 1024),
+                 desc(wb + ks * 2048, KT * 128, 1024), 1);
     wg_commit();
     if (t + 1 < tiles) w.store(ws(nxt), rpp);
     if (t + 2 < tiles) load(t + 2);
@@ -416,14 +467,14 @@ __global__ void __launch_bounds__(NT, 1)
 
   // Epilogue: acc[i] is row (warp % 4) * 16 + lane / 4 + 8 ((i >> 1) & 1) of
   // the warpgroup's 64, column 8 (i >> 2) + 2 (lane % 4) + (i & 1). The bf16
-  // tile is staged in the ring (row pitch BN + 8 values, 4 banks apart) and
+  // tile is staged in the ring (row pitch TBN + 8 values, 4 banks apart) and
   // written out in 16-byte rows.
-  constexpr int LD = BN + 8;
+  constexpr int LD = TBN + 8;
   __syncthreads();  // every warpgroup is done with the ring
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem);
   const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2), cq = 2 * (lane & 3);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < TBN / 8; ++j) {
     const int c = 8 * j + cq;
     float b0 = 0.f, b1 = 0.f;
     if constexpr (EPI == BIAS_GELU) {
@@ -442,8 +493,8 @@ __global__ void __launch_bounds__(NT, 1)
     }
   }
   __syncthreads();
-  for (int i = tid; i < BM * (BN / 8); i += NT) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8, m = m0 + r, n = n0 + c;
+  for (int i = tid; i < TBM * (TBN / 8); i += NT) {
+    const int r = i / (TBN / 8), c = (i % (TBN / 8)) * 8, m = m0 + r, n = n0 + c;
     if (m >= M || n >= N) continue;
     const __nv_bfloat16* src = stage + r * LD + c;
     __nv_bfloat16* dst = out + (long)m * N + n;
@@ -457,16 +508,17 @@ __global__ void __launch_bounds__(NT, 1)
 
 using samq_tma::encode_fn;
 
-// Launch the body on x (M, K) bf16 -> out (M, N) bf16. x tiles of 128 rows
-// arrive by TMA; other tiles (pack blocks that do not divide 128) and x
-// that TMA cannot address (rows not 16-byte multiples) by cp.async.
-template <int BITS, int EPI>
+// Launch the body with a (TBM, TBN) tile on x (M, K) bf16 -> out (M, N)
+// bf16. x tiles of 128 rows arrive by TMA; other tiles (pack blocks that do
+// not divide 128) and x that TMA cannot address (rows not 16-byte
+// multiples) by cp.async.
+template <int BITS, int EPI, int TBM = BM, int TBN = BN>
 inline int run(const __nv_bfloat16* x, const int32_t* qw, const int32_t* qw_hi,
                const float* scales, const float* zeros, const float* bias, __nv_bfloat16* out,
                int M, int K, int N, int pb, int groupsize, cudaStream_t stream) {
   const bool vec = vec_ok(x, K, tile_rows(pb), 8);
   const bool vec_out = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
+  if ((N + TBN - 1) / TBN > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
   bool tma = vec && tile_rows(pb) == KT;
@@ -475,15 +527,16 @@ inline int run(const __nv_bfloat16* x, const int32_t* qw, const int32_t* qw_hi,
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-    const cuuint32_t box[2] = {64, BM}, estr[2] = {1, 1};
+    const cuuint32_t box[2] = {64, TBM}, estr[2] = {1, 1};
     if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x), dims,
            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return (int)cudaErrorInvalidValue;
   }
-  return launch(qmm_tc_kernel<BITS, EPI>, dim3((M + BM - 1) / BM, (N + BN - 1) / BN), NT,
-                SMEM + 16, stream, map, x, qw, qw_hi, scales, zeros, bias, out, M, K, N, pb,
-                groupsize, tma, vec, vec_out);
+  const dim3 grid((M + TBM - 1) / TBM, (N + TBN - 1) / TBN);
+  return launch(qmm_tc_kernel<BITS, EPI, TBM, TBN>, grid, Tile<TBM, TBN>::NT,
+                Tile<TBM, TBN>::SMEM + 16, stream, map, x, qw, qw_hi, scales, zeros, bias, out, M,
+                K, N, pb, groupsize, tma, vec, vec_out);
 }
 
 }  // namespace tc

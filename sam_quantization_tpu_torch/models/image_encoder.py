@@ -112,20 +112,49 @@ def window_unpartition(
 # ---------------------------------------------------------------------------
 
 
-def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
-    """Select the (q_size, k_size, head_dim) rel-pos rows.
+def resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """The (n_in, n_out) float32 matrix of ``jax.image.resize`` along one axis
+    with ``method="linear"`` and ``antialias=True`` (``compute_weight_mat``
+    of ``jax/_src/image/scale.py``, copied): a triangle kernel widened by
+    ``max(n_in / n_out, 1)`` (antialiasing when it shrinks), sample points
+    ``(i + 0.5) n_in / n_out - 0.5``, each column divided by its sum unless
+    that sum is at most ``1000 eps``, and columns whose sample point lies
+    outside ``[-0.5, n_in - 0.5]`` zero. Computed in float32 as JAX does (the
+    scale n_out / n_in and its inverse are Python floats, rounded to float32
+    where they meet an array), with the sample point's multiply-add rounded
+    once, as XLA's CPU code computes it where it compiles the weight loop
+    (float64 holds the product exactly). Where XLA folds the matrix into a
+    constant or runs that loop's scalar tail instead it rounds twice, and a
+    sample point may then sit one float32 step away (the CPU tests hold the
+    port to both)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), **f32)
+    s32 = torch.tensor(inv_scale, **f32).double()
+    sample = ((torch.arange(n_out, **f32) + 0.5).double() * s32 - 0.5).float()
+    x = (sample[None, :] - torch.arange(n_in, **f32)[:, None]).abs() / kernel_scale
+    w = torch.clamp_min(1.0 - x.abs(), 0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > 1000.0 * eps, w / torch.where(total != 0, total, 1.0),
+                    torch.zeros((), **f32))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros((), **f32))
 
-    The table must already have ``2 * max(q_size, k_size) - 1`` rows, which
-    holds at the image size a model was built for. Resizing the table for
-    another size (the JAX package's antialiased ``jax.image.resize``) is not
-    ported yet.
-    """
+
+def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """Select the (q_size, k_size, head_dim) rel-pos rows; a table of another
+    length than ``2 * max(q_size, k_size) - 1`` is first resized to it, as
+    JAX's ``jax.image.resize(rel_pos, (n, C), "linear")`` does
+    (:func:`resize_weights`; ref get_rel_pos, image_encoder.py:336-360). The
+    resize is an exact product in float32, elementwise multiplies and a sum
+    (no TF32 on any device), of the table's values rounded to its dtype by
+    weights rounded to the same dtype, the result rounded back to it."""
     max_rel_dist = 2 * max(q_size, k_size) - 1
     if rel_pos.shape[0] != max_rel_dist:
-        raise NotImplementedError(
-            f"rel-pos table has {rel_pos.shape[0]} rows, {max_rel_dist} needed: "
-            "resizing the table for another image size is not ported"
-        )
+        w = resize_weights(rel_pos.shape[0], max_rel_dist, rel_pos.device)
+        w = w.to(rel_pos.dtype).float()
+        rel_pos = (w[:, :, None] * rel_pos.float()[:, None, :]).sum(0).to(rel_pos.dtype)
     dev = rel_pos.device
     q_coords = torch.arange(q_size, device=dev)[:, None] * max(k_size / q_size, 1.0)
     k_coords = torch.arange(k_size, device=dev)[None, :] * max(q_size / k_size, 1.0)

@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
@@ -53,10 +55,10 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
         (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     ),
     # dtype, bits, x, qweight, qweight_hi, scales, zeros, out, M, K, N,
-    # groupsize, pack_block, stream
+    # groupsize, pack_block, bm, bn, bk (the tile), stream
     "quant_matmul": (
         "samq_quant_matmul",
-        (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     # dtype, bits, x, qw1, s1, z1, b1, qw2, s2, z2, out, hidden, M, K, H, N,
     # groupsize1, pack_block1, groupsize2, pack_block2, stream
@@ -83,6 +85,7 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Dict[str, float] = {}  # wall seconds of each library's last nvcc run
 
 
 def _nvcc() -> str:
@@ -106,7 +109,8 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every missing library in parallel; return ``nvcc``'s
-    diagnostics (register and shared-memory use) for each one built.
+    diagnostics (register and shared-memory use) for each one built, and
+    record its seconds in :data:`BUILD_SECONDS`.
 
     Raises ``RuntimeError`` with the compiler output if any build fails.
     """
@@ -115,7 +119,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     if not todo:
         return {}
     nvcc = _nvcc()
-    jobs = []
+    jobs, start = [], time.perf_counter()
     for name in todo:
         target = library_path(name)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -126,9 +130,18 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         )
         jobs.append((name, target, tmp, proc))
     logs, failed = {}, []
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - start
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _, _, proc in jobs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     for name, target, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        logs[name] = out
+        out = logs[name]
         if proc.returncode == 0:
             os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
         else:

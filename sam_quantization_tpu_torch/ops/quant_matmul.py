@@ -52,8 +52,15 @@ product to XLA's ``dot_general`` (no Pallas kernel), and the port leaves it
 to PyTorch's int8 GEMM. ``INT8_MATMULS`` counts those calls, the ones on an
 int8 input (int8-pre) apart.
 
+Tiles: a weight-only launch takes the output tile a tuned table names for
+its shape (:func:`pick_blocks`, JAX's, reading ``ops/autotune.py``'s
+table); with no entry it takes the default tile, as with no table at all.
+An entry that names no candidate tile of the shape raises ``ValueError``.
+
 The wrappers launch a kernel for a CUDA tensor and use the plain version
-only for a CPU tensor. ``LAUNCHES`` counts kernel launches. ``torch.export``
+only for a CPU tensor. ``LAUNCHES`` counts kernel launches, whatever the
+tile; ``TILE_LAUNCHES`` counts the same launches by ``(name, dtype,
+tile)``. ``torch.export``
 cannot trace a launch through ``ctypes``, so while it traces a CUDA tensor
 the wrappers call the custom ops ``sam_quantization_tpu_torch::quant_matmul``
 and ``::a8_matmul`` (:data:`KERNEL_OPS`) instead: the exported program
@@ -72,13 +79,15 @@ import torch
 from sam_quantization_tpu_torch.nn.packed import (
     IntLinear, PackedLinear, dequantize, unpack_to_int,
 )
-from sam_quantization_tpu_torch.ops import _build
+from sam_quantization_tpu_torch.ops import _build, autotune
 
 LAUNCHES: Dict[str, int] = {
     "quant_matmul": 0, "quant_matmul3": 0, "quant_matmul_a8_sym": 0, "quant_matmul_a8": 0,
 }
 # int8_matmul calls: on activations it quantizes, and on int8 input (int8-pre)
 INT8_MATMULS: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_pre": 0}
+# quant_matmul / quant_matmul3 launches by tile: (name, dtype, (bm, bn, bk)) -> count
+TILE_LAUNCHES: Dict[Tuple[str, torch.dtype, Tuple[int, int, int]], int] = {}
 MAX_TILE_K = 128  # most K rows of a tile of the packed-weight kernels (KT in csrc/quant_common.cuh)
 
 
@@ -86,6 +95,7 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, INT8_MATMULS):
         for name in counts:
             counts[name] = 0
+    TILE_LAUNCHES.clear()
 
 
 def tile_rows(pack_block: int) -> int:
@@ -149,26 +159,68 @@ def quant_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     return _launch_quant_matmul(*args)
 
 
+def pick_blocks(M: int, N: int, K: int, groupsize: int, pack_block: int, bits: int = 4,
+                dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
+    """(bm, bn, bk) of a weight-only launch: the tuned table's entry first
+    (``ops/autotune.py``, looked up with ``groupsize if groupsize < K else
+    0``, as JAX's ``pick_blocks`` does), else the default tile. Raises
+    ``ValueError`` if the entry names no candidate tile."""
+    gk = groupsize if groupsize < K else 0
+    cands = autotune.candidate_blocks(M, N, K, groupsize, pack_block, dtype)
+    hit = autotune.lookup(M, K, N, gk, bits, dtype)
+    if hit is not None and hit not in cands:
+        raise ValueError(f"autotune table entry {autotune._key(M, K, N, gk, bits, dtype)}: "
+                         f"{hit} is not a candidate tile {cands}")
+    return hit if hit is not None else cands[0]
+
+
 def _launch_quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
                          qweight_hi: Optional[torch.Tensor], scales: torch.Tensor,
                          zeros: torch.Tensor, bits: int, groupsize: int, pack_block: int,
                          out_features: int) -> torch.Tensor:
     """Launch ``quant_matmul`` (``quant_matmul3`` at 3 bits) on checked CUDA
-    operands."""
+    operands, at :func:`pick_blocks`'s tile."""
+    M, K = x.shape
+    tile = pick_blocks(M, out_features, K, groupsize, pack_block, bits, x.dtype)
+    return _launch(x, qweight, qweight_hi, scales, zeros, bits, groupsize, pack_block,
+                   out_features, tile)
+
+
+def _launch(x, qweight, qweight_hi, scales, zeros, bits, groupsize, pack_block, out_features,
+            tile: Tuple[int, int, int]) -> torch.Tensor:
+    """``samq_quant_matmul`` at ``tile``, counted in ``LAUNCHES`` and
+    ``TILE_LAUNCHES``."""
     M, K = x.shape
     out = torch.empty((M, out_features), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
     hi = qweight_hi.data_ptr() if bits == 3 else None
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "quant_matmul", _build.DTYPE_CODE[x.dtype], bits, x.data_ptr(), qweight.data_ptr(),
             hi, scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), M, K, out_features,
-            groupsize, pack_block, stream,
+            groupsize, pack_block, *tile, torch.cuda.current_stream().cuda_stream,
         )
-    LAUNCHES["quant_matmul3" if bits == 3 else "quant_matmul"] += 1
+    name = "quant_matmul3" if bits == 3 else "quant_matmul"
+    LAUNCHES[name] += 1
+    key = (name, x.dtype, tuple(tile))
+    TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
     return out
+
+
+def quant_matmul_tiled(x: torch.Tensor, p: PackedLinear,
+                       tile: Tuple[int, int, int]) -> torch.Tensor:
+    """A weight-only layer's product at a given tile ``(bm, bn, bk)`` (the
+    tuner's launch): on a CUDA tensor the kernel, which refuses a tile it
+    was not built for (``RuntimeError``); on a CPU tensor the plain
+    version, which has no tiles."""
+    if p.act_bits:
+        raise ValueError("quant_matmul_tiled: tiles are the weight-only kernels'")
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, p)
+    check_cuda_operands("quant_matmul3" if p.bits == 3 else "quant_matmul", x, p)
+    return _launch(x, p.qweight, p.qweight_hi, p.scales, p.zeros, p.bits, p.groupsize,
+                   p.pack_block, p.out_features, tuple(tile))
 
 
 quant_matmul_op = torch.library.custom_op(

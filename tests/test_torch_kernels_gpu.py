@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from sam_quantization_tpu_torch.nn import packed as tpacked
+from sam_quantization_tpu_torch.ops import autotune
 from sam_quantization_tpu_torch.ops import flash_attention as tfa
 from sam_quantization_tpu_torch.ops import fused_mlp as tfm
 from sam_quantization_tpu_torch.ops import probes as tpr
@@ -34,6 +35,7 @@ HS_BF16_C = 2.0**-10  # chip_smoke.py's, which says how it was set
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    autotune._table = {}  # no tuned table of the checkout: the default tiles unless a test sets one
     return torch.device("cuda")
 
 
@@ -566,7 +568,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 # steps, 80 at 80, 96 at 96).
 # ---------------------------------------------------------------------------
 
-QTOL = {"f32": (1e-5, 1e-4), "bf16": (8e-3, 1e-3)}
+QTOL = {tag: autotune.QTOL[dtype] for tag, dtype in autotune.DTYPES.items()}
 ODD_GROUP = {2: 80, 3: 96, 4: 48, 8: 12}
 
 
@@ -789,6 +791,97 @@ def test_packed_kernels_reject_what_they_do_not_take(cuda):
     assert tfm.LAUNCHES["fused_mlp"] == before["fused_mlp"]
     want = p2(torch.nn.functional.gelu(p1(x)))
     assert torch.equal(out, want)
+
+
+# Tuned tiles (csrc/quant_matmul.cu, ops/autotune.py): every instantiated
+# tile of both bodies, bits 2/3/4/8, ragged M and N, pack blocks 128, 48 and
+# 12 (ODD_GROUP), held to QTOL against the plain version, and bit-equal to
+# the default tile's launch: every tile walks K in the same tiles, and only
+# the default float32 tile is instantiated, so no tile changes the K split.
+TILE_CASES = [(300, 512, 384, 128), (37, 256, 250, 64), (37, 384, 250, "pb"), (1, 128, 64, 0)]
+
+
+def _tile_layer(bits, M, K, N, g, cuda, seed=60):
+    K, g = _odd(K, g, bits)
+    return _packed(seed, K, N, bits, g, cuda), _randn(seed + 2, M, K).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M,K,N,g", TILE_CASES)
+def test_every_tile_matches_plain_on_card(cuda, dtype, bits, M, K, N, g):
+    tdt = DTYPES[dtype][0]
+    p, x = _tile_layer(bits, M, K, N, g, cuda)
+    x = x.to(tdt)
+    ref = tqm.quant_matmul_plain(x, p)
+    default = tqm.quant_matmul(x, p)
+    bk = tqm.tile_rows(p.pack_block)
+    for bm, bn in autotune.TILES[tdt]:
+        tile = (bm, bn, bk)
+        out = tqm.quant_matmul_tiled(x, p, tile)
+        torch.cuda.synchronize()
+        assert out.dtype == tdt and out.shape == (M, N)
+        _check_rel(out, ref, dtype)
+        assert torch.equal(out, default), tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [3, 4])
+def test_table_hit_launches_the_tiled_kernel_on_card(cuda, dtype, bits):
+    """Under a table entry the wrapper launches the kernel at that tile: its
+    output is the C function's, one launch counted by name and by tile; an
+    entry outside the candidates raises, naming its key."""
+    tdt = DTYPES[dtype][0]
+    M, K, N = 300, 512, 384
+    p, x = _tile_layer(bits, M, K, N, 128, cuda)
+    x = x.to(tdt)
+    tile = autotune.candidate_blocks(M, N, K, 128, p.pack_block, tdt)[-1]
+    name = "quant_matmul3" if bits == 3 else "quant_matmul"
+    key = autotune._key(M, K, N, 128, bits, tdt)
+    try:
+        autotune._table = {key: list(tile)}
+        tqm.reset_launch_counts()
+        out = tqm.quant_matmul(x, p)
+        assert tqm.LAUNCHES[name] == 1 and tqm.TILE_LAUNCHES == {(name, tdt, tile): 1}
+        assert torch.equal(out, tqm.quant_matmul_tiled(x, p, tile))
+        autotune._table = {key: [192, 128, 128]}
+        with pytest.raises(ValueError, match=key):
+            tqm.quant_matmul(x, p)
+    finally:
+        autotune._table = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiled_entry_refuses_unknown_tiles_on_card(cuda, dtype):
+    """The C entry refuses a tile it was not built for and a K tile other
+    than tile_rows(pack_block)."""
+    tdt = DTYPES[dtype][0]
+    p, x = _tile_layer(4, 64, 256, 128, 32, cuda)
+    x = x.to(tdt)
+    other = [t for d in autotune.TILES for t in autotune.TILES[d] if t not in autotune.TILES[tdt]]
+    for bm, bn, bk in [(192, 128, 128), (512, 128, 128), (*other[0], 128),
+                       (*autotune.TILES[tdt][0], 64)]:
+        with pytest.raises(RuntimeError, match="quant_matmul: kernel launch failed"):
+            tqm.quant_matmul_tiled(x, p, (bm, bn, bk))
+
+
+@pytest.mark.gpu
+def test_tiled_bodies_run_their_instructions_on_card(cuda):
+    """Every tile of quant_matmul's library: bfloat16 tiles hold HGMMA,
+    float32 ones FFMA and no tensor-core product."""
+    tc = _sass_counts("quant_matmul", r"qmm_tc_kernelILi(\d+)ELi0ELi(\d+)ELi(\d+)E",
+                      ("HGMMA",))
+    assert set(tc) == {(b, str(bm), str(bn)) for b in "2348"
+                       for bm, bn in autotune.TILES[torch.bfloat16]}, sorted(tc)
+    assert all(c[0] > 0 for c in tc.values()), tc
+    f32 = _sass_counts("quant_matmul", r"qmm_f32_kernelILi(\d+)ELi0ELb(\d)ELi(\d+)ELi(\d+)E",
+                       ("FFMA", "HGMMA", "HMMA"))
+    assert set(f32) == {(b, w, str(bm), str(bn)) for b in "2348" for w in "01"
+                        for bm, bn in autotune.TILES[torch.float32]}, sorted(f32)
+    assert all(c[0] > 0 and c[1] == c[2] == 0 for c in f32.values()), f32
 
 
 # ---------------------------------------------------------------------------

@@ -336,11 +336,100 @@ def test_predictor_runs_encoder_in_weight_dtype(models):
     assert low.dtype == np.float32 and np.isfinite(low).all() and np.isfinite(iou).all()
 
 
-def test_rel_pos_resize_is_refused():
-    table = torch.zeros(9, 16)
-    assert tuple(tie.get_rel_pos(5, 5, table).shape) == (5, 5, 16)
-    with pytest.raises(NotImplementedError):
-        tie.get_rel_pos(7, 7, table)
+# get_rel_pos with a table made for another grid: (dtype, rows, q, k).
+# ViT-H's 127-row global tables at grids 48 (shrink to 95 rows) and 80 (grow
+# to 159); vit_tiny's 15-row ones at grids 12 (grow) and 6 (shrink); equal
+# length (no resize); q != k, at a resize and without one. float32 atol 1e-6
+# (the resize's sums in another order); bfloat16 bit for bit.
+REL_POS_CASES = [("f32", 127, 48, 48), ("f32", 127, 80, 80), ("f32", 15, 12, 12),
+                 ("f32", 15, 6, 6), ("f32", 15, 8, 8), ("f32", 27, 7, 14), ("f32", 15, 12, 6),
+                 ("bf16", 127, 48, 48), ("bf16", 127, 80, 80)]
+
+
+@pytest.mark.parametrize("dtype,rows,q,k", REL_POS_CASES)
+def test_get_rel_pos_resize_matches_jax(dtype, rows, q, k):
+    t = np.random.default_rng(rows + 7 * q + k).standard_normal((rows, 16)).astype(np.float32)
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    out = tie.get_rel_pos(q, k, torch.from_numpy(t).to(tdt))
+    ref = jie.get_rel_pos(q, k, jnp.asarray(t, jdt))
+    assert tuple(out.shape) == (q, k, 16) and out.dtype == tdt
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-6 if dtype == "f32" else 0, rtol=0)
+
+
+def test_rel_pos_resize_rounds_sample_points_once():
+    """The resize's sample points ``(i + 0.5) n_in / n_out - 0.5`` are one
+    multiply-add: the port rounds it once, as XLA's CPU code does where it
+    compiles the weight loop (every case above); where XLA folds the weights
+    or runs the loop's scalar tail it rounds twice (27 -> 39 rows, q 10, k
+    20). There the two differ by at most one float32 step of a sample point
+    (which lies below 27) times the table's largest step between neighbouring
+    rows, and the port is within 1e-6 of a float64 evaluation of the same
+    formula on once-rounded sample points."""
+    t = np.random.default_rng(3).standard_normal((27, 16)).astype(np.float32)
+    out = _np(tie.get_rel_pos(10, 20, torch.from_numpy(t)))
+    ref = _np(jie.get_rel_pos(10, 20, jnp.asarray(t)))
+    step = float(np.abs(np.diff(t, axis=0)).max())
+    assert np.abs(out - ref).max() <= float(np.spacing(np.float32(27))) * step + 1e-6
+    n_in, n_out = 27, 39
+    s = np.float64(np.float32(n_in / n_out))
+    sample = ((np.arange(n_out) + 0.5) * s - 0.5).astype(np.float32).astype(np.float64)
+    w = np.maximum(0.0, 1.0 - np.abs(sample[None, :] - np.arange(n_in)[:, None]))
+    w = w / w.sum(axis=0, keepdims=True)
+    table = np.einsum("io,ic->oc", w, t.astype(np.float64))
+    q_coords = np.arange(10)[:, None] * 2.0
+    k_coords = np.arange(20)[None, :] * 1.0
+    idx = (q_coords - k_coords + 19).astype(np.int64)
+    np.testing.assert_allclose(out, table[idx], atol=1e-6, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def resized_encoder_refs(models):
+    """JAX's vit_tiny encoder without abs pos at img 96 and 192: {img: (x, out)}."""
+    jmodel, _ = models
+    jcfg = dataclasses.replace(JCONFIGS["vit_tiny"].image_encoder, use_abs_pos=False)
+    refs = {}
+    for img in (96, 192):
+        x = np.random.default_rng(img).standard_normal((1, img, img, 3)).astype(np.float32)
+        refs[img] = x, jie.apply(jmodel.image_encoder, jnp.asarray(x), jcfg)
+    return refs
+
+
+@pytest.mark.parametrize("img", [96, 192])
+@pytest.mark.parametrize("attn_impl", ["kernel", "eager"])
+def test_encoder_at_another_size_resizes_rel_pos_like_jax(models, resized_encoder_refs, img,
+                                                          attn_impl):
+    """vit_tiny without abs pos, its global tables made for img 128 (grid 8,
+    15 rows), run at img 96 (grid 6: shrunk to 11 rows) and 192 (grid 12:
+    grown to 23), against JAX's encoder at atol 1e-4."""
+    _, tmodel = models
+    tcfg = dataclasses.replace(TCONFIGS["vit_tiny"].image_encoder, use_abs_pos=False)
+    enc = tie.ImageEncoderViT(tcfg)
+    enc.load_state_dict({k: v for k, v in tmodel.image_encoder.state_dict().items()
+                         if k != "pos_embed"})
+    assert enc.blocks[1].attn.rel_pos_h.shape[0] == 15
+    x, ref = resized_encoder_refs[img]
+    with torch.no_grad():
+        out = enc(torch.from_numpy(x), attn_impl)
+    assert tuple(out.shape) == (1, img // 16, img // 16, 32)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("q,grows", [(80, True), (48, False)])
+def test_onnx_rel_table_resizes_without_antialias(q, grows):
+    """JAX's ONNX export resizes a rel table by plain linear interpolation
+    (``export_onnx/encoder_graph.py::_rel_table``, no antialias), and the
+    port's copy gives its values exactly. When the table grows that is
+    get_rel_pos (antialias changes nothing there) up to float32 rounding
+    (the export interpolates in float64), 1e-4; when it shrinks it is not,
+    and JAX's own get_rel_pos differs from it."""
+    from sam_quantization_tpu.export_onnx import encoder_graph as jeg
+    from sam_quantization_tpu_torch.export_onnx import encoder_graph as teg
+
+    t = np.random.default_rng(q).standard_normal((127, 16)).astype(np.float32)
+    out = teg._rel_table(t, q, q)
+    np.testing.assert_array_equal(out, jeg._rel_table(t, q, q))
+    gap = float(np.abs(out - _np(jie.get_rel_pos(q, q, jnp.asarray(t)))).max())
+    assert gap <= 1e-4 if grows else gap > 1e-2, gap
 
 
 def test_port_imports_no_jax():
