@@ -43,7 +43,12 @@ Run from the repository root on a machine with one CUDA card. It
    of ``quant_matmul3`` at qkv (W3), float32 and bfloat16, held to the
    plain version, bit-equal to the default tile, and timed; and
    ``tune_model_shapes`` into a temporary table (every tile's SASS and
-   ptxas spill bytes are read with the other instantiations);
+   ptxas spill bytes are read with the other instantiations); then the
+   W-A8 kernels' tiles (``csrc/quant_matmul_a8.cu``'s main build at
+   ``autotune.TILES_A8``): 0 spill bytes in ptxas's report of each of its 36
+   instantiations, and every candidate tile of both kernels at ViT-H's six
+   4-bit linear shapes in bfloat16, bit-equal to the plain version and to
+   the default tile, timed, the fastest printed;
 4. dense main path: builds ViT-H from seeded random weights (rel-pos tables
    filled, so the bias contributes), encodes a 1024x1024 image with the
    kernel path and the plain (eager) path in float32 and bfloat16 and
@@ -68,8 +73,11 @@ Run from the repository root on a machine with one CUDA card. It
    int8 activations on every block linear (``bench.py --a8``'s
    configuration): held against its dequantized dense model (float32 and
    bfloat16), served like the others with exact launch counts, and one
-   ``set_image`` profiled with the per-token quantize pass's share; then one
-   bfloat16 encode of the asymmetric W4A8 model;
+   ``set_image`` profiled with the per-token quantize pass's share, and one
+   ``set_image`` under a tuned table naming 256 x 128 and 256 x 64 (JAX's
+   bare keys, read by ``pick_blocks_a8``): the exact launches at each tile,
+   the embedding bit-equal to the default tile's; then one bfloat16 encode of
+   the asymmetric W4A8 model, and one under the same table;
 8. small inputs: vit_tiny predictors, dense, W4 and W4A8, on the card
    against the same models on the CPU;
 9. rel-less ViT-H encode (``use_rel_pos=False``): 28 ``flash_whole`` and 4
@@ -177,8 +185,9 @@ Run from the repository root on a machine with one CUDA card. It
     the card's model, byte-equal to the one built from a CPU copy of its
     decoder, run by the numpy runtime on a kernel-path ``set_image``
     embedding against ``SamDecoderModule`` on the card (float32, both mask
-    gates); (d) ``torch.export`` of the ViT-H decoder and float32 encoder,
-    saved, loaded and run against the eager module (the .pt2 files in
+    gates); (d) ``torch.export`` of the ViT-H decoder and float32 encoder
+    (its first 8 blocks), saved, loaded and run against the eager module
+    (the .pt2 files in
     ``build/chip_export/``, deleted after), and a W4 and a W4A8 vit_tiny
     encoder exported on the card: their programs hold the kernel ops and
     launch the dequant-matmul kernels 16 times a run, none in the export,
@@ -187,14 +196,18 @@ Run from the repository root on a machine with one CUDA card. It
     image) compiled for the card and run from Python and by the C++ runner
     (built with ``g++`` against this PyTorch, CUDA libraries linked) against
     its eager encoder (the decoder package is held by the CPU tests); (c)
-    the ONNX ViT-B float32 encoder through the numpy runtime against the
-    card's eager encoder, and ViT-H's refused before anything is serialized
-    (past protobuf's 2 GiB); (f) ``Profiler(2, 2, 6)`` around 10 bf16
+    the ONNX ViT-B float32 encoder (its first 4 blocks) through the numpy
+    runtime against the card's eager encoder, and ViT-H's refused before
+    anything is serialized (past protobuf's 2 GiB); (f) ``Profiler(2, 2, 6)`` around 10 bf16
     ``set_image`` calls, whose Chrome trace names 6 x 28/4 flash kernels;
     (a) ``sam.forward`` in bf16 at B = 2 (28/4 launches) against the same
     forward in float32 on the eager path, and against per-image encode +
     decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
-    --format onnx``. Each part's seconds are printed.
+    --format onnx``. Each part's seconds are printed. (e)'s package is
+    compiled by a process of its own (``python3 chip_smoke.py
+    --aoti-package DIR``), started first, and checked after step 21: the
+    compile (142-183 s of host compilers on an NVIDIA H100 80GB HBM3
+    machine at 700 W) runs beside steps 19-21.
 20. rel-pos resize (``models/image_encoder.get_rel_pos``): a ViT-H global
     attention whose 127-row tables are resized for grids 48 and 32 (shrunk
     to 95 and 63 rows) and 80 and 128 (grown to 159 and 255): the card's
@@ -202,11 +215,20 @@ Run from the repository root on a machine with one CUDA card. It
     kernel JAX's dispatch picks (``flash_rowblock`` at 48 and 80,
     ``flash_global`` at 32 and 128) against its plain version, and the
     module's kernel branch (one launch) against its eager branch.
+21. the hoisted-windowed path (``SAMQ_HOIST_PROJ``, ``SAMQ_HOIST_QKV``):
+    ViT-H bf16 served dense, W4 and cached int8, each partition-first, then
+    with proj hoisted, then with proj and qkv hoisted (the gates set before
+    the arm's first call): launches a ``set_image`` (the mode's, in every
+    arm), the embedding against partition-first's (rel L2 5e-2, and whether
+    bit-equal), and the device ms of the 28 windowed blocks under the
+    profiler.
 
-The line before the last is a JSON object with one entry per kernel build
+Each step prints its seconds (``step N ...: s``), and a line after step 21
+all of them. The line before the last is a JSON object with one entry per kernel build
 (its ``dtype``; the packed-weight kernels in float32 and bfloat16, and the
-tuned tiles of ``quant_matmul`` and ``quant_matmul3`` other than the
-default, named by their tile); the last
+tuned tiles of ``quant_matmul``, ``quant_matmul3``, ``quant_matmul_a8_sym``
+and ``quant_matmul_a8`` other than the default, named by their tile); the
+last
 line is ``{"ok": true, "device": {...}}``. It exits non-zero, without that
 line, when there is no CUDA device, when the package is missing, or when any
 check fails.
@@ -215,6 +237,7 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -225,6 +248,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -440,6 +464,13 @@ EXPORT_TOL, FORWARD_SPLIT_TOL = 1e-5, 5e-3
 # The cached-int8 AOTInductor encoder is vit_tiny: ViT-B's compile for the
 # card took 202.5 s on an H100, past the step's budget for it (about 180 s).
 ONNX_ENCODER, AOTI_ENCODER = "vit_b", "vit_tiny"
+# Depths of step 19's encoders that are exported whole: the ONNX ViT-B
+# encoder run by the numpy runtime (on the host: 40 s at ViT-B's 12 blocks)
+# and the float32 ViT-H encoder's .pt2 (written, read back and run: 34 s at
+# 32 blocks; both on the host of an NVIDIA H100 80GB HBM3, 700 W). Each keeps a global block (ViT-B's 2, ViT-H's 7) among
+# windowed ones; the ViT-H decoder and ViT-H's 2 GiB refusal are whole.
+ONNX_ENCODER_DEPTH, EXPORT_ENCODER_DEPTH = 4, 8
+AOTI_WAIT_S = 600  # most seconds step 19 (e)'s finish waits for its compile
 PROFILE_WINDOW = (2, 2, 6)  # Profiler wait, warmup, active around 10 set_image calls
 FAILURES = []
 
@@ -2005,14 +2036,80 @@ def classifier_brs_phase(dev, card: str, build, reset_counts, counts, zero: dict
     print(f"classifier and BRS phase {time.perf_counter() - phase_t:.1f} s")
 
 
+def seeded_model(name: str, dev, depth=None):
+    """``name`` from seed 0, rel-pos tables drawn from seed 1 (as main's
+    vit_h()); ``depth``: its first blocks only."""
+    import torch
+
+    from sam_quantization_tpu_torch.models import configs
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+
+    cfg = configs.CONFIGS[name]
+    if depth is not None:
+        ecfg = cfg.image_encoder
+        cfg = dataclasses.replace(cfg, image_encoder=dataclasses.replace(
+            ecfg, depth=depth,
+            global_attn_indexes=tuple(i for i in ecfg.global_attn_indexes if i < depth)))
+    m = sam_lib.init(cfg, 0, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for blk in m.image_encoder.blocks:
+            for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.2)
+    return m
+
+
+def aoti_int8_model(dev):
+    """Step 19 (e)'s encoder, (model, image, static scales): the seeded
+    AOTI_ENCODER, cached int8 (RTN sym W4 g128, static scales from one
+    seeded image, margin 1.1). The same in every process."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.quant import act_scales as act_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
+
+    model = seeded_model(AOTI_ENCODER, dev)
+    s_e = model.config.image_encoder.img_size
+    x = torch.from_numpy(np.random.default_rng(191).standard_normal((1, s_e, s_e, 3))
+                         .astype(np.float32)).to(dev)
+    act = act_lib.calibrate_act_scales(model.image_encoder, [x], margin=1.1)
+    seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(bits=4, groupsize=128, sym=True))
+    packed_lib.cache_int8(model.image_encoder, act_scales=act,
+                          skip=packed_lib.default_serve_skip(model.config.image_encoder.embed_dim))
+    return model, x, act
+
+
+def aoti_package(directory: str) -> int:
+    """``python3 chip_smoke.py --aoti-package DIR``: compile step 19 (e)'s
+    encoder with AOTInductor for the card into DIR. Step 19 starts it as a
+    process of its own, so that the compile (142-183 s, mostly host
+    compilers, on an NVIDIA H100 80GB HBM3 machine at 700 W) runs beside the
+    rest of steps 19-21."""
+    import torch
+
+    from sam_quantization_tpu_torch import export as ex
+
+    model, _, _ = aoti_int8_model(torch.device("cuda"))
+    t = time.perf_counter()
+    ex.export_encoder_aoti(model, directory)
+    print(f"AOTInductor compile {time.perf_counter() - t:.1f} s", flush=True)
+    return 0
+
+
 def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
-                 flash_launches: dict) -> None:
+                 flash_launches: dict):
     """The export tail (module docstring, step 19), on the float32 ViT-H:
     (b) the ONNX decoder, (d) ``torch.export`` (and the packed vit_tiny
-    encoders), (c) the ONNX encoder (ViT-B; ViT-H refused), (e) the
-    cached-int8 vit_tiny AOTInductor package and the C++ runner; then (a)'s
+    encoders), (c) the ONNX encoder (ViT-B; ViT-H refused); then (a)'s
     float32 eager forward, and on the bf16 encoder (f) the Profiler and (a)
-    ``sam.forward``; and (g) ``cli.export``."""
+    ``sam.forward``; and (g) ``cli.export``. (e), the cached-int8 vit_tiny
+    AOTInductor package, is compiled by a process of its own
+    (:func:`aoti_package`) started first; the returned function waits for
+    it and checks the package from Python and by the C++ runner (built in a
+    thread beside (b)-(d)). Call it after the steps that follow (20, 21),
+    so that the compile runs beside them."""
     import numpy as np
     import torch
 
@@ -2025,7 +2122,6 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
     from sam_quantization_tpu_torch.ops import _build
     from sam_quantization_tpu_torch.ops.quant_matmul import KERNEL_OPS
     from sam_quantization_tpu_torch.predictor import SamPredictor
-    from sam_quantization_tpu_torch.quant import act_scales as act_lib
     from sam_quantization_tpu_torch.quant import sequential as seq
     from sam_quantization_tpu_torch.utils.experiment import Profiler
 
@@ -2034,6 +2130,15 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
     work = repo / "build" / "chip_export"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    aoti_dir = repo / "build" / "chip_aoti"  # (e)'s package, kept until finish_aoti
+    shutil.rmtree(aoti_dir, ignore_errors=True)
+    aoti_dir.mkdir(parents=True)
+    with open(aoti_dir / "compile.log", "w") as log:
+        aoti_t = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()), "--aoti-package",
+             str(aoti_dir / "aoti_enc")], cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: child.poll() is None and child.kill())
     seconds = {}
     r = np.random.default_rng(19)
 
@@ -2052,18 +2157,8 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    def seeded(name):
-        """``name`` from seed 0, rel-pos tables drawn from seed 1 (as vit_h())."""
-        m = build_sam.sam_model_registry[name](device=dev, seed=0)
-        g = torch.Generator(device=dev).manual_seed(1)
-        with torch.no_grad():
-            for blk in m.image_encoder.blocks:
-                for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
-                    t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.2)
-        return m
-
     def run_runner(package, feeds, tag):
-        in_dir, out_dir = work / f"{tag}_in", work / f"{tag}_out"
+        in_dir, out_dir = aoti_dir / f"{tag}_in", aoti_dir / f"{tag}_out"
         in_dir.mkdir()
         out_dir.mkdir()
         for k, v in feeds.items():
@@ -2083,6 +2178,20 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
             got[f.stem] = torch.from_numpy(np.fromfile(f, np.float32).reshape(shape))
         return got, ran
 
+    # (e)'s runner is a g++ build (about 18 s on the host of an NVIDIA H100
+    # 80GB HBM3, 700 W): in a thread beside (b)-(d).
+    runner_box = {}
+
+    def build_runner():
+        t = time.perf_counter()
+        try:
+            runner_box["path"] = _build.aoti_runner()
+        except RuntimeError as e:
+            runner_box["error"] = str(e)
+        runner_box["seconds"] = time.perf_counter() - t
+
+    runner_thread = threading.Thread(target=build_runner)
+    runner_thread.start()
     try:
         model = build()  # ViT-H float32
         cfg = model.config
@@ -2139,9 +2248,10 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
         # loaded and run against the eager module.
         args = (emb, coords, labels, torch.zeros(1, 4 * h, 4 * w, 1, device=dev),
                 torch.zeros(1, device=dev))
+        shallow = seeded_model("vit_h", dev, EXPORT_ENCODER_DEPTH)
         with torch.no_grad():
             want = module(*args)
-            want_enc = sam_lib.encode_image(model, x, "eager")
+            want_enc = sam_lib.encode_image(shallow, x, "eager")
         reset_counts()
         _, seconds["(d) decoder export + save"] = timed(
             lambda: ex.export_decoder(model, str(work / "decoder.pt2"), num_points=3))
@@ -2150,18 +2260,18 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
             got = fn(*args)
         dec_err = max(rel(a, b) for a, b in zip(got, want))
         _, seconds["(d) encoder export + save"] = timed(
-            lambda: ex.export_encoder(model, str(work / "encoder.pt2")))
+            lambda: ex.export_encoder(shallow, str(work / "encoder.pt2")))
         pt2_bytes = (work / "encoder.pt2").stat().st_size
         fn, seconds["(d) encoder load"] = timed(lambda: ex.load_exported(str(work / "encoder.pt2")))
         with torch.no_grad():
             got_enc, seconds["(d) encoder run"] = timed(lambda: fn(x))
-        del fn
+        del fn, shallow
         (work / "encoder.pt2").unlink()
         enc_err = rel(got_enc, want_enc)
         check(dec_err <= EXPORT_TOL and enc_err <= EXPORT_TOL and counts() == zero,
               f"export (d): torch.export ViT-H decoder rel L2 {dec_err:.3e}, float32 encoder "
-              f"({pt2_bytes / 1e9:.2f} GB .pt2) rel L2 {enc_err:.3e} vs eager (<= {EXPORT_TOL}); "
-              "no kernel launched")
+              f"(first {EXPORT_ENCODER_DEPTH} blocks, {pt2_bytes / 1e9:.2f} GB .pt2) rel L2 "
+              f"{enc_err:.3e} vs eager (<= {EXPORT_TOL}); no kernel launched")
         del got_enc, want_enc
 
         # W4 and W4A8 encoders exported on the card hold the kernel ops: no
@@ -2202,10 +2312,6 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
                   f"AOTInductor: {refused[:90]}")
         del tiny, fn
 
-        # (e) AOTInductor: the runner, built with g++ against this PyTorch.
-        t = time.perf_counter()
-        runner = _build.aoti_runner()
-        seconds["(e) runner build"] = time.perf_counter() - t
 
         # (c) ViT-H's float32 encoder is past protobuf's 2 GiB: refused
         # before anything is built.
@@ -2219,8 +2325,9 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
         del model, module, predictor, emb, want
         torch.cuda.empty_cache()
 
-        # (c) the ONNX encoder: ViT-B float32 through the numpy runtime.
-        enc_model = seeded(ONNX_ENCODER)
+        # (c) the ONNX encoder: ViT-B float32 (its first ONNX_ENCODER_DEPTH
+        # blocks) through the numpy runtime.
+        enc_model = seeded_model(ONNX_ENCODER, dev, ONNX_ENCODER_DEPTH)
         blob, seconds["(c) ONNX encoder export"] = timed(
             lambda: export_onnx.export_encoder_onnx(enc_model))
         export_onnx.runtime.check_model(_wire.parse("ModelProto", blob))
@@ -2235,42 +2342,12 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
         nbytes = len(_wire.serialize(rt.model))
         del rt, got, enc_model
         check(err <= ONNX_ENC_TOL and "2 GiB" in refused,
-              f"export (c): ONNX {ONNX_ENCODER} encoder ({nbytes} bytes) numpy runtime vs the "
+              f"export (c): ONNX {ONNX_ENCODER} encoder (first {ONNX_ENCODER_DEPTH} blocks, "
+              f"{nbytes} bytes) numpy runtime vs the "
               f"card's eager encoder rel L2 {err:.3e} (<= {ONNX_ENC_TOL}); ViT-H: {refused}")
         print(f"  ONNX {ONNX_ENCODER} encoder: export {seconds['(c) ONNX encoder export']:.1f} s, "
               f"numpy runtime {seconds['(c) numpy runtime']:.1f} s (host); ViT-H refused in "
               f"{refuse_ms:.1f} ms  [{card}]")
-        torch.cuda.empty_cache()
-
-        # (e) a cached-int8 encoder (RTN sym W4 g128, static scales from
-        # one seeded image, margin 1.1) through aoti_runner.
-        qmodel = seeded(AOTI_ENCODER)
-        s_e = qmodel.config.image_encoder.img_size
-        x = torch.from_numpy(np.random.default_rng(191).standard_normal((1, s_e, s_e, 3))
-                             .astype(np.float32)).to(dev)
-        act = act_lib.calibrate_act_scales(qmodel.image_encoder, [x], margin=1.1)
-        seq.rtn_quantize_encoder(qmodel.image_encoder,
-                                 seq.GPTQConfig(bits=4, groupsize=128, sym=True))
-        packed_lib.cache_int8(qmodel.image_encoder, act_scales=act,
-                              skip=packed_lib.default_serve_skip(qmodel.config.image_encoder.embed_dim))
-        with torch.no_grad():
-            want = sam_lib.encode_image(qmodel, x, "eager")
-        _, seconds["(e) int8 encoder compile"] = timed(
-            lambda: ex.export_encoder_aoti(qmodel, str(work / "aoti_enc")))
-        with torch.no_grad():
-            got_py, seconds["(e) int8 encoder from Python"] = timed(
-                lambda: ex.load_aoti(str(work / "aoti_enc"))(x))
-        got_cc, seconds["(e) int8 encoder runner"] = run_runner(
-            work / "aoti_enc", {"image": x}, "enc")
-        py_err = rel(got_py, want)
-        cc_err = rel(got_cc["image_embeddings"], want) if got_cc else float("inf")
-        both = rel(got_cc["image_embeddings"], got_py) if got_cc else float("inf")
-        check(py_err <= INT8_F32_TOL and cc_err <= INT8_F32_TOL,
-              f"export (e): cached-int8 {AOTI_ENCODER} AOTInductor encoder (sym W4 g128, "
-              f"{len(act)} static scales) vs its eager encoder rel L2 from Python {py_err:.3e}, "
-              f"by aoti_runner {cc_err:.3e} (<= {INT8_F32_TOL}; runner vs Python {both:.3e}); "
-              f"compile {seconds['(e) int8 encoder compile']:.1f} s; runner {runner.name}")
-        del qmodel, want, got_py
         torch.cuda.empty_cache()
 
         # (a) first the float32 forward on the eager path; (f) the Profiler
@@ -2348,11 +2425,63 @@ def export_phase(dev, card: str, build, reset_counts, counts, zero: dict,
               f"export (g): cli.export vit_h --format onnx exit {proc.returncode}: {line}")
         if proc.returncode != 0:
             print(proc.stderr[-3000:])
+    except BaseException:
+        child.kill()
+        child.wait()
+        raise
     finally:
+        runner_thread.join()
         shutil.rmtree(work, ignore_errors=True)
     print("  export seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"  [{card}]")
     print(f"export phase {time.perf_counter() - phase_t:.1f} s")
+
+    def finish_aoti() -> None:
+        """(e): wait for the compile, then the cached-int8 package against
+        its eager encoder, from Python and by aoti_runner."""
+        t = time.perf_counter()
+        try:
+            rc = child.wait(timeout=AOTI_WAIT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+            rc = f"killed after {AOTI_WAIT_S} s more"
+        waited = time.perf_counter() - t
+        compiled = time.perf_counter() - aoti_t
+        log = (aoti_dir / "compile.log").read_text()
+        last = log.strip().splitlines()[-1][-300:] if log.strip() else "no output"
+        try:
+            check(rc == 0 and (aoti_dir / "aoti_enc" / "model.pt2").exists(),
+                  f"export (e): AOTInductor package compiled by its own process (exit {rc}): "
+                  f"{last}")
+            if rc != 0:
+                print(log[-3000:])
+            check("path" in runner_box, "export (e): aoti_runner built with g++ "
+                                        + runner_box.get("error", "")[-2000:])
+            if rc != 0 or "path" not in runner_box:
+                return
+            qmodel, x, act = aoti_int8_model(dev)
+            with torch.no_grad():
+                want = sam_lib.encode_image(qmodel, x, "eager")
+                got_py, from_py = timed(lambda: ex.load_aoti(str(aoti_dir / "aoti_enc"))(x))
+            got_cc, by_runner = run_runner(aoti_dir / "aoti_enc", {"image": x}, "enc")
+            py_err = rel(got_py, want)
+            cc_err = rel(got_cc["image_embeddings"], want) if got_cc else float("inf")
+            both = rel(got_cc["image_embeddings"], got_py) if got_cc else float("inf")
+            check(py_err <= INT8_F32_TOL and cc_err <= INT8_F32_TOL,
+                  f"export (e): cached-int8 {AOTI_ENCODER} AOTInductor encoder (sym W4 g128, "
+                  f"{len(act)} static scales) vs its eager encoder rel L2 from Python "
+                  f"{py_err:.3e}, by aoti_runner {cc_err:.3e} (<= {INT8_F32_TOL}; runner vs "
+                  f"Python {both:.3e}); runner {runner_box['path'].name}")
+            print(f"  export (e) seconds: started to finished {compiled:.2f} (waited after step "
+                  f"21 {waited:.2f}), runner build {runner_box['seconds']:.2f}, from Python "
+                  f"{from_py:.2f}, by the runner {by_runner:.2f}  [{card}]")
+            del qmodel, want, got_py
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(aoti_dir, ignore_errors=True)
+
+    return finish_aoti
 
 
 # Tuned tiles of the weight-only packed-weight kernels (ops/autotune.py,
@@ -2533,6 +2662,231 @@ def relpos_phase(dev, card: str, randn, reset_counts, counts, zero: dict, head_s
             torch.cuda.empty_cache()
 
 
+# The W-A8 kernels' tiles (csrc/quant_matmul_a8.cu's main build, the
+# tiles of ops/autotune.TILES_A8) at TILE_SHAPES' 4-bit rows, both kernels,
+# bfloat16 out; their instantiations' names in SASS and ptxas's report:
+# (bits, sym, fine, bm, bn, out type).
+A8_TILE_SHAPES = tuple((what, M, K, N) for what, M, K, N, bits in TILE_SHAPES if bits == 4)
+A8_PATTERN = r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E"
+# W-A8 launches of one ViT-H encode by layer shape (M, K, N): the 28
+# windowed blocks' qkv and proj on the 4900 padded window tokens, the 4
+# global blocks' on 4096, every MLP on 4096.
+A8_SHAPE_LAUNCHES = {(4900, 1280, 3840): 28, (4900, 1280, 1280): 28, (4096, 1280, 3840): 4,
+                     (4096, 1280, 1280): 4, (4096, 1280, 5120): 32, (4096, 5120, 1280): 32}
+# The hoisted-windowed arms (models/image_encoder._use_hoisted_windowed):
+# their environment gates, partition-first first.
+HOIST_ARMS = (("partition-first", {}), ("SAMQ_HOIST_PROJ=1", {"SAMQ_HOIST_PROJ": "1"}),
+              ("SAMQ_HOIST_PROJ=1 SAMQ_HOIST_QKV=1",
+               {"SAMQ_HOIST_PROJ": "1", "SAMQ_HOIST_QKV": "1"}))
+HOIST_TOL = BF16_TOL  # the bf16 kernel path's bound against its eager path
+HOIST_ITERS = 3  # profiled encodes an arm
+STEP_SECONDS = {}  # seconds of each step, in order (mark)
+_STEP_START = [time.perf_counter()]
+
+
+def mark(step: str) -> None:
+    """Print and keep the seconds since the last mark as step ``step``'s."""
+    now = time.perf_counter()
+    STEP_SECONDS[step] = now - _STEP_START[0]
+    _STEP_START[0] = now
+    print(f"step {step}: {STEP_SECONDS[step]:.1f} s")
+
+
+def a8_tile_table(bits: int = 4) -> dict:
+    """A tuned table (JAX's bare keys, groups of 128) naming 256 x 128 and
+    256 x 64 in turn over A8_SHAPE_LAUNCHES' shapes."""
+    from sam_quantization_tpu_torch.ops import autotune
+
+    return {autotune._key(M, K, N, 128, bits): [*autotune.TILES_A8[1 + i % 2], 128]
+            for i, (M, K, N) in enumerate(A8_SHAPE_LAUNCHES)}
+
+
+def a8_tile_launches(table: dict, name: str, dtype) -> dict:
+    """The W-A8 launches by tile that one ViT-H encode makes under ``table``."""
+    from sam_quantization_tpu_torch.ops import autotune
+
+    want = {}
+    for (M, K, N), n in A8_SHAPE_LAUNCHES.items():
+        tile = tuple(table.get(autotune._key(M, K, N, 128, 4), (*autotune.TILES_A8[0], 128)))
+        want[(name, dtype, tile)] = want.get((name, dtype, tile), 0) + n
+    return want
+
+
+def a8_tile_phase(card: str, randn, cuda_ms, log) -> dict:
+    """The W-A8 tiles: ptxas's spill bytes of every main-build
+    instantiation (0 at every tile, bits, kernel and output type; read where
+    this run built the library: ``log``), then every candidate tile of both
+    kernels at A8_TILE_SHAPES in bfloat16, each bit-equal to the plain
+    version and to the default tile's launch (every tile walks K in the same
+    tiles and segments), timed by CUDA events, the fastest printed a shape.
+    Returns {(name, tile): {"err", "ms"}} at the qkv shape."""
+    import torch
+
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.ops import autotune
+    from sam_quantization_tpu_torch.ops import quant_matmul as qm
+
+    if log is not None:
+        usage = ptxas_usage(log, A8_PATTERN)
+        main = {k: u for k, u in usage.items() if k[2] == "0"}
+        want = {(b, s, "0", str(bm), str(bn), o) for b in "248" for s in "01"
+                for bm, bn in autotune.TILES_A8 for o in ("f", "13__nv_bfloat16")}
+        by_tile = {}
+        for (b, s, _, bm, bn, o), u in sorted(main.items()):
+            by_tile.setdefault(f"{bm}x{bn}", []).append(u)
+        check(set(main) == want and all(u[0] == u[1] == 0 for u in main.values()),
+              f"quant_matmul_a8 main build, ptxas over {len(main)} instantiations (36): " + "; ".join(
+                  f"{t} spill bytes {max(u[0] + u[1] for u in us)}, registers "
+                  f"{min(u[2] for u in us)}-{max(u[2] for u in us)}" for t, us in by_tile.items()))
+        fine = {k: u for k, u in usage.items() if k[2] == "1" and (u[0] or u[1])}
+        print("  quant_matmul_a8 FINE build (128 x 128, not tiled), ptxas spill stores / loads: "
+              + (", ".join(f"W{k[0]} {'sym' if k[1] == '1' else 'asym'} {k[5][-8:]} "
+                           f"{u[0]} / {u[1]} B" for k, u in sorted(fine.items())) or "none"))
+    else:
+        print("quant_matmul_a8 ptxas report not read (cached build)")
+    rows = {}
+    for sym in (True, False):
+        name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+        for what, M, K, N in A8_TILE_SHAPES:
+            std = K**-0.5
+            p = packed_lib.with_act_bits(packed_lib.quantize_rtn(
+                randn(K, N, std=std) + (0.0 if sym else 1.5 * std), 4, 128, sym), 8)
+            xq, xs = qm.quantize_activations_int8(randn(M, K, dtype=torch.bfloat16))
+            plain = qm.a8_matmul_plain(xq, xs, p, torch.bfloat16, sym)
+            default = qm.a8_matmul(xq, xs, p, torch.bfloat16, sym)
+            cands = autotune.candidate_blocks_a8(M, N, K, 128, p.pack_block)
+            check(cands[0] == qm.pick_blocks_a8(M, N, K, 128, p.pack_block, 4)
+                  and len(cands) == len(autotune.TILES_A8) and qm.a8_main_build(K, 128, 128, 4),
+                  f"{name} {what}: candidates {cands}, default {cands[0]}")
+            times = []
+            for tile in cands:
+                out = qm.a8_matmul_tiled(xq, xs, p, tile, torch.bfloat16, sym)
+                torch.cuda.synchronize()
+                err = float((out.float() - plain.float()).abs().max())
+                to_plain, to_default = torch.equal(out, plain), torch.equal(out, default)
+                check(to_plain and to_default and out.dtype == torch.bfloat16,
+                      f"{name} W4 {what} bfloat16 tile {'x'.join(map(str, tile))}: "
+                      f"{'bit-equal' if to_plain else f'max|d| {err:.3e}'} to plain, "
+                      f"{'' if to_default else 'not '}bit-equal to the default tile")
+                ms = cuda_ms(lambda tile=tile: qm.a8_matmul_tiled(xq, xs, p, tile,
+                                                                  torch.bfloat16, sym), 20)
+                times.append(ms)
+                if what == "qkv":
+                    rows[(name, tile)] = dict(err=err, ms=ms)
+            print(f"{name} W4 {what} bfloat16 (M {M}, K {K}, N {N}) by tile: " + ", ".join(
+                f"{bm}x{bn}x{bk} {ms:.4f} ms" for (bm, bn, bk), ms in zip(cands, times))
+                + f"; fastest {'x'.join(map(str, cands[times.index(min(times))]))}  [{card}]")
+            del p, xq, xs, plain, default
+    return rows
+
+
+def hoist_phase(dev, card: str, build, image, reset_counts, counts, want: dict) -> None:
+    """Step 21: the hoisted-windowed path (models/image_encoder.py,
+    ``SAMQ_HOIST_PROJ`` / ``SAMQ_HOIST_QKV``), ViT-H bf16 served in three
+    modes (``want``: dense, W4, cached int8 and each one's launches a
+    ``set_image``). Each mode runs HOIST_ARMS in turn, the gates set before
+    that arm's first call: a warm-up ``set_image``, one with counts reset just
+    before and read just after (the mode's launches: hoisting changes the
+    token counts of qkv and proj, not the launches), its embedding against
+    partition-first's (rel L2, HOIST_TOL; whether bit-equal), and the device
+    time of the 28 windowed blocks under the profiler (each windowed block
+    in a range; the mean of HOIST_ITERS encodes in one profile), with the
+    whole encode's device busy time beside it."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.nn import packed as packed_lib
+    from sam_quantization_tpu_torch.predictor import SamPredictor
+    from sam_quantization_tpu_torch.quant import act_scales as act_lib
+    from sam_quantization_tpu_torch.quant import sequential as seq
+
+    phase_t = time.perf_counter()
+
+    def stage_ms(enc, x):
+        """(windowed blocks' device ms, the encode's device busy ms) a
+        encode, and the windowed blocks profiled, over HOIST_ITERS encodes."""
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(HOIST_ITERS):
+                h = enc.embed(x)
+                for blk in enc.blocks:
+                    if blk.window_size > 0:
+                        with record_function("windowed block"):
+                            h = blk(h, "kernel")
+                    else:
+                        h = blk(h, "kernel")
+                enc.neck_forward(h)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        spans = [e for e in events if e.key == "windowed block" and e.device_type == DeviceType.CPU]
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA and e.key != "windowed block")
+        return (sum(e.device_time_total for e in spans) / 1e3 / HOIST_ITERS,
+                busy / 1e3 / HOIST_ITERS, sum(e.count for e in spans))
+
+    for mode, launches in want.items():
+        model = build()
+        if mode == "cached int8":
+            calib = copy.deepcopy(model.image_encoder).to(torch.bfloat16)
+            xc = torch.from_numpy(np.random.default_rng(21).standard_normal((1, 1024, 1024, 3))
+                                  .astype(np.float32)).to(dev, torch.bfloat16)
+            act = act_lib.calibrate_act_scales(calib, [xc], margin=1.1)
+            del calib, xc
+        if mode != "dense":
+            seq.rtn_quantize_encoder(model.image_encoder, seq.GPTQConfig(
+                bits=4, groupsize=128, sym=mode == "cached int8"))
+        if mode == "cached int8":
+            packed_lib.cache_int8(model.image_encoder, act_scales=act,
+                                  skip=packed_lib.default_serve_skip(1280))
+        model.image_encoder.to(torch.bfloat16)
+        predictor = SamPredictor(model)
+        enc = model.image_encoder
+        x = sam_lib.preprocess(model, torch.from_numpy(
+            np.random.default_rng(22).integers(0, 256, (1, 1024, 1024, 3)).astype(np.float32))
+            .to(dev)).to(torch.bfloat16)
+        base, readings = None, []
+        for arm, gates in HOIST_ARMS:
+            for k in ("SAMQ_HOIST_PROJ", "SAMQ_HOIST_QKV"):
+                os.environ.pop(k, None)
+            os.environ.update(gates)
+            try:
+                predictor.set_image(image)
+                reset_counts()
+                predictor.set_image(image)
+                torch.cuda.synchronize()
+                got = counts()
+                emb = predictor.features.float().clone()
+                windowed, busy, blocks = stage_ms(enc, x)
+            finally:
+                for k in gates:
+                    os.environ.pop(k, None)
+            if base is None:
+                base, rel_err, equal = emb, 0.0, True
+            else:
+                rel_err = float((emb - base).norm() / base.norm())
+                equal = torch.equal(emb, base)
+            check(got == launches and bool(torch.isfinite(emb).all()) and rel_err <= HOIST_TOL
+                  and blocks == 28 * HOIST_ITERS,
+                  f"hoist {mode} bf16 {arm}: {blocks} windowed blocks profiled (28 x "
+                  f"{HOIST_ITERS}); launches a "
+                  f"set_image "
+                  f"{ {n: c for n, c in got.items() if c} }; embedding "
+                  + ("bit-equal to" if equal else f"rel L2 {rel_err:.3e} (<= {HOIST_TOL}) from")
+                  + " partition-first's")
+            readings.append(f"{arm} {windowed:.3f} ms (encode busy {busy:.3f})")
+        print(f"hoist {mode} bf16, windowed-stage device ms (28 blocks, mean of {HOIST_ITERS} "
+              f"encodes): "
+              + "; ".join(readings) + f"  [{card}]")
+        del predictor, model, enc, x, base, emb
+        torch.cuda.empty_cache()
+    print(f"hoist phase {time.perf_counter() - phase_t:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2585,6 +2939,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
+    mark("1-2 set-up and build")
 
     # Proof that the bfloat16 serving attention runs on the tensor cores:
     # each of its 16 instantiations (hd tiles 16..128, bf16 and int8 out) in
@@ -2644,13 +2999,17 @@ def main() -> int:
                      else "ptxas log not read (cached build)")
                   for (b, e, w), c in sorted(mix.items())))
     # The W-A8 kernels (bits 2, 4, 8; sym and asym; float32 and bf16 out):
-    # the 12 main-build instantiations run int8 wgmma (IGMMA), the 12 FINE
-    # ones int8 mma.sync (IMMA).
+    # the 36 main-build instantiations (at each tile of autotune.TILES_A8)
+    # run int8 wgmma (IGMMA), the 12 FINE ones (one 128 x 128 tile) int8
+    # mma.sync (IMMA). Their ptxas spill bytes are read in a8_tile_phase.
     tc_counts = tensor_core_counts(_build.library_path("quant_matmul_a8"), _build._nvcc(),
-                                   r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)E(13__nv_bfloat16|f)E")
-    want = {(b, s, o) for b in ("2", "4", "8") for s in ("0", "1") for o in ("f", "13__nv_bfloat16")}
+                                   A8_PATTERN)
     for fine, ins, i in (("0", "IGMMA", 3), ("1", "IMMA", 2)):
-        build = {(b, s, o): c for (b, s, f, o), c in tc_counts.items() if f == fine}
+        tiles = autotune.TILES_A8 if fine == "0" else ((128, 128),)
+        want = {(b, s, str(bm), str(bn), o) for b in "248" for s in "01" for bm, bn in tiles
+                for o in ("f", "13__nv_bfloat16")}
+        build = {(b, s, bm, bn, o): c for (b, s, f, bm, bn, o), c in tc_counts.items()
+                 if f == fine}
         check(set(build) == want and all(c[i] > 0 for c in build.values()),
               f"quant_matmul_a8 {'FINE' if fine == '1' else 'main'} build, {ins} in SASS: "
               f"{len(build)} instantiations, "
@@ -3313,6 +3672,8 @@ def main() -> int:
     tile_rows_report = tile_phase(dev, card, randn, rel_ok, cuda_ms,
                                   pathlib.Path(__file__).resolve().parent)
     torch.cuda.empty_cache()
+    a8_tile_rows = a8_tile_phase(card, randn, cuda_ms, logs.get("quant_matmul_a8"))
+    torch.cuda.empty_cache()
 
     # Every float32 build beside its library call and bound (the JSON line
     # carries the bfloat16 rows, and flash_whole's float32 one).
@@ -3321,6 +3682,8 @@ def main() -> int:
             print(f"float32 {name}: kernel {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms "
                   f"(x lib {r['ms'] / r['library_ms']:.2f}), bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms  [{card}]")
+
+    mark("3 kernels and tiles")
 
     # --------------------------------------------------------------- main path
     def vit_h():
@@ -3413,6 +3776,7 @@ def main() -> int:
         print_device_profile("dense click", lambda: predictor.predict(*clicks[0]))
         del predictor, model
         torch.cuda.empty_cache()
+        mark("4 dense")
 
         # W4: the same ViT-H, RTN 4-bit, groups of 128, quantized by the port.
         model = vit_h()
@@ -3486,6 +3850,7 @@ def main() -> int:
         tiled_run("W4 encode float32", tile_table(w4_shapes, 4, torch.float32),
                   lambda: sam_lib.encode_image(model, x, "kernel"), w4_launches, 1e-3)
         torch.cuda.empty_cache()
+        mark("5 W4")
 
         # W3: split-plane 3-bit never fuses, so all four linears of a block
         # run quant_matmul3 (float32 held as the W4 float32 encode, the
@@ -3519,6 +3884,7 @@ def main() -> int:
                       {**flash_launches, "quant_matmul3": 128}, tol)
         del model, dense_encoder, ref, e
         torch.cuda.empty_cache()
+        mark("6 W3")
 
         # W4A8 (bench.py --a8): the same ViT-H, RTN symmetric 4-bit, groups of
         # 128, int8 activations on every block linear. No MLP fuses, so all
@@ -3543,6 +3909,39 @@ def main() -> int:
                                       f"rel L2 {rel_err:.3e} (<= {tol})")
         predictor, a8_served = serve_all("W4A8", a8_launches)
         launches["quant_matmul_a8_sym"] = a8_served["quant_matmul_a8_sym"]
+
+        # The W-A8 kernels under a tuned table (JAX's bare keys, read by
+        # pick_blocks_a8 at each launch) naming 256 x 128 and 256 x 64 in
+        # turn over ViT-H's six linear shapes: counts reset just before the
+        # run and read just after; the launches by tile are exactly what the
+        # table names for each shape's layers (A8_SHAPE_LAUNCHES), the
+        # launches by kernel the default run's, and the output bit-equal to
+        # the default tile's (every tile keeps each output's sum).
+        a8_table = a8_tile_table()
+
+        def a8_tiled_run(what, name, run, want):
+            autotune._table = {}
+            base = run().clone()
+            autotune._table = a8_table
+            try:
+                reset_counts()
+                out = run()
+                torch.cuda.synchronize()
+                got, tiles = counts(), dict(qm.TILE_LAUNCHES)
+            finally:
+                autotune._table = {}
+            named = a8_tile_launches(a8_table, name, torch.bfloat16)
+            equal = torch.equal(out, base)
+            check(got == want and tiles == named and equal,
+                  f"{what} under a table naming 256x128 and 256x64 ({len(a8_table)} entries): "
+                  f"launches {got[name]} {name}, by tile "
+                  f"{ {'x'.join(map(str, t)): c for (_, _, t), c in sorted(tiles.items())} } "
+                  f"(want { {'x'.join(map(str, t)): c for (_, _, t), c in sorted(named.items())} }); "
+                  f"embedding {'' if equal else 'not '}bit-equal to the default tile's")
+            tile_launches.update(tiles)
+
+        a8_tiled_run("W4A8 served set_image bfloat16", "quant_matmul_a8_sym",
+                     lambda: predictor.set_image(images[0]), a8_launches)
         print_device_profile("W4A8 set_image", lambda: predictor.set_image(images[0]),
                              ranges=[(qm, "quantize_activations_int8", QUANT_RANGE)])
         del predictor, model
@@ -3565,8 +3964,12 @@ def main() -> int:
         check(bool(torch.isfinite(e).all()) and rel_err <= A8_BF16_TOL,
               f"W4A8 asymmetric encode bfloat16 vs dequantized dense float32 eager: "
               f"rel L2 {rel_err:.3e} (<= {A8_BF16_TOL})")
+        with torch.no_grad():
+            a8_tiled_run("W4A8 asymmetric encode bfloat16", "quant_matmul_a8",
+                         lambda: encoder(x.to(torch.bfloat16), "kernel"), asym_launches)
         del encoder, dense_encoder, ref, e
         torch.cuda.empty_cache()
+        mark("7 W4A8")
 
         # Small input: a vit_tiny predictor on the card against the same weights on the CPU.
         tiny_cpu = build_sam.sam_model_registry["vit_tiny"](device="cpu", seed=3)
@@ -3593,6 +3996,7 @@ def main() -> int:
                   f"vit_tiny {what} predictor, card vs CPU: low-res max|d| {d_low:.2e}, "
                   f"iou {d_iou:.2e} (<= {tol})")
         del tiny_cpu, tiny_gpu, dense_tiny
+        mark("8 small inputs")
 
         # Rel-less ViT-H (use_rel_pos=False): JAX's kernel branch sends the
         # 28 windowed blocks to the whole-problem route and the 4 global
@@ -3623,6 +4027,7 @@ def main() -> int:
                                       f"rel L2 {rel_err:.3e} (<= {tol})")
         del encoder, embs, ref, e
         torch.cuda.empty_cache()
+        mark("9 rel-less")
 
         # Cached int8 (bench.py's default mode, cli.infer --serve-int8): RTN
         # symmetric 4-bit, groups of 128, static activation scales calibrated
@@ -3712,6 +4117,7 @@ def main() -> int:
               f"{parts['attention kernels']:.2f} ms  [{card}]")
         del predictor, model, ref, e
         torch.cuda.empty_cache()
+        mark("10 cached int8")
 
         # The stage probes at ViT-H: the path of the five probe kernels.
         reset_counts()
@@ -3727,6 +4133,7 @@ def main() -> int:
         for name in ps.LAUNCHES:
             launches[name] = got[name]
         torch.cuda.empty_cache()
+        mark("11 stage probes")
 
         # ------------------------------------------------------- click loop
         # (a) The main-path gate through the kernels: vit_tiny_synth (best)
@@ -3838,9 +4245,11 @@ def main() -> int:
         del model, eval_pred, encode, decode
         torch.cuda.empty_cache()
         print(f"click-loop phase: {time.perf_counter() - phase_t:.1f} s")
+        mark("12 click loops")
 
         amg_server_phase(dev, card, vit_h, images, flash_launches, w4_launches, reset_counts,
                          counts, zero, repo)
+        mark("13 AMG and server")
 
     # ----------------------------------------------------------------- training
     # ViT-H fine-tuning in float32 on seeded easy scenes at 1024, batch 1,
@@ -3963,27 +4372,44 @@ def main() -> int:
     del tiny, tiny_opt, fresh, fresh_opt
     torch.cuda.empty_cache()
 
+    mark("14 training")
+
     # --------------------------------------------------------------------- GPTQ
     gptq_solver_phase(dev, card)
     gptq_encoder_phase(dev, card, "vit_h", vit_h, images[0], w4_launches, reset_counts, counts,
                        repo / "build" / "chip_gptq")
+    mark("15 GPTQ")
 
     # ------------------------------------------------------------------- FQ-ViT
     fq_phase(dev, card, "vit_h", vit_h, FQ_QPARAMS_VIT_H, reset_counts, counts, zero,
              repo / "build" / "chip_fq")
+    mark("16 FQ-ViT")
 
     # ----------------------------------------------------------------- parallel
     parallel_phase(dev, card, vit_h, reset_counts, counts, flash_launches, train_launches,
                    {"W4": w4_launches, "W4A8": a8_launches, "cached int8": int8_launches})
+    mark("17 parallel")
 
     # ------------------------------------------------------ classifiers, BRS
     classifier_brs_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
+    mark("18 classifiers and BRS")
 
     # ------------------------------------------------------------------ export
-    export_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
+    finish_export = export_phase(dev, card, vit_h, reset_counts, counts, zero, flash_launches)
+    mark("19 export")
 
     # --------------------------------------------------------- rel-pos resize
     relpos_phase(dev, card, randn, reset_counts, counts, zero, head_split_ok, cuda_ms)
+    mark("20 rel-pos resize")
+
+    # ------------------------------------------------------ hoisted windowed
+    hoist_phase(dev, card, vit_h, images[0], reset_counts, counts,
+                {"dense": flash_launches, "W4": w4_launches, "cached int8": int8_launches})
+    mark("21 hoisted windowed")
+    finish_export()
+    mark("19 (e) AOTInductor package (compiled beside 19-21)")
+    print("step seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in STEP_SECONDS.items())
+          + f"; total {sum(STEP_SECONDS.values()):.1f} s  [{card}]")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -4034,6 +4460,20 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": base["plain_ms"], "bound_ms": base["bound_ms"],
             "bound_by": base["bound_by"], "library_ms": base["library_ms"],
         })
+    # The W-A8 kernels' tiles other than the default, likewise (a8_tile_phase
+    # at the qkv shape; launches from the W4A8 runs under a8_tile_table).
+    for (name, tile), r in a8_tile_rows.items():
+        if tile[:2] == autotune.TILES_A8[0]:
+            continue
+        base = report[(name, "bfloat16")]
+        kernels.append({
+            "name": f"{name} tile {'x'.join(map(str, tile))}", "dtype": "bfloat16",
+            "route": "cuda", "source": csrc + "quant_matmul_a8.cu", "replaces": sources[name][1],
+            "launches": tile_launches.get((name, torch.bfloat16, tile), 0),
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": base["plain_ms"],
+            "bound_ms": base["bound_ms"], "bound_by": base["bound_by"],
+            "library_ms": base["library_ms"],
+        })
     if any(k["launches"] == 0 for k in kernels):
         print("chip_smoke: a kernel of the path was not launched: " + ", ".join(
             f"{k['name']} {k['dtype']}" for k in kernels if k["launches"] == 0), file=sys.stderr)
@@ -4047,4 +4487,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--aoti-package"]:
+        sys.exit(aoti_package(sys.argv[2]))
     sys.exit(main())

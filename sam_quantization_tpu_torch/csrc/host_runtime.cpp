@@ -7,7 +7,8 @@
 //   * greedy box NMS (torchvision batched_nms counterpart);
 //   * exact Euclidean distance transform (cv2.distanceTransform
 //     counterpart, Felzenszwalb-Huttenlocher two-pass), used by the
-//     click-loop evaluation's Clicker.
+//     click-loop evaluation's Clicker;
+//   * block-planar packing of integer weight grids (nn/packed.py's layout).
 //
 // A copy of the same ops of the repository's csrc/samq_runtime.cpp, so the
 // port needs nothing of the JAX package. Plain C ABI, no Python.h.
@@ -336,6 +337,28 @@ void distance_transform_edt(const uint8_t* mask, int64_t h, int64_t w,
     for (int64_t x = 0; x < w; ++x) f[x] = g[y * w + x];
     edt_1d(f.data(), d.data(), (int)w, v, z);
     for (int64_t x = 0; x < w; ++x) out[y * w + x] = std::sqrt(d[x]);
+  }
+}
+
+// Pack an integer grid w (K, N), values in [0, 2^bits), into block-planar
+// int32 words out (K / per, N), per = 32 / bits (bits 2, 4, 8): K is cut
+// into pack blocks of pack_block rows, and word row blk * rpp + i (rpp =
+// pack_block / per) holds rows blk * pack_block + s * rpp + i, s = 0..per-1,
+// at bit s * bits.
+void pack_block_planar(const int32_t* w, int64_t K, int64_t N, int bits,
+                       int pack_block, int32_t* out) {
+  const int per = 32 / bits;
+  const int rows_per_plane = pack_block / per;
+  std::memset(out, 0, sizeof(int32_t) * (size_t)(K / per) * N);
+  for (int64_t k = 0; k < K; ++k) {
+    const int64_t blk = k / pack_block, in_blk = k % pack_block;
+    const int plane = (int)(in_blk / rows_per_plane);
+    const int64_t row = blk * rows_per_plane + in_blk % rows_per_plane;
+    const uint32_t shift = (uint32_t)(plane * bits);
+    const int32_t* src = w + k * N;
+    int32_t* dst = out + row * N;
+    for (int64_t n = 0; n < N; ++n)
+      dst[n] = (int32_t)((uint32_t)dst[n] | ((uint32_t)src[n] << shift));
   }
 }
 

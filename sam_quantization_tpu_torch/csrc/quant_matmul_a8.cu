@@ -33,11 +33,19 @@
 // scales), ~1000 cycles at 128 bytes a cycle against ~600 of products.
 //
 // Main build (FINE = false; a8tc below): warp-specialized, on Hopper's int8
-// warpgroup MMA. A block is three warpgroups and owns a (128, 128) output
-// tile: warpgroup 0 produces, warpgroups 1 and 2 consume rows 0-63 and
-// 64-127.
-// - Products: wgmma.m64n144k32.s32.s8.u8 with both operands K-major in
-//   shared memory (8-bit wgmma takes no transpose), in the 128-byte swizzle:
+// warpgroup MMA. A block is three warpgroups and owns a (BM, BN) output
+// tile: warpgroup 0 produces, warpgroups 1 and 2 consume the first and the
+// second half of its rows. The body is a template on the tile; the default is 128 x 128,
+// and 256 x 128 and 256 x 64 (the tiles of ops/autotune.py's table) are
+// instantiated too: a 256-row tile decodes the weights half as often (M /
+// 256 times) and each consumer then runs two m64 chains a segment, one
+// after the other into one int32 set (a8tc::Tile has the register budget).
+// Every tile walks K in the same tiles and segments, in the same order, so
+// each output is the same float32 sum whatever the tile: the tiles give the
+// same bits.
+// - Products: wgmma.m64n144k32.s32.s8.u8 (m64n80k32 at 64 columns) with
+//   both operands K-major in shared memory (8-bit wgmma takes no
+//   transpose), in the 128-byte swizzle:
 //   x [m][k] by TMA (rows past M, columns past K zero-filled), the weights
 //   [n][k] as the producer decodes them. A K tile of 128 int8 is one swizzle
 //   row, a k step 32 bytes further into it, a tile a chain of four.
@@ -47,8 +55,8 @@
 //   prmt, stored at addresses that differ by XORs), and mid (sym) or off
 //   (asym, 8 bits) moves to the segment's int32 sum: d = xq.w - sub *
 //   rowsum, the same integer as xq.(w - sub).
-// - Row sums: 16 rows of ones under each weight tile make B 144 wide; the
-//   product's columns 128-143 hold each row's sum over the segment, in the
+// - Row sums: 16 rows of ones under each weight tile make B BN + 16 wide;
+//   the product's last 16 columns hold each row's sum over the segment, in the
 //   accumulator layout, so each thread has the sums of its own two rows.
 // - Fold: a segment (a group of 32 or 64 rows, or the tile; other groups
 //   take FINE) is one chain into an int32 set (scale-d 0 on its first step,
@@ -58,11 +66,13 @@
 //   < 2^22, and a segment's |d| is below 127 * 128 * 128), multiplied and
 //   added as the plain version does, never an FMA. The other consumer's
 //   chain can run while one folds.
-// - Ring: four stages of (x tile 16 KB, weight tile with its ones 18 KB, the
-//   tile's raw words and the scales of its k steps as cp.async leaves them).
-//   The producer copies tile u into stage u % 4 once its empty barrier says
-//   both consumers are done with tile u - 4 (x by TMA from one thread; the
-//   words and scales by cp.async, 16 bytes a copy where N % 4 == 0), decodes
+// - Ring: stages of (x tile 16 KB at 128 rows, weight tile with its ones 18
+//   KB at 128 columns, the tile's raw words and the scales of its k steps as
+//   cp.async leaves them), as many as fit, at most four (three for most
+//   256 x 128 layouts). The producer copies tile u into stage u % STAGES
+//   once its empty barrier says both consumers are done with tile u -
+//   STAGES (x by TMA from one thread; the words and scales by cp.async, 16
+//   bytes a copy where N % 4 == 0), decodes
 //   tile u - 2, and each producer thread arrives on that stage's full
 //   barrier (with the TMA's bytes, 129 arrivals).
 // - Epilogue: times the token scale, the cast, the tile staged in the ring
@@ -428,31 +438,62 @@ using tc::wg_wait_all;
 
 constexpr int PT = 128, CT = 256;        // producer and consumer threads
 constexpr int NT = PT + CT;              // one producer warpgroup, two consumer warpgroups
-constexpr int BM = 128, BN = 128;        // the block's output tile
-constexpr int STAGES = 4;
+constexpr int MAX_STAGES = 4;
 constexpr int AHEAD = 2;                 // tiles the producer's copies run ahead of its decode
-constexpr int NB = BN + 16;              // B rows: the weight tile and 16 rows of ones
-constexpr int X_BYTES = BM * KT;         // x tile of a stage, [m][k] int8 (16 KB)
-constexpr int W_BYTES = NB * KT;         // weight tile [n][k] u8 and the ones (18 KB)
-constexpr int SC_FLOATS = KSTEPS * BN;   // scales (or zeros) of a tile's k steps
-constexpr int LDO = BN + 8;              // epilogue staging pitch, values (rows 4 or 8 banks apart)
 constexpr int MAGIC = 0x4B400000;        // the bits of 1.5 * 2^23
 constexpr float MAGIC_F = 12582912.f;    // 1.5 * 2^23
 
+// The block's (BM, BN) output tile: the default 128 x 128, and 256 x 128
+// and 256 x 64, the tiles ops/autotune.py's table can name. Each consumer
+// warpgroup owns BM / 2 rows, MW row blocks of 64, and runs one chain a row
+// block into one int32 set of m64n(BN + 16) (the weight tile and 16 columns
+// of ones), folding it into that row block's float32 sums before the next
+// chain. Accumulators a consumer thread: (BN + 16) / 2 int32 and MW * BN / 2
+// float32: 136 at 128 x 128, 104 at 256 x 64, 200 at 256 x 128. The last
+// does not fit the 168 registers a thread that 384 threads leave, so there
+// the producer gives registers to the consumers (setmaxnreg: 72 a producer
+// thread, 216 a consumer one, 128 * 72 + 256 * 216 = 384 * 168) and decodes
+// two items at a time. The split was read from ptxas's reports (the CUDA
+// 12 toolkit of an H100 machine), the first with no spill at any bits:
+// at 40 / 232 the producer spilled 68-204 bytes a thread, at 88 / 200 the
+// consumers 48-88; a new toolkit may want it read again.
+template <int BM, int BN>
+struct Tile {
+  static_assert((BM == 128 && BN == 128) || (BM == 256 && (BN == 128 || BN == 64)),
+                "an instantiated tile");
+  static constexpr int MW = BM / 128;          // row blocks of a consumer
+  static constexpr int NB = BN + 16;           // B rows: the weight tile and 16 rows of ones
+  static constexpr int NACC = NB / 2;          // int32 sums a thread
+  static constexpr int X_BYTES = BM * KT;      // x tile of a stage, [m][k] int8
+  static constexpr int W_BYTES = NB * KT;      // weight tile [n][k] u8 and the ones
+  static constexpr int SC_FLOATS = KSTEPS * BN;  // scales (or zeros) of a tile's k steps
+  static constexpr int LDO = BN + 8;           // epilogue staging pitch, values (rows 4 or 8 banks apart)
+  static constexpr bool SPLIT_REGS = MW * BN / 2 + NACC > 168 - 24;  // about 24 not accumulators
+  static constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+  static constexpr int DECODE_UNR = 2;  // decode items unrolled together under SPLIT_REGS
+  static_assert(PT * PRODUCER_REGS + CT * CONSUMER_REGS <= NT * 168, "the block's registers");
+};
+
 // A stage: x tile, weight tile with its rows of ones, the tile's raw words
 // ([word row][column], 16-byte chunks swizzled, see raw_col), scales and,
-// asymmetric, zeros.
-template <int BITS, bool SYM>
+// asymmetric, zeros. As many stages as fit, at most four: three at 256 x
+// 128 but at 2 bits symmetric.
+template <int BITS, bool SYM, int BM, int BN>
 struct Layout {
+  using Tl = Tile<BM, BN>;
   static constexpr int PER = Packing<BITS>::PER;
   static constexpr int WR = KT / PER;  // word rows of a tile
   static constexpr int RAW = WR * BN * 4;
-  static constexpr int SCALES = X_BYTES + W_BYTES + RAW;
-  static constexpr int STAGE = SCALES + SC_FLOATS * 4 * (SYM ? 1 : 2);
+  static constexpr int SCALES = Tl::X_BYTES + Tl::W_BYTES + RAW;
+  static constexpr int STAGE = SCALES + Tl::SC_FLOATS * 4 * (SYM ? 1 : 2);
+  static constexpr int FIT = (MAX_SMEM - 1024) / (STAGE + 16);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int BARS = STAGES * STAGE;  // full and empty mbarriers of each stage
   static constexpr size_t SMEM = BARS + 16 * STAGES + 1024;  // + room to align the base to 1 KB
   static_assert(STAGE % 1024 == 0, "stages keep the swizzle atoms 1 KB aligned");
-  static_assert(STAGES * STAGE >= BM * LDO * 4, "the epilogue fits in the ring");
+  static_assert(STAGES > AHEAD, "a stage is refilled only after its tile was decoded");
+  static_assert(SMEM <= MAX_SMEM, "shared memory of a block");
+  static_assert(STAGES * STAGE >= BM * Tl::LDO * 4, "the epilogue fits in the ring");
 };
 
 // Word (wr, c) of a stage's raw words sits at column raw_col(wr, c) of row
@@ -491,6 +532,29 @@ __device__ __forceinline__ void mma_n144(int (&d)[72], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same at n 80 (a 64-column weight tile and its 16 columns of ones).
+__device__ __forceinline__ void mma_n80(int (&d)[40], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int NACC>
+__device__ __forceinline__ void mma_wg(int (&d)[NACC], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (NACC == 72) mma_n144(d, a, b, accumulate);
+  else mma_n80(d, a, b, accumulate);
+}
+
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool in) {
   if (bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -500,10 +564,11 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, 
                  "r"(in ? 4 : 0));
 }
 
-// x tile t (128 rows from m0, 128 columns) into a stage by TMA.
+// x tile t (BM rows from m0, 128 columns) into a stage by TMA.
+template <int BM>
 __device__ __forceinline__ void tma_x(unsigned char* dst, uint64_t* bar, const CUtensorMap* map,
                                       int k0, int m0) {
-  samq_tma::mbar_expect(bar, X_BYTES);
+  samq_tma::mbar_expect(bar, BM * KT);
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
@@ -515,34 +580,45 @@ __device__ __forceinline__ void tma_x(unsigned char* dst, uint64_t* bar, const C
 // (and zeros) of its k steps into a stage, by cp.async from the producer
 // threads (p = 0..127); zeros past K and N. `vec` (N % 4 == 0, 16-byte
 // aligned buffers): a thread's copies are fixed for the block, 16 bytes
-// each: word rows p / 32 + 4 j and the scales (and zeros) of k step p / 32,
-// columns 4 (p % 32). Otherwise word by word.
-template <int BITS, bool SYM>
+// each: word rows p / CPR + RP j, columns 4 (p % CPR) (CPR = BN / 4 copies
+// a word row, RP = 128 / CPR word rows a pass), and the scales (and zeros)
+// of the tile's k steps in the same order. Otherwise word by word.
+template <int BITS, bool SYM, int BM, int BN>
 __device__ __forceinline__ void copy_words(unsigned char* st, const int32_t* __restrict__ qw,
                                            const float* __restrict__ scales,
                                            const float* __restrict__ zeros, int t, int K, int n0,
                                            int N, int groupsize, int gshift, int p, bool vec) {
-  using L = Layout<BITS, SYM>;
-  int32_t* raw = reinterpret_cast<int32_t*>(st + X_BYTES + W_BYTES);
+  using L = Layout<BITS, SYM, BM, BN>;
+  using Tl = Tile<BM, BN>;
+  constexpr int SCF = Tl::SC_FLOATS;
+  int32_t* raw = reinterpret_cast<int32_t*>(st + Tl::X_BYTES + Tl::W_BYTES);
   float* sc = reinterpret_cast<float*>(st + L::SCALES);
   const int k0 = t * KT, wr0 = t * L::WR, wrows = K / L::PER;
   auto row = [&](int k) { return gshift >= 0 ? k >> gshift : k / groupsize; };
   if (vec) {
-    const int r = p >> 5, c = (p & 31) * 4;
+    constexpr int CPR = BN / 4, RP = PT / CPR;
+    static_assert(L::WR % RP == 0, "whole passes of word rows");
+    const int r = p / CPR, c = (p % CPR) * 4;
     const bool cin = n0 + c < N;
     const int32_t* wp = qw + (long)(wr0 + r) * N + n0 + c;
 #pragma unroll
-    for (int j = 0; j < L::WR / 4; ++j) {
-      const int wr = r + 4 * j;
+    for (int j = 0; j < L::WR / RP; ++j) {
+      const int wr = r + RP * j;
       const bool in = cin && wr0 + wr < wrows;
-      cp_async(raw + wr * BN + raw_col(wr, c), in ? wp + (long)4 * j * N : qw, 16, in);
+      cp_async(raw + wr * BN + raw_col(wr, c), in ? wp + (long)RP * j * N : qw, 16, in);
     }
-    const int k = k0 + r * KSTEP;
+    // The scales (and zeros) of k step r at columns c (128 columns: RP ==
+    // KSTEPS); at 64 columns (RP == 2 KSTEPS) rows r < KSTEPS copy the
+    // scales of k step r, the others the zeros of k step r - KSTEPS.
+    static_assert(RP == KSTEPS || RP == 2 * KSTEPS, "a k step a row of copies");
+    const int a0 = RP == KSTEPS ? 0 : r / KSTEPS, ks = RP == KSTEPS ? r : r % KSTEPS;
+    const int k = k0 + ks * KSTEP;
     const bool in = cin && k < K;
 #pragma unroll
-    for (int a = 0; a < (SYM ? 1 : 2); ++a) {
+    for (int a = a0; a < (RP == KSTEPS ? (SYM ? 1 : 2) : a0 + 1); ++a) {
+      if (SYM && a) break;
       const float* src = a ? zeros : scales;
-      cp_async(sc + a * SC_FLOATS + r * BN + c, in ? src + (long)row(k) * N + n0 + c : src, 16, in);
+      cp_async(sc + a * SCF + ks * BN + c, in ? src + (long)row(k) * N + n0 + c : src, 16, in);
     }
     return;
   }
@@ -551,8 +627,8 @@ __device__ __forceinline__ void copy_words(unsigned char* st, const int32_t* __r
     const bool in = wr0 + wr < wrows && n < N;
     cp_async(raw + wr * BN + raw_col(wr, c), in ? qw + (long)(wr0 + wr) * N + n : qw, 4, in);
   }
-  for (int i = p; i < (SYM ? 1 : 2) * SC_FLOATS; i += PT) {
-    const int a = i / SC_FLOATS, ks = i % SC_FLOATS / BN, c = i % BN;
+  for (int i = p; i < (SYM ? 1 : 2) * SCF; i += PT) {
+    const int a = i / SCF, ks = i % SCF / BN, c = i % BN;
     const int k = k0 + ks * KSTEP, n = n0 + c;
     const bool in = k < K && n < N;
     const float* src = a ? zeros : scales;
@@ -579,16 +655,16 @@ __device__ __forceinline__ void transpose4(const unsigned (&a)[4], unsigned (&o)
 // c sits at chunk (k / 16) ^ (c % 8), so (c, k) is at byte (c * 128 + ((c %
 // 8) << 4)) ^ k, and as kb and s * rpp have disjoint bits (powers of two),
 // the stores of an item differ by XORs.
-template <int BITS, bool SYM>
+template <int BITS, bool SYM, int BM, int BN>
 __device__ __forceinline__ void decode(unsigned char* st, int p0, int rsh, int psh) {
-  using L = Layout<BITS, SYM>;
+  using L = Layout<BITS, SYM, BM, BN>;
+  using Tl = Tile<BM, BN>;
   constexpr int Q = L::WR / 4, QL = Q < 4 ? Q : 4, CL = 32 / QL, ITEMS = Q * BN / PT;
   static_assert(Q * BN % PT == 0, "whole items");
-  const int32_t* raw = reinterpret_cast<const int32_t*>(st + X_BYTES + W_BYTES);
-  const uint32_t wt = smem_u32(st + X_BYTES);
+  const int32_t* raw = reinterpret_cast<const int32_t*>(st + Tl::X_BYTES + Tl::W_BYTES);
+  const uint32_t wt = smem_u32(st + Tl::X_BYTES);
   const int rpp = 1 << rsh;
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
+  auto item = [&](int it) {
     const int p = p0 + it * PT, l = p & 31, wi = p >> 5;
     const int q = (wi / (BN / CL)) * QL + l % QL, c = (wi % (BN / CL)) * CL + l / QL;
     const int wr = 4 * q, kb = ((wr >> rsh) << psh) | (wr & (rpp - 1));
@@ -610,44 +686,59 @@ __device__ __forceinline__ void decode(unsigned char* st, int p0, int rsh, int p
     for (int b = 0; b < 4; ++b)
 #pragma unroll
       for (int m = 0; m < PARTS; ++m) put(PARTS * b + m, (o[b] >> (BITS * m)) & M4);
+  };
+  if constexpr (Tl::SPLIT_REGS) {  // a few items at a time: the producer has few registers
+    constexpr int U = Tl::DECODE_UNR;
+    static_assert(ITEMS % U == 0, "whole groups of items");
+#pragma unroll 1
+    for (int i0 = 0; i0 < ITEMS; i0 += U)
+#pragma unroll
+      for (int i1 = 0; i1 < U; ++i1) item(i0 + i1);
+  } else {
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) item(it);
   }
 }
 
 // Steps lo..lo + NS - 1 of a stage into d, the first with scale-d 0: each
 // step 32 bytes further into the swizzle rows (the hardware applies the
 // swizzle to the sum); SBO 1 KB between 8-row groups, LBO unused inside the
-// 128-byte atom. xa: this warpgroup's x rows, wb: the weight tile.
-template <int NS>
-__device__ __forceinline__ void chain(int (&d)[72], uint32_t xa, uint32_t wb) {
+// 128-byte atom. xa: the row block's x rows, wb: the weight tile.
+template <int NS, int NACC>
+__device__ __forceinline__ void chain(int (&d)[NACC], uint32_t xa, uint32_t wb) {
 #pragma unroll
   for (int ks = 0; ks < NS; ++ks)
-    mma_n144(d, desc(xa + ks * 32, 16, 1024), desc(wb + ks * 32, 16, 1024), ks != 0);
+    mma_wg<NACC>(d, desc(xa + ks * 32, 16, 1024), desc(wb + ks * 32, 16, 1024), ks != 0);
 }
 
 // One (BM, BN) output tile. Warpgroup 0 produces: tile u's x by TMA and its
-// raw words and scales by cp.async into stage u % 4 (once the consumers
-// have freed it), and AHEAD tiles later the decode of its words into the
-// stage's weight tile, after which each producer thread arrives on the
-// stage's full barrier (with the TMA's bytes, 129 arrivals). Warpgroups 1
-// and 2 consume rows 0-63 and 64-127: per segment a chain of wgmma into
-// one int32 set, a wait, and the fold; then each thread arrives on the
-// stage's empty barrier.
-template <int BITS, bool SYM, typename T>
+// raw words and scales by cp.async into stage u % STAGES (once the
+// consumers have freed it), and AHEAD tiles later the decode of its words
+// into the stage's weight tile, after which each producer thread arrives on
+// the stage's full barrier (with the TMA's bytes, 129 arrivals). Warpgroups
+// 1 and 2 consume rows 0.. and BM / 2..: per segment and row block a chain
+// of wgmma into one int32 set, a wait, and the fold; then each thread
+// arrives on the stage's empty barrier.
+template <int BITS, bool SYM, int BM, int BN, typename T>
 __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xmap,
                                       const float* __restrict__ xs,
                                       const int32_t* __restrict__ qw,
                                       const float* __restrict__ scales,
                                       const float* __restrict__ zeros, T* __restrict__ out, int M,
                                       int K, int N, int pb, int groupsize, int flags) {
-  using L = Layout<BITS, SYM>;
+  using L = Layout<BITS, SYM, BM, BN>;
+  using Tl = Tile<BM, BN>;
   constexpr int SUB = a8_sub<BITS, SYM>();
+  constexpr int STAGES = L::STAGES, MW = Tl::MW, NACC = Tl::NACC, LDO = Tl::LDO;
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int tiles = (K + KT - 1) / KT;
   // k steps a segment: groups of 32 or 64 rows, else whole tiles (groups of
   // whole tiles, or one group); run_a8_bits sends other groups to FINE.
   const int gs = groupsize == KSTEP ? 1 : groupsize == 2 * KSTEP ? 2 : KSTEPS;
-  auto stage = [&](int t) { return smem + (t & (STAGES - 1)) * L::STAGE; };
+  // Ring slot of tile t (a mask where STAGES is a power of two).
+  auto slot = [](int t) { return (STAGES & (STAGES - 1)) ? t % STAGES : t & (STAGES - 1); };
+  auto stage = [&](int t) { return smem + slot(t) * L::STAGE; };
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + STAGES;
 
@@ -657,21 +748,24 @@ __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xm
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < STAGES * 16 * KT / 4; i += NT)  // the rows of ones under each weight tile
-    reinterpret_cast<unsigned*>(stage(i / (4 * KT)) + X_BYTES + BN * KT)[i % (4 * KT)] = 0x01010101u;
+    reinterpret_cast<unsigned*>(stage(i / (4 * KT)) + Tl::X_BYTES + BN * KT)[i % (4 * KT)] =
+        0x01010101u;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   if (wg == 0) {  // ------------------------------------------------ producer
+    if constexpr (Tl::SPLIT_REGS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Tl::PRODUCER_REGS));
     const int rsh = __ffs(pb / L::PER) - 1, psh = __ffs(pb) - 1;  // both powers of two here
     const int gshift = (groupsize & (groupsize - 1)) == 0 ? __ffs(groupsize) - 1 : -1;
     const bool wvec = flags & W_VEC;
     for (int u = 0; u < tiles + AHEAD; ++u) {
       if (u < tiles) {
-        const int s = u & (STAGES - 1);
+        const int s = slot(u);
         if (u >= STAGES) mbar_wait(empty + s, (u / STAGES - 1) & 1);
-        if (tid == 0) tma_x(stage(u), full + s, xmap, u * KT, m0);
-        copy_words<BITS, SYM>(stage(u), qw, scales, zeros, u, K, n0, N, groupsize, gshift, tid,
-                              wvec);
+        if (tid == 0) tma_x<BM>(stage(u), full + s, xmap, u * KT, m0);
+        copy_words<BITS, SYM, BM, BN>(stage(u), qw, scales, zeros, u, K, n0, N, groupsize,
+                                      gshift, tid, wvec);
         asm volatile("cp.async.commit_group;\n" ::: "memory");
       }
       const int d = u - AHEAD;  // tile d's words: AHEAD groups were committed after them
@@ -679,37 +773,42 @@ __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xm
       if (u < tiles) asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD) : "memory");
       else cp_async_wait_all();
       asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");  // every producer's copies
-      decode<BITS, SYM>(stage(d), tid, rsh, psh);
+      decode<BITS, SYM, BM, BN>(stage(d), tid, rsh, psh);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      mbar_arrive(full + (d & (STAGES - 1)));
+      mbar_arrive(full + slot(d));
     }
     return;
   }
 
   // ------------------------------------------------------------- consumers
-  const int cw = wg - 1;  // rows 64 cw.. of the tile
+  if constexpr (Tl::SPLIT_REGS)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Tl::CONSUMER_REGS));
+  const int cw = wg - 1;  // rows cw * BM / 2.. of the tile
   // The int32 set needs no clearing (each segment's first step has scale-d
   // 0), and must not get any: ptxas serializes every wgmma if a non-wgmma
   // instruction writes an accumulator while a chain is in flight.
-  int acci[72];
-  float acc[64];
+  int acci[NACC];
+  float acc[MW][BN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int r = 0; r < MW; ++r)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[r][i] = 0.f;
   const uint32_t base = smem_u32(smem);
-  // acci[i] is row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) & 1) of the
-  // warpgroup's 64, column 8 (i >> 2) + 2 (lane % 4) + (i & 1), as acc[i];
-  // acci[64] and acci[66] (columns of ones) are the sums of the two rows.
-  auto fold = [&](const float* sc) {
-    const int b0 = MAGIC - SUB * acci[64], b1 = MAGIC - SUB * acci[66];
+  // acci[i] is row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) & 1) of the row
+  // block's 64, column 8 (i >> 2) + 2 (lane % 4) + (i & 1), as a[i];
+  // acci[BN / 2] and acci[BN / 2 + 2] (columns of ones) are the sums of the
+  // two rows.
+  auto fold = [&](float (&a)[BN / 2], const float* sc) {
+    const int b0 = MAGIC - SUB * acci[BN / 2], b1 = MAGIC - SUB * acci[BN / 2 + 2];
     float rf0 = 0.f, rf1 = 0.f;
-    if constexpr (!SYM) rf0 = __int2float_rn(acci[64]), rf1 = __int2float_rn(acci[66]);
+    if constexpr (!SYM) rf0 = __int2float_rn(acci[BN / 2]), rf1 = __int2float_rn(acci[BN / 2 + 2]);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = 8 * j + 2 * (lane & 3);
       const float2 s = *reinterpret_cast<const float2*>(sc + c);
       float2 z = make_float2(0.f, 0.f);
       if constexpr (!SYM) {
-        z = *reinterpret_cast<const float2*>(sc + SC_FLOATS + c);
+        z = *reinterpret_cast<const float2*>(sc + Tl::SC_FLOATS + c);
         if constexpr (SUB != 0) z = make_float2(__fsub_rn(z.x, (float)SUB), __fsub_rn(z.y, (float)SUB));
       }
 #pragma unroll
@@ -725,27 +824,31 @@ __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xm
           } else {
             term = __fmul_rn(__fsub_rn(dv, __fmul_rn(e ? z.y : z.x, h ? rf1 : rf0)), se);
           }
-          acc[i] = __fadd_rn(acc[i], term);
+          a[i] = __fadd_rn(a[i], term);
         }
     }
   };
 #pragma unroll 1
   for (int t = 0; t < tiles; ++t) {
-    const int s = t & (STAGES - 1);
+    const int s = slot(t);
     mbar_wait(full + s, (t / STAGES) & 1);
-    const uint32_t st = base + s * L::STAGE, xa = st + cw * 64 * 128, wb = st + X_BYTES;
+    const uint32_t st = base + s * L::STAGE, wb = st + Tl::X_BYTES;
     const float* sc = reinterpret_cast<const float*>(stage(t) + L::SCALES);
 #pragma unroll 1
     for (int lo = 0; lo < KSTEPS; lo += gs) {
-      fence_iregs(acci);
-      wg_fence();
-      if (gs == KSTEPS) chain<KSTEPS>(acci, xa, wb);
-      else if (gs == 2) chain<2>(acci, xa + lo * 32, wb + lo * 32);
-      else chain<1>(acci, xa + lo * 32, wb + lo * 32);
-      wg_commit();
-      wg_wait_all();
-      fence_iregs(acci);
-      fold(sc + lo * BN);
+#pragma unroll
+      for (int r = 0; r < MW; ++r) {
+        const uint32_t xa = st + (cw * MW + r) * 64 * 128;
+        fence_iregs(acci);
+        wg_fence();
+        if (gs == KSTEPS) chain<KSTEPS>(acci, xa, wb);
+        else if (gs == 2) chain<2>(acci, xa + lo * 32, wb + lo * 32);
+        else chain<1>(acci, xa + lo * 32, wb + lo * 32);
+        wg_commit();
+        wg_wait_all();
+        fence_iregs(acci);
+        fold(acc[r], sc + lo * BN);
+      }
     }
     mbar_arrive(empty + s);
   }
@@ -755,20 +858,23 @@ __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xm
   // and written out in 16-byte rows.
   asm volatile("bar.sync 2, %0;\n" ::"n"(CT) : "memory");
   T* so = reinterpret_cast<T*>(smem);
-  const int r0 = cw * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const float x0 = m0 + r0 < M ? __ldg(xs + m0 + r0) : 0.f;
-  const float x1 = m0 + r0 + 8 < M ? __ldg(xs + m0 + r0 + 8) : 0.f;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+  for (int r = 0; r < MW; ++r) {
+    const int r0 = (cw * MW + r) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const float x0 = m0 + r0 < M ? __ldg(xs + m0 + r0) : 0.f;
+    const float x1 = m0 + r0 + 8 < M ? __ldg(xs + m0 + r0 + 8) : 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = 8 * j + 2 * (lane & 3);
-      const float v0 = __fmul_rn(acc[4 * j + 2 * h], h ? x1 : x0);
-      const float v1 = __fmul_rn(acc[4 * j + 2 * h + 1], h ? x1 : x0);
-      T* dst = so + (r0 + 8 * h) * LDO + c;
-      if constexpr (sizeof(T) == 4) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-      else *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-    }
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * j + 2 * (lane & 3);
+        const float v0 = __fmul_rn(acc[r][4 * j + 2 * h], h ? x1 : x0);
+        const float v1 = __fmul_rn(acc[r][4 * j + 2 * h + 1], h ? x1 : x0);
+        T* dst = so + (r0 + 8 * h) * LDO + c;
+        if constexpr (sizeof(T) == 4) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        else *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+      }
+  }
   asm volatile("bar.sync 2, %0;\n" ::"n"(CT) : "memory");
   constexpr int V = 16 / sizeof(T), CH = BN / V;
   const bool ovec = flags & OUT_VEC;
@@ -787,8 +893,9 @@ __device__ __forceinline__ void a8_tc(unsigned char* smem, const CUtensorMap* xm
 
 }  // namespace a8tc
 
-// Both builds behind one kernel: FINE = true runs a8_fine, else a8tc::a8_tc.
-template <int BITS, bool SYM, bool FINE, typename T>
+// Both builds behind one kernel: FINE = true runs a8_fine (at its one
+// (A8_BM, A8_BN) tile), else a8tc::a8_tc at the (BM, BN) tile.
+template <int BITS, bool SYM, bool FINE, int BM, int BN, typename T>
 __global__ void __launch_bounds__(FINE ? A8_THREADS : a8tc::NT, 1)
     qmm_a8_kernel(const __grid_constant__ CUtensorMap xmap, const int8_t* __restrict__ xq,
                   const float* __restrict__ xs, const int32_t* __restrict__ qw,
@@ -796,19 +903,20 @@ __global__ void __launch_bounds__(FINE ? A8_THREADS : a8tc::NT, 1)
                   T* __restrict__ out, int M, int K, int N, int pb, int groupsize, int flags) {
   extern __shared__ __align__(1024) unsigned char a8_smem[];
   if constexpr (FINE) {
+    static_assert(BM == A8_BM && BN == A8_BN, "the FINE build has one tile");
     a8_fine<BITS, SYM, T>(a8_smem, xq, xs, qw, scales, zeros, out, M, K, N, pb, groupsize,
                           flags & X_VEC);
   } else {
     // Swizzle atoms need 1 KB alignment; SMEM leaves room for it.
     const uint32_t mis = tc::smem_u32(a8_smem) & 1023;
-    a8tc::a8_tc<BITS, SYM, T>(a8_smem + (mis ? 1024 - mis : 0), &xmap, xs, qw, scales, zeros,
-                              out, M, K, N, pb, groupsize, flags);
+    a8tc::a8_tc<BITS, SYM, BM, BN, T>(a8_smem + (mis ? 1024 - mis : 0), &xmap, xs, qw, scales,
+                                      zeros, out, M, K, N, pb, groupsize, flags);
   }
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int BITS, bool SYM, bool FINE>
+template <int BITS, bool SYM, bool FINE, int BM, int BN>
 static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* qw,
                   const float* s, const float* z, void* out, int M, int K, int N, int pb, int g,
                   cudaStream_t stream) {
@@ -817,13 +925,13 @@ static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* q
   size_t smem = A8_SMEM;
   int flags = vec_ok(xq, K, tile_rows(pb), 16) ? X_VEC : 0;
   if constexpr (!FINE) {
-    using L = a8tc::Layout<BITS, SYM>;
+    using L = a8tc::Layout<BITS, SYM, BM, BN>;
     smem = L::SMEM;
     const auto fn = tc::encode_fn();
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)K};
-    const cuuint32_t box[2] = {KT, a8tc::BM}, estr[2] = {1, 1};
+    const cuuint32_t box[2] = {KT, BM}, estr[2] = {1, 1};
     if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xq), dims, strides, box,
            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -831,47 +939,67 @@ static int run_a8(int dtype, const int8_t* xq, const float* xs, const int32_t* q
     if (N % 4 == 0 && aligned16(qw) && aligned16(s) && (SYM || aligned16(z))) flags |= W_VEC;
     if (N % (dtype == 1 ? 8 : 4) == 0 && aligned16(out)) flags |= OUT_VEC;
   }
-  const dim3 grid((M + A8_BM - 1) / A8_BM, (N + A8_BN - 1) / A8_BN);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   const int threads = FINE ? A8_THREADS : a8tc::NT;
   if (dtype == 1)
-    return launch(qmm_a8_kernel<BITS, SYM, FINE, __nv_bfloat16>, grid, threads, smem, stream, map,
-                  xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g, flags);
-  return launch(qmm_a8_kernel<BITS, SYM, FINE, float>, grid, threads, smem, stream, map, xq, xs,
-                qw, s, z, static_cast<float*>(out), M, K, N, pb, g, flags);
+    return launch(qmm_a8_kernel<BITS, SYM, FINE, BM, BN, __nv_bfloat16>, grid, threads, smem,
+                  stream, map, xq, xs, qw, s, z, static_cast<__nv_bfloat16*>(out), M, K, N, pb, g,
+                  flags);
+  return launch(qmm_a8_kernel<BITS, SYM, FINE, BM, BN, float>, grid, threads, smem, stream, map,
+                xq, xs, qw, s, z, static_cast<float*>(out), M, K, N, pb, g, flags);
 }
 
 template <int BITS>
 static int run_a8_bits(int dtype, int sym, const int8_t* xq, const float* xs, const int32_t* qw,
                        const float* s, const float* z, void* out, int M, int K, int N, int pb,
-                       int g, cudaStream_t stream) {
+                       int g, int bm, int bn, cudaStream_t stream) {
   // FINE: groups other than 32 or 64 rows, whole K tiles or all of K (those
   // that end inside a 32-deep k step, and 96, 160, ...), K tiles of other
   // than KT rows (pack blocks that do not divide KT), pack blocks of fewer
-  // than four word rows a plane, or x that TMA cannot address.
+  // than four word rows a plane, or x that TMA cannot address. It runs its
+  // one tile whatever instantiated tile (bm, bn) names.
   const bool fine = !(g == K || g == KSTEP || g == 2 * KSTEP || g % KT == 0) ||
                     tile_rows(pb) != KT || (pb / Packing<BITS>::PER) % 4 != 0 || K % 16 != 0 ||
                     !aligned16(xq);
-  if (sym) {
-    if (fine) return run_a8<BITS, true, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
-    return run_a8<BITS, true, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  auto run_fine = [&]() {
+    if (sym) return run_a8<BITS, true, true, A8_BM, A8_BN>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+    return run_a8<BITS, false, true, A8_BM, A8_BN>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  };
+#define SAMQ_A8(TBM, TBN)                                                                       \
+  if (bm == TBM && bn == TBN) {                                                                 \
+    if (fine) return run_fine();                                                                \
+    if (sym)                                                                                    \
+      return run_a8<BITS, true, false, TBM, TBN>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g,  \
+                                                 stream);                                       \
+    return run_a8<BITS, false, false, TBM, TBN>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g,   \
+                                                stream);                                        \
   }
-  if (fine) return run_a8<BITS, false, true>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
-  return run_a8<BITS, false, false>(dtype, xq, xs, qw, s, z, out, M, K, N, pb, g, stream);
+  // The main build's tiles (ops/autotune.py's TILES_A8), the default first.
+  SAMQ_A8(128, 128)
+  SAMQ_A8(256, 128)
+  SAMQ_A8(256, 64)
+#undef SAMQ_A8
+  return (int)cudaErrorInvalidValue;  // not an instantiated tile
 }
 
 }  // namespace samq_quant
 
 // dtype (of out): 0 float32, 1 bfloat16. bits 2, 4 or 8; sym: 1 for the
 // symmetric kernel (zeros unused, may be null), 0 for the asymmetric one.
-// xq int8 (M, K), xs float32 (M,). Returns the CUDA error of the launch (0 on
-// success).
+// xq int8 (M, K), xs float32 (M,). The tile: bm x bn outputs a block, one
+// of 128 x 128, 256 x 128, 256 x 64, and bk K rows a tile, which must be
+// tile_rows(pack_block); a layout that takes the FINE build runs its one
+// 128 x 128 tile. A tile that is not instantiated returns
+// cudaErrorInvalidValue; it is not rounded to another. Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int samq_quant_matmul_a8(int dtype, int bits, int sym, const void* xq, const void* xs,
                                     const void* qweight, const void* scales, const void* zeros,
                                     void* out, int M, int K, int N, int groupsize, int pack_block,
-                                    void* stream) {
+                                    int bm, int bn, int bk, void* stream) {
   using namespace samq_quant;
   if ((dtype != 0 && dtype != 1) || M < 1 || (bits != 2 && bits != 4 && bits != 8) ||
-      N > 65535 * A8_BN || !packing_ok(bits, K, N, pack_block, groupsize) ||
+      bn < 1 || (N + bn - 1) / bn > 65535 ||
+      !packing_ok(bits, K, N, pack_block, groupsize) || bk != tile_rows(pack_block) ||
       (!sym && zeros == nullptr))
     return (int)cudaErrorInvalidValue;
   const int8_t* x8 = static_cast<const int8_t*>(xq);
@@ -880,9 +1008,12 @@ extern "C" int samq_quant_matmul_a8(int dtype, int bits, int sym, const void* xq
   const float* s = static_cast<const float*>(scales);
   const float* z = static_cast<const float*>(zeros);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SAMQ_RUN(B) \
+  run_a8_bits<B>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, bm, bn, st)
   switch (bits) {
-    case 2: return run_a8_bits<2>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
-    case 4: return run_a8_bits<4>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
-    default: return run_a8_bits<8>(dtype, sym, x8, xsf, qw, s, z, out, M, K, N, pack_block, groupsize, st);
+    case 2: return SAMQ_RUN(2);
+    case 4: return SAMQ_RUN(4);
+    default: return SAMQ_RUN(8);
   }
+#undef SAMQ_RUN
 }

@@ -55,10 +55,20 @@ When proj is one with a static activation scale and the activations are
 bfloat16, both kernel branches pass ``out_inv_scale = 1 / proj.in_scale`` to
 the attention kernel, whose int8 epilogue then writes proj's int8 input
 (int8-pre proj); the eager branch quantizes proj's input from bfloat16.
+
+A windowed block normally partitions its tokens into windows first and runs
+attention, proj included, on the zero-padded window grid (ViT-H: 4900
+tokens for 4096 real ones). JAX's hoisted-windowed path is here too, off by
+default, behind its environment gates (:func:`_use_hoisted_windowed`):
+``SAMQ_HOIST_PROJ=1`` runs proj after the window unpartition, on the real
+tokens; ``SAMQ_HOIST_QKV=1`` also runs qkv before the partition, its bias
+added after it, so padded slots hold exactly the bias, as partition-first
+gives them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -318,6 +328,37 @@ class Attention(nn.Module):
         out = out.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
         return self._project(out, ctx, path)
 
+    def forward_windowed_hoisted(self, x: torch.Tensor, ws: int, ctx=NULL_CTX,
+                                 path: str = "attn") -> torch.Tensor:
+        """Windowed attention with proj below the window unpartition (JAX's
+        ``_attention_windowed_hoisted``): ``x`` (B, H, W, C), the block's
+        unpartitioned tokens -> (B, H, W, C). proj is per token, so it runs
+        on the H * W real tokens instead of the padded window grid; with
+        ``SAMQ_HOIST_QKV=1`` qkv runs before the partition too, without its
+        bias (``F.linear_product``, for a ``Linear``, ``PackedLinear`` or
+        ``IntLinear``), and the bias is added after the partition, so the
+        padded slots hold exactly the bias, as ``linear(0)`` gives them
+        partition-first. The rel tiles and the windowed kernel are
+        :meth:`_packed_rel_and_flash`'s, so where proj is an ``IntLinear``
+        with a static scale (bfloat16) the kernel's int8 output is what the
+        unpartition moves, and proj takes it int8-pre."""
+        B, H, W, C = x.shape
+        if mesh_lib.out_features(self.qkv) != 3 * C:
+            raise ValueError("this block holds a tensor-parallel shard: run it under "
+                             "parallel.mesh.tensor_parallel")
+        if os.environ.get("SAMQ_HOIST_QKV") == "1":
+            qkv = F.linear_product(x.reshape(B, H * W, C), self.qkv)
+            qkv, pad_hw = window_partition(qkv.reshape(B, H, W, 3 * C), ws)
+            if self.qkv.bias is not None:
+                qkv = qkv + self.qkv.bias.to(qkv.dtype)
+        else:
+            xw, pad_hw = window_partition(x, ws)
+            qkv = ctx.linear(f"{path}.qkv", self.qkv, xw.reshape(-1, ws * ws, C))
+        NW = qkv.shape[0]
+        out = self._packed_rel_and_flash(qkv.reshape(NW, ws * ws, 3 * C), ws, ws)
+        out = window_unpartition(out.reshape(NW, ws, ws, C), ws, pad_hw, (H, W))
+        return self._project(out, ctx, path)
+
     def _forward_tp(self, x: torch.Tensor, group) -> torch.Tensor:
         """This rank's heads of a tensor-parallel shard (JAX's tp branch,
         image_encoder.py:318-357): qkv's column shard on the replicated
@@ -355,6 +396,25 @@ class Attention(nn.Module):
         return ctx.act(f"{path}.qact3", out)
 
 
+def _use_hoisted_windowed(ctx, cfg: ImageEncoderConfig, attn_impl: str, ws: int) -> bool:
+    """JAX's hoist gate (``SAMQ_HOIST_PROJ=1``; off by default): a windowed
+    block with rel-pos and windows of at most 512 tokens, under ``NullCtx``
+    itself (an FQ context needs its hooks on the partitioned stream), on the
+    kernel branch (JAX's ``"flash"`` or TPU ``"auto"``), with no
+    sequence-parallel group active for the window's length. Where a
+    tensor-parallel shard runs (``parallel.mesh.tensor_parallel``) the block
+    keeps partition-first: its eager shard branch gives the same numbers in
+    either order. JAX reads the gates when it traces; the port reads them at
+    each call, which changes no result."""
+    if ws <= 0 or not cfg.use_rel_pos or ws * ws > 512:
+        return False
+    if os.environ.get("SAMQ_HOIST_PROJ") != "1":
+        return False
+    if type(ctx) is not NullCtx or attn_impl != "kernel":
+        return False
+    return sp_lib.active_sp(ws * ws) is None and mesh_lib.active_tp(cfg.num_heads) is None
+
+
 class Block(nn.Module):
     """One transformer block (ref Block.forward, image_encoder.py:189-207;
     observation points fq_vit image_encoder.py:313-331), at the JAX path
@@ -380,11 +440,15 @@ class Block(nn.Module):
                            out_path=f"{path}.qact1")
         x = ctx.act(f"{path}.qact1", x)
         H, W = x.shape[1], x.shape[2]
-        if ws > 0:
-            x, pad_hw = window_partition(x, ws)
-        x = self.attn(x, windowed=ws > 0, attn_impl=attn_impl, ctx=ctx, path=f"{path}.attn")
-        if ws > 0:
-            x = window_unpartition(x, ws, pad_hw, (H, W))
+        if ws > 0 and _use_hoisted_windowed(ctx, self.cfg, attn_impl, ws):
+            x = self.attn.forward_windowed_hoisted(x, ws, ctx, f"{path}.attn")
+        else:
+            if ws > 0:
+                x, pad_hw = window_partition(x, ws)
+            x = self.attn(x, windowed=ws > 0, attn_impl=attn_impl, ctx=ctx,
+                          path=f"{path}.attn")
+            if ws > 0:
+                x = window_unpartition(x, ws, pad_hw, (H, W))
         x = ctx.act(f"{path}.qact2", shortcut + x, ln_input=True)
         h = ctx.layer_norm(f"{path}.norm2", self.norm2, x, in_path=f"{path}.qact2",
                            out_path=f"{path}.qact3")

@@ -3,14 +3,16 @@
 Counterpart of ``sam_quantization_tpu/native``: COCO uncompressed RLE
 encode/decode (single, batched and bit-packed), greedy box NMS and the exact
 Euclidean distance transform that the click-loop evaluation's ``Clicker``
-places its clicks with. These run on the host around the card's work.
+places its clicks with, and the block-planar packing of integer weight
+grids. These run on the host around the card's work.
 
 The library is built with ``g++`` at first use into
 ``build/libsamq_host_runtime-<hash>.so`` under the repository root, where
 ``<hash>`` covers the source, so an edited source builds anew. Where there
 is no ``g++``, every entry point falls back to numpy (scipy for the
 distance transform), with the same results; the C++ transform returns
-float32, scipy's float64.
+float32, scipy's float64. :func:`pack_block_planar` returns None instead,
+as JAX's does, and its caller packs with ``nn.packed``.
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.box_nms.argtypes = [f32p, f32p, i64, ctypes.c_float, i64p]
         lib.distance_transform_edt.restype = None
         lib.distance_transform_edt.argtypes = [u8p, i64, i64, f32p]
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.pack_block_planar.restype = None
+        lib.pack_block_planar.argtypes = [i32p, i64, i64, ctypes.c_int, ctypes.c_int, i32p]
         _lib = lib
         return _lib
 
@@ -269,4 +274,21 @@ def distance_transform_edt(mask: np.ndarray) -> np.ndarray:
     h, w = m.shape
     out = np.empty((h, w), np.float32)
     lib.distance_transform_edt(_ptr(m, ctypes.c_uint8), h, w, _ptr(out, ctypes.c_float))
+    return out
+
+
+def pack_block_planar(w_int: np.ndarray, bits: int, pack_block: int) -> Optional[np.ndarray]:
+    """Integer grid values (K, N) in [0, 2**bits), bits 2, 4 or 8 -> the
+    block-planar int32 words (K // (32 // bits), N) that ``nn.packed``
+    writes (``pack_int_weights``), or None where the library is absent
+    (JAX's signature and fallback)."""
+    lib = get_lib()
+    K, N = w_int.shape
+    per = 32 // bits
+    wi = np.ascontiguousarray(w_int, np.int32)
+    if lib is None:
+        return None
+    out = np.zeros((K // per, N), np.int32)
+    lib.pack_block_planar(_ptr(wi, ctypes.c_int32), K, N, bits, pack_block,
+                          _ptr(out, ctypes.c_int32))
     return out

@@ -67,10 +67,10 @@ SIGNATURES: Dict[str, Tuple[str, Tuple]] = {
         (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     # dtype (of out), bits, sym, xq, xs, qweight, scales, zeros, out, M, K, N,
-    # groupsize, pack_block, stream
+    # groupsize, pack_block, bm, bn, bk (the tile), stream
     "quant_matmul_a8": (
         "samq_quant_matmul_a8",
-        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     # q, k, v, rel, out, NW, L, nh, hd, R, row_stride, win_stride, scale, stream
     "probe_packed": (

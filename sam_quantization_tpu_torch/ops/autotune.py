@@ -35,6 +35,24 @@ what JAX tunes (its ``tune_shape`` draws a bfloat16 x); float32 entries add
 the suffix ``f32``. The port's table is ``.samq_autotune_torch.json`` at
 the repository root, never JAX's ``.samq_autotune.json``, and no table is
 committed: without one every launch takes the default tile.
+
+The W-A8 kernels (``quant_matmul_a8_sym``, ``quant_matmul_a8``) read the
+same table, as JAX's ``_quant_matmul_a8_sym`` / ``_asym`` call
+``pick_blocks``: one entry, tuned on the weight-only kernel, sets the tiles
+of all three. Their main build (``csrc/quant_matmul_a8.cu``, int8 ``wgmma``,
+one producer and two consumer warpgroups) is instantiated at
+:data:`TILES_A8`: the default 128 x 128, and 256 x 128 and 256 x 64, every
+tile the bfloat16 weight-only table can name, so a tuned entry launches in
+both kernels. A 256-row tile decodes the weights half as often; its
+consumers run two m64 chains a segment, and at 256 x 128 the producer gives
+registers to them (``setmaxnreg``). A stage holds the x tile, the weight
+tile with 16 rows of ones, the raw words and the scales (:func:`smem_bytes_a8`),
+as many stages as fit, at most four. A W-A8 launch looks up JAX's bare key
+whatever its output dtype: the int8 product does not depend on it, and
+JAX's key has no dtype. Layouts the main build does not take (groups that
+end inside a 32-deep k step, pack blocks that do not divide 128, ...: the
+FINE build) run FINE's one 128 x 128 tile and ignore the table. The tuner
+times the weight-only kernel only, as JAX's does.
 """
 
 from __future__ import annotations
@@ -58,6 +76,9 @@ TILES: Dict[torch.dtype, Tuple[Tuple[int, int], ...]] = {
     torch.bfloat16: ((256, 128), (256, 64)),
     torch.float32: ((128, 128),),
 }
+# The W-A8 kernels' main-build (bm, bn) tiles, the default first
+# (csrc/quant_matmul_a8.cu's SAMQ_A8 list).
+TILES_A8: Tuple[Tuple[int, int], ...] = ((128, 128), (256, 128), (256, 64))
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}  # the tuner's --dtype
 MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
 # The packed kernels against their plain version (here and in
@@ -113,6 +134,22 @@ def smem_bytes(bm: int, bn: int, dtype: torch.dtype) -> int:
     return (2 * bm * (kt + 4) + kt * bn) * 4
 
 
+def smem_bytes_a8(bm: int, bn: int, bits: int, sym: bool) -> Tuple[int, int]:
+    """(stages, dynamic shared memory) of a W-A8 main-build block at tile
+    (bm, bn), as ``a8tc::Layout<BITS, SYM, BM, BN>`` sizes them: a stage
+    holds the x tile (bm x 128 int8), the weight tile with its 16 rows of
+    ones ((bn + 16) x 128 u8), the tile's raw words (128 / (32 / bits) word
+    rows of bn int32) and the scales (and zeros) of its four k steps; as many
+    stages as fit beside a 16-byte mbarrier pair each and 1 KB of alignment,
+    at most four."""
+    from sam_quantization_tpu_torch.ops.quant_matmul import MAX_TILE_K as kt
+
+    stage = bm * kt + (bn + 16) * kt + kt // (32 // bits) * bn * 4 + (kt // 32) * bn * 4 * (
+        1 if sym else 2)
+    stages = min(4, (MAX_SMEM - 1024) // (stage + 16))
+    return stages, stages * (stage + 16) + 1024
+
+
 def candidate_blocks(M: int, N: int, K: int, groupsize: int, pack_block: int,
                      dtype: torch.dtype = torch.bfloat16) -> List[Tuple[int, int, int]]:
     """The instantiated tiles that fit this shape: the default, and every
@@ -125,6 +162,19 @@ def candidate_blocks(M: int, N: int, K: int, groupsize: int, pack_block: int,
 
     bk = tile_rows(pack_block)
     default, *others = TILES[dtype]
+    return [(*default, bk)] + [(bm, bn, bk) for bm, bn in others
+                               if N % bn == 0 and bm <= max(M, 128)]
+
+
+def candidate_blocks_a8(M: int, N: int, K: int, groupsize: int,
+                        pack_block: int) -> List[Tuple[int, int, int]]:
+    """The W-A8 main build's tiles that fit this shape, by
+    :func:`candidate_blocks`' rules: the default, and every other whose
+    ``bn`` divides N and whose ``bm`` is at most ``max(M, 128)``."""
+    from sam_quantization_tpu_torch.ops.quant_matmul import tile_rows
+
+    bk = tile_rows(pack_block)
+    default, *others = TILES_A8
     return [(*default, bk)] + [(bm, bn, bk) for bm, bn in others
                                if N % bn == 0 and bm <= max(M, 128)]
 

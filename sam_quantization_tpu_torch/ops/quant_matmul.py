@@ -56,11 +56,16 @@ Tiles: a weight-only launch takes the output tile a tuned table names for
 its shape (:func:`pick_blocks`, JAX's, reading ``ops/autotune.py``'s
 table); with no entry it takes the default tile, as with no table at all.
 An entry that names no candidate tile of the shape raises ``ValueError``.
+A W-A8 launch reads the same table (:func:`pick_blocks_a8`, under JAX's
+bare key whatever its output dtype, as JAX's W-A8 wrappers call
+``pick_blocks``), among the W-A8 tiles (``autotune.TILES_A8``); a layout
+that takes the W-A8 kernels' FINE build (:func:`a8_main_build` false)
+runs its one tile and ignores the table.
 
 The wrappers launch a kernel for a CUDA tensor and use the plain version
 only for a CPU tensor. ``LAUNCHES`` counts kernel launches, whatever the
 tile; ``TILE_LAUNCHES`` counts the same launches by ``(name, dtype,
-tile)``. ``torch.export``
+tile)``, the W-A8 ones by their output dtype. ``torch.export``
 cannot trace a launch through ``ctypes``, so while it traces a CUDA tensor
 the wrappers call the custom ops ``sam_quantization_tpu_torch::quant_matmul``
 and ``::a8_matmul`` (:data:`KERNEL_OPS`) instead: the exported program
@@ -86,7 +91,8 @@ LAUNCHES: Dict[str, int] = {
 }
 # int8_matmul calls: on activations it quantizes, and on int8 input (int8-pre)
 INT8_MATMULS: Dict[str, int] = {"int8_matmul": 0, "int8_matmul_pre": 0}
-# quant_matmul / quant_matmul3 launches by tile: (name, dtype, (bm, bn, bk)) -> count
+# packed-weight launches by tile: (name, dtype, (bm, bn, bk)) -> count (the
+# W-A8 kernels by their output dtype)
 TILE_LAUNCHES: Dict[Tuple[str, torch.dtype, Tuple[int, int, int]], int] = {}
 MAX_TILE_K = 128  # most K rows of a tile of the packed-weight kernels (KT in csrc/quant_common.cuh)
 
@@ -302,12 +308,10 @@ def a8_matmul_plain(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
     return (acc * xs).to(dtype)
 
 
-def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.dtype,
-              sym: bool) -> torch.Tensor:
-    """A W-A8 kernel on activations already quantized (``xq`` int8 (M, K),
-    ``xs`` float32 (M, 1)): the symmetric one if ``sym``, else the other;
-    the output (M, N) is in ``dtype``, float32 or bfloat16."""
-    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+def _a8_checked(name: str, xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
+                dtype: torch.dtype, sym: bool) -> bool:
+    """Check a W-A8 call; True where its operands lie on the CPU (the plain
+    version runs), False for checked CUDA operands."""
     M, K = xq.shape
     if K != p.in_features:
         raise ValueError(f"{name}: xq has K={K}, the layer {p.in_features}")
@@ -317,7 +321,7 @@ def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.
     if sym and not p.sym:
         raise ValueError(f"{name}: the layer's grid is not symmetric")
     if xq.device.type == "cpu":
-        return a8_matmul_plain(xq, xs, p, dtype, sym)
+        return True
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {xq.device}")
     if dtype not in _build.DTYPE_CODE:
@@ -329,6 +333,18 @@ def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.
     if xs.device != xq.device:
         raise ValueError(f"{name}: xs on {xs.device}, xq on {xq.device}")
     check_packed_on(name, xq.device, p)
+    return False
+
+
+def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.dtype,
+              sym: bool) -> torch.Tensor:
+    """A W-A8 kernel on activations already quantized (``xq`` int8 (M, K),
+    ``xs`` float32 (M, 1)): the symmetric one if ``sym``, else the other;
+    the output (M, N) is in ``dtype``, float32 or bfloat16. The launch takes
+    :func:`pick_blocks_a8`'s tile; a FINE layout runs its one tile."""
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    if _a8_checked(name, xq, xs, p, dtype, sym):
+        return a8_matmul_plain(xq, xs, p, dtype, sym)
     args = (xq, xs, p.qweight, p.scales, None if sym else p.zeros, p.bits, p.groupsize,
             p.pack_block, p.out_features, sym, dtype)
     if torch.compiler.is_exporting():
@@ -336,12 +352,55 @@ def a8_matmul(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear, dtype: torch.
     return _launch_a8_matmul(*args)
 
 
+def a8_main_build(K: int, groupsize: int, pack_block: int, bits: int) -> bool:
+    """Whether the W-A8 kernels run their main build (the tiled int8
+    ``wgmma`` body) on this layout, as ``run_a8_bits`` decides: groups of 32
+    or 64 rows, of whole 128-row K tiles or all of K; K tiles of 128 rows;
+    pack blocks of at least four word rows a plane; K a multiple of 16 (x
+    by TMA, which also wants xq on 16 bytes: the launch checks that).
+    Otherwise the FINE build runs, at its one 128 x 128 tile."""
+    g = groupsize
+    return ((g == K or g in (32, 64) or g % MAX_TILE_K == 0)
+            and tile_rows(pack_block) == MAX_TILE_K and (pack_block // (32 // bits)) % 4 == 0
+            and K % 16 == 0)
+
+
+def pick_blocks_a8(M: int, N: int, K: int, groupsize: int, pack_block: int,
+                   bits: int = 4) -> Tuple[int, int, int]:
+    """(bm, bn, bk) of a W-A8 main-build launch: the tuned table's entry
+    under JAX's bare key (``groupsize if groupsize < K else 0``, no dtype
+    suffix), as JAX's W-A8 wrappers call ``pick_blocks``, else the default
+    128 x 128. Raises ``ValueError`` if the entry names no W-A8 candidate
+    tile (``autotune.candidate_blocks_a8``)."""
+    gk = groupsize if groupsize < K else 0
+    cands = autotune.candidate_blocks_a8(M, N, K, groupsize, pack_block)
+    hit = autotune.lookup(M, K, N, gk, bits)
+    if hit is not None and hit not in cands:
+        raise ValueError(f"autotune table entry {autotune._key(M, K, N, gk, bits)}: "
+                         f"{hit} is not a W-A8 candidate tile {cands}")
+    return hit if hit is not None else cands[0]
+
+
 def _launch_a8_matmul(xq: torch.Tensor, xs: torch.Tensor, qweight: torch.Tensor,
                       scales: torch.Tensor, zeros: Optional[torch.Tensor], bits: int,
                       groupsize: int, pack_block: int, out_features: int, sym: bool,
                       dtype: torch.dtype) -> torch.Tensor:
     """Launch ``quant_matmul_a8_sym`` (``sym``) or ``quant_matmul_a8`` on
-    checked CUDA operands."""
+    checked CUDA operands, at :func:`pick_blocks_a8`'s tile, or at the
+    default tile where the FINE build runs (which ignores the table)."""
+    M, K = xq.shape
+    if a8_main_build(K, groupsize, pack_block, bits) and xq.data_ptr() % 16 == 0:
+        tile = pick_blocks_a8(M, out_features, K, groupsize, pack_block, bits)
+    else:
+        tile = (*autotune.TILES_A8[0], tile_rows(pack_block))
+    return _launch_a8(xq, xs, qweight, scales, zeros, bits, groupsize, pack_block,
+                      out_features, sym, dtype, tile)
+
+
+def _launch_a8(xq, xs, qweight, scales, zeros, bits, groupsize, pack_block, out_features, sym,
+               dtype, tile: Tuple[int, int, int]) -> torch.Tensor:
+    """``samq_quant_matmul_a8`` at ``tile``, counted in ``LAUNCHES`` and
+    ``TILE_LAUNCHES``."""
     M, K = xq.shape
     out = torch.empty((M, out_features), dtype=dtype, device=xq.device)
     if M == 0:
@@ -352,10 +411,26 @@ def _launch_a8_matmul(xq: torch.Tensor, xs: torch.Tensor, qweight: torch.Tensor,
             "quant_matmul_a8", _build.DTYPE_CODE[dtype], bits, int(sym), xq.data_ptr(),
             xs.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
             None if sym else zeros.data_ptr(), out.data_ptr(), M, K, out_features, groupsize,
-            pack_block, stream,
+            pack_block, *tile, stream,
         )
-    LAUNCHES["quant_matmul_a8_sym" if sym else "quant_matmul_a8"] += 1
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    LAUNCHES[name] += 1
+    key = (name, dtype, tuple(tile))
+    TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
     return out
+
+
+def a8_matmul_tiled(xq: torch.Tensor, xs: torch.Tensor, p: PackedLinear,
+                    tile: Tuple[int, int, int], dtype: torch.dtype, sym: bool) -> torch.Tensor:
+    """A W-A8 kernel at a given tile ``(bm, bn, bk)``: on a CUDA tensor the
+    kernel, which refuses a tile it was not built for (``RuntimeError``) and
+    whose FINE build runs its one tile whatever ``tile`` names; on a CPU
+    tensor the plain version, which has no tiles."""
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    if _a8_checked(name, xq, xs, p, dtype, sym):
+        return a8_matmul_plain(xq, xs, p, dtype, sym)
+    return _launch_a8(xq, xs, p.qweight, p.scales, None if sym else p.zeros, p.bits,
+                      p.groupsize, p.pack_block, p.out_features, sym, dtype, tuple(tile))
 
 
 a8_matmul_op = torch.library.custom_op(

@@ -7,8 +7,9 @@ Counterpart of the JAX package's ``tools/autotune.py``: for each M and bits
 it times every candidate tile of the four encoder linear shapes
 (``ops.autotune.tune_model_shapes``) and writes the fastest to the table,
 ``.samq_autotune_torch.json`` at the repository root unless ``--table``
-names another; ``ops.quant_matmul.pick_blocks`` reads it at the next start.
-Needs a CUDA card. No table is committed: without one every launch takes
+names another; ``ops.quant_matmul.pick_blocks`` reads it at the next start,
+and so does ``pick_blocks_a8`` for the W-A8 kernels (a bfloat16 entry; the
+tuner times the weight-only kernel, as JAX's does). Needs a CUDA card. No table is committed: without one every launch takes
 the default tile.
 """
 

@@ -990,17 +990,120 @@ def _sass_counts(name, pattern, instructions):
 @pytest.mark.gpu
 def test_a8_main_build_runs_int8_wgmma(cuda):
     """Every main-build instantiation of the W-A8 kernel (bits 2/4/8, sym and
-    asym, float32 and bf16 out) holds IGMMA (int8 wgmma) and no IMMA; every
-    FINE one holds IMMA (mma.sync)."""
-    counts = _sass_counts("quant_matmul_a8",
-                          r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)E(13__nv_bfloat16|f)E",
-                          ("IGMMA", "IMMA"))
-    assert len(counts) == 24, sorted(counts)
-    for (bits, sym, fine, out), (igmma, imma) in counts.items():
+    asym, every tile of TILES_A8, float32 and bf16 out) holds IGMMA (int8
+    wgmma) and no IMMA; every FINE one (its one 128 x 128 tile) holds IMMA
+    (mma.sync)."""
+    counts = _sass_counts(
+        "quant_matmul_a8",
+        r"qmm_a8_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E",
+        ("IGMMA", "IMMA"))
+    main = {(b, s, "0", str(bm), str(bn), o) for b in "248" for s in "01"
+            for bm, bn in autotune.TILES_A8 for o in ("f", "13__nv_bfloat16")}
+    fine = {(b, s, "1", "128", "128", o) for b in "248" for s in "01"
+            for o in ("f", "13__nv_bfloat16")}
+    assert set(counts) == main | fine, sorted(counts)
+    for (bits, sym, fine, bm, bn, out), (igmma, imma) in counts.items():
         if fine == "1":
             assert imma > 0 and igmma == 0, (bits, sym, out, igmma, imma)
         else:
-            assert igmma > 0 and imma == 0, (bits, sym, out, igmma, imma)
+            assert igmma > 0 and imma == 0, (bits, sym, bm, bn, out, igmma, imma)
+
+
+# W-A8 tiles (csrc/quant_matmul_a8.cu's main build at each of
+# autotune.TILES_A8): every tile, bits 2/4/8, sym and asym, float32 and bf16
+# out, ragged M and N, bit-equal to the plain version and to the default
+# tile: every tile walks K in the same tiles and segments, so each output is
+# the same float32 sum (2-bit groups of 32 take the FINE build and its one
+# tile whatever the tile names). ViT-H's windowed qkv at 4 bits too.
+A8_TILE_CASES = [(bits, *shape) for bits in (2, 4, 8) for shape in (
+    (129, 512, 200, 128), (300, 384, 256, 64), (1, 256, 64, 0), (257, 640, 384, 32))] + [
+    (4, 4900, 1280, 3840, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,M,K,N,g", A8_TILE_CASES)
+def test_every_a8_tile_matches_plain_on_card(cuda, dtype, sym, bits, M, K, N, g):
+    tdt = DTYPES[dtype][0]
+    p = _packed_a8(70 + bits, K, N, bits, g, sym, cuda)
+    xq, xs = tqm.quantize_activations_int8(_randn(71, M, K).to(cuda, tdt))
+    plain = tqm.a8_matmul_plain(xq, xs, p, tdt, sym)
+    default = tqm.a8_matmul(xq, xs, p, tdt, sym)
+    bk = tqm.tile_rows(p.pack_block)
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    for bm, bn in autotune.TILES_A8:
+        tqm.reset_launch_counts()
+        out = tqm.a8_matmul_tiled(xq, xs, p, (bm, bn, bk), tdt, sym)
+        torch.cuda.synchronize()
+        assert tqm.TILE_LAUNCHES == {(name, tdt, (bm, bn, bk)): 1}
+        assert out.dtype == tdt and out.shape == (M, N)
+        assert torch.equal(out, plain), ((bm, bn), float((out.float() - plain.float()).abs().max()))
+        assert torch.equal(out, default), (bm, bn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sym", [True, False])
+def test_a8_table_hit_launches_the_tile_on_card(cuda, dtype, sym):
+    """Under a table entry (JAX's bare key) the W-A8 wrapper launches its
+    kernel at that tile: one launch counted by tile, the output the tiled
+    entry's; an entry outside the candidates raises, naming its key."""
+    tdt = DTYPES[dtype][0]
+    M, K, N = 300, 512, 384
+    p = _packed_a8(72, K, N, 4, 128, sym, cuda)
+    xq, xs = tqm.quantize_activations_int8(_randn(73, M, K).to(cuda, tdt))
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    key = autotune._key(M, K, N, 128, 4)
+    try:
+        for tile in autotune.candidate_blocks_a8(M, N, K, 128, p.pack_block):
+            autotune._table = {key: list(tile)}
+            tqm.reset_launch_counts()
+            out = tqm.a8_matmul(xq, xs, p, tdt, sym)
+            assert tqm.LAUNCHES[name] == 1 and tqm.TILE_LAUNCHES == {(name, tdt, tile): 1}
+            assert torch.equal(out, tqm.a8_matmul_tiled(xq, xs, p, tile, tdt, sym))
+        autotune._table = {key: [192, 128, 128]}
+        with pytest.raises(ValueError, match=key):
+            tqm.a8_matmul(xq, xs, p, tdt, sym)
+    finally:
+        autotune._table = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sym", [True, False])
+def test_a8_fine_layout_ignores_the_table_on_card(cuda, sym):
+    """A layout the main build does not take (groups of 48: pack block 48,
+    96-row K tiles) runs the FINE build at its one tile whatever the table
+    names, even an entry outside the candidates; bit-equal to plain."""
+    M, K, N = 70, 384, 256
+    p = _packed_a8(74, K, N, 4, 48, sym, cuda)
+    assert p.pack_block == 48 and not tqm.a8_main_build(K, 48, 48, 4)
+    xq, xs = tqm.quantize_activations_int8(_randn(75, M, K).to(cuda))
+    name = "quant_matmul_a8_sym" if sym else "quant_matmul_a8"
+    plain = tqm.a8_matmul_plain(xq, xs, p, torch.float32, sym)
+    try:
+        for entry in ([256, 64, 96], [192, 128, 96]):
+            autotune._table = {autotune._key(M, K, N, 48, 4): entry}
+            tqm.reset_launch_counts()
+            out = tqm.a8_matmul(xq, xs, p, torch.float32, sym)
+            assert tqm.TILE_LAUNCHES == {(name, torch.float32, (128, 128, 96)): 1}
+            assert torch.equal(out, plain)
+    finally:
+        autotune._table = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [128, 48])
+def test_a8_refuses_tiles_it_was_not_built_for_on_card(cuda, g):
+    """The C entry refuses a tile outside TILES_A8 and a K tile other than
+    tile_rows(pack_block), for a main-build layout and a FINE one alike."""
+    p = _packed_a8(76, 384, 256, 4, g, True, cuda)
+    xq, xs = tqm.quantize_activations_int8(_randn(77, 64, 384).to(cuda))
+    bk = tqm.tile_rows(p.pack_block)
+    for tile in [(192, 128, bk), (128, 64, bk), (256, 256, bk), (512, 128, bk),
+                 (128, 128, bk // 2)]:
+        with pytest.raises(RuntimeError, match="quant_matmul_a8: kernel launch failed"):
+            tqm.a8_matmul_tiled(xq, xs, p, tile, torch.float32, True)
 
 
 @pytest.mark.gpu

@@ -128,3 +128,32 @@ def test_box_nms_matches_jax(fallback, monkeypatch):
         np.testing.assert_array_equal(keep, jnative.box_nms(boxes, scores, thr))
         np.testing.assert_array_equal(np.sort(keep), np.sort(jamg.box_nms(boxes, scores, thr)))
     assert len(native.box_nms(boxes[:0], scores[:0], 0.5)) == 0
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("groupsize", [0, 48])
+def test_pack_block_planar_matches_jax_and_torch_packer(bits, groupsize):
+    """The library's block-planar packing (pack blocks 128 and 48, K 384)
+    gives the words of JAX's ``native.pack_block_planar`` and of the port's
+    torch packer (``nn.packed.pack_int_weights``), bit for bit."""
+    import torch
+
+    from sam_quantization_tpu_torch.nn import packed
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: pack_block_planar returns None without its library")
+    K, N = 384, 136
+    w = np.random.default_rng(bits + groupsize).integers(0, 2**bits, (K, N)).astype(np.int32)
+    g = groupsize or K
+    p = packed.pack_int_weights(torch.from_numpy(w), torch.ones(K // g, N), torch.zeros(K // g, N),
+                                None, bits, groupsize)
+    assert p.pack_block == (groupsize or 128)
+    got = native.pack_block_planar(w, bits, p.pack_block)
+    assert got.dtype == np.int32 and got.shape == (K // (32 // bits), N)
+    np.testing.assert_array_equal(got, p.qweight.numpy())
+    np.testing.assert_array_equal(got, jnative.pack_block_planar(w, bits, p.pack_block))
+
+
+def test_pack_block_planar_without_library_is_none(no_lib):
+    """JAX's fallback: None, and the caller packs with nn.packed."""
+    assert native.pack_block_planar(np.zeros((128, 8), np.int32), 4, 128) is None
