@@ -205,9 +205,9 @@ Run from the repository root on a machine with one CUDA card. It
     decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
     --format onnx``. Each part's seconds are printed. (e)'s package is
     compiled by a process of its own (``python3 chip_smoke.py
-    --aoti-package DIR``), started first, and checked after step 21: the
+    --aoti-package DIR``), started first, and checked after step 22: the
     compile (142-183 s of host compilers on an NVIDIA H100 80GB HBM3
-    machine at 700 W) runs beside steps 19-21.
+    machine at 700 W) runs beside steps 19-22.
 20. rel-pos resize (``models/image_encoder.get_rel_pos``): a ViT-H global
     attention whose 127-row tables are resized for grids 48 and 32 (shrunk
     to 95 and 63 rows) and 80 and 128 (grown to 159 and 255): the card's
@@ -222,8 +222,20 @@ Run from the repository root on a machine with one CUDA card. It
     arm), the embedding against partition-first's (rel L2 5e-2, and whether
     bit-equal), and the device ms of the 28 windowed blocks under the
     profiler.
+22. the quantization-quality table and its trainer (``tools/quality_table``,
+    ``tools/train_synthetic``): the committed ``vit_tiny_synth`` table on
+    the card (QUALITY_SCENES held-out scenes), its default rows on the eager
+    branch, then the three kernel-path rows merged in on the kernel branch:
+    both runs exit 0 with ``ci_ok`` (each kernel row inside its base row's
+    CI95), every encode's launches exact; ``train_synthetic --resume`` for
+    20 steps on a copy of it (finite losses, 4 ``flash_whole`` launches a
+    step), its ``latest`` read back by the table within a tolerance set from
+    CPU runs; and the same table at ViT-H widths on a seeded checkpoint
+    written by the port (fp32 eager: no launch; RTN W4 and bf16 on the
+    kernel branch: 64 ``quant_matmul``, 32 ``fused_mlp`` and 28/4 flash, and
+    28/4 flash, an encode).
 
-Each step prints its seconds (``step N ...: s``), and a line after step 21
+Each step prints its seconds (``step N ...: s``), and a line after step 22
 all of them. The line before the last is a JSON object with one entry per kernel build
 (its ``dtype``; the packed-weight kernels in float32 and bfloat16, and the
 tuned tiles of ``quant_matmul``, ``quant_matmul3``, ``quant_matmul_a8_sym``
@@ -2887,6 +2899,388 @@ def hoist_phase(dev, card: str, build, image, reset_counts, counts, want: dict) 
     print(f"hoist phase {time.perf_counter() - phase_t:.1f} s")
 
 
+# Step 22, the quality table (tools/quality_table.py) and its trainer
+# (tools/train_synthetic.py). QUALITY_SCENES: the held-out scenes of
+# vit_tiny_synth's table, at least 32, and the most that keep the step near
+# 150 s: on an NVIDIA H100 80GB HBM3 machine (700 W) the step read 133.6 s at
+# 32 scenes and 244.6 s at 48 (each scene runs 17 decodes a row).
+QUALITY_SCENES = 32
+# Launches an encode at vit_tiny (2 windowed blocks of 4 windows, 2 global
+# blocks of 64 tokens, 16 block linears): the base rows on the eager branch
+# (--attn-impl xla) launch only their packed kernels (the cached-int8 rows'
+# int8 products, attn.proj left dense below ViT-H's width); the kernel-path
+# rows (--attn-impl auto) add the attention kernels, and the _epi row routes
+# attn.proj to int8: the windowed kernels' int8-out epilogue feeds it, and
+# the global blocks' head-split kernel (no epilogue) a quantizing product.
+QUALITY_LAUNCHES = {
+    "fp32": {}, "gptq_int4": {"quant_matmul": 16}, "gptq_int3": {"quant_matmul3": 16},
+    "rtn_int4": {"quant_matmul": 16}, "fq_int8": {}, "fq_int8_tuned": {},
+    "a8_serving": {"int8_matmul": 12},
+    "bf16_kernels": {"flash_windowed": 2, "flash_whole": 2},
+    "a8_serving_kernels": {"flash_windowed": 2, "flash_whole": 2, "int8_matmul": 12},
+    "a8_serving_kernels_epi": {"flash_windowed": 2, "flash_whole": 2,
+                               "flash_windowed int8-out": 2, "int8_matmul": 14,
+                               "int8_matmul_pre": 2},
+}
+QUALITY_KERNEL_ROWS = ("bf16_kernels", "a8_serving_kernels", "a8_serving_kernels_epi")
+# Each row that launches a kernel is run again through the plain versions on
+# the CPU from the same quantized weights: its 5-click loop with the card's
+# own clicks replayed (the loop's clicks draw from one generator across the
+# scenes, so a flipped pixel would move every later click), its per-click
+# mIoU within QUALITY_PLAIN_IOU_TOL of the card's (the card test's bound),
+# and each scene's embedding within QUALITY_EMB_TOL (rel. L2) of the card's:
+# by the encoder's dtype, and for the cached-int8 rows by their int8
+# rounding (an ulp before a linear can move an input across an int8
+# rounding point, as A8_TINY_TOL's note says). Limits set from the first
+# H100 run: float32 packed rows 5.3e-7 to 6.0e-7, so 1e-5; bf16_kernels
+# 4.07e-3, so 2e-2; cached int8 6.53e-3 (float32) to 9.65e-3 (bf16, _epi),
+# so 3e-2; per-click mIoU gaps 0 to 1.85e-4.
+QUALITY_PLAIN_IOU_TOL = 1e-2
+QUALITY_EMB_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": 3e-2}
+# train_synthetic --resume on a copy of vit_tiny_synth's latest (step 24000):
+# QUALITY_TRAIN_STEPS steps (batch 8, lr 3e-4, 5 clicks) on the card, one
+# flash_train forward a block a step (4 flash_whole launches), then its
+# latest read by the quality tool (fp32, QUALITY_SCENES scenes): the click-5
+# mIoU within QUALITY_TRAIN_TOL of QUALITY_TRAIN_CLICK5. The card draws its
+# training clicks from a CUDA generator, so its weights differ from any CPU
+# run's. The same 20 steps on the CPU at seeds 0, 1 and 2 (other pools,
+# batches and clicks) read 0.9399, 0.9382 and 0.9450 (the checkpoint itself
+# 0.9417): their mean, and 0.01, past twice the largest seed's gap (0.004).
+QUALITY_TRAIN_STEPS = 20
+QUALITY_TRAIN_CLICK5 = 0.9410
+QUALITY_TRAIN_TOL = 1e-2
+# The same resumed step once on the card and once on the CPU, both with the
+# first error pixel in raster order as each click and TF32 off, held as
+# tests/test_torch_train_synthetic.py holds the port's steps to JAX's: each
+# leaf's update within 1e-3 of its largest plus two float32 steps of its
+# largest weight; the key biases (zero exact gradient, float32 noise on both
+# sides) within the largest move of one AdamW step at a carried state.
+QUALITY_STEP_RTOL = 1e-3
+QUALITY_ADAM_STEP = 3e-4 * (0.1 / 0.001**0.5 + 1e-4)  # --lr 3e-4, b1 0.9, b2 0.999
+# The full-width leg: the same tool on a seeded ViT-H written by the port's
+# save_checkpoint, fp32 on the eager branch, rtn_int4 and bf16_kernels on the
+# kernel branch; launches an encode, exact.
+QUALITY_VIT_H_LAUNCHES = {
+    "fp32": {},
+    "rtn_int4": {"quant_matmul": 64, "fused_mlp": 32, "flash_windowed": 28, "flash_global": 4},
+    "bf16_kernels": {"flash_windowed": 28, "flash_global": 4},
+}
+
+
+@contextlib.contextmanager
+def encode_launches(reset_counts, counts, log: list):
+    """While inside, every click-loop backend's encode runs with the counts
+    set to 0 just before it and read just after it: ``log`` gets one dict a
+    backend (a configuration), whose ``"runs"`` hold one dict of non-zero
+    counts an encode, beside the backend's ``"model"`` and ``"attn_impl"``,
+    each encode's output on the CPU (``"embs"``) and each click loop's
+    (samples, keywords, result) (``"loops"``)."""
+    from sam_quantization_tpu_torch.evaluation import click_eval
+
+    make, loop = click_eval.make_sam_backend, click_eval.click_loop_eval
+
+    def backend(model, ctx=None, attn_impl="kernel"):
+        encode, decode = make(model, ctx=ctx, attn_impl=attn_impl)
+        entry = {"runs": [], "embs": [], "loops": [], "model": model, "attn_impl": attn_impl}
+        log.append(entry)
+
+        def counted(x):
+            reset_counts()
+            emb = encode(x)
+            entry["runs"].append({k: v for k, v in counts().items() if v})
+            entry["embs"].append(emb.float().cpu())
+            return emb
+
+        return counted, decode
+
+    def looped(encode, decode, samples, **kw):
+        res = loop(encode, decode, samples, **kw)
+        log[-1]["loops"].append((samples, kw, res))
+        return res
+
+    click_eval.make_sam_backend, click_eval.click_loop_eval = backend, looped
+    try:
+        yield
+    finally:
+        click_eval.make_sam_backend, click_eval.click_loop_eval = make, loop
+
+
+def plain_replay(entry: dict):
+    """(the largest rel. L2 gap of a scene's embedding, the largest gap of a
+    click's mIoU) between a card row's first click loop and the same loop
+    through the plain versions on the CPU, from a CPU copy of the row's
+    model, with the card's clicks replayed."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.evaluation import click_eval
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+
+    cpu = copy.deepcopy(entry["model"]).to("cpu")
+    encode_raw, decode = click_eval.make_sam_backend(cpu, attn_impl=entry["attn_impl"])
+    embs = []
+
+    def encode(x):
+        emb = encode_raw(sam_lib.preprocess(cpu, torch.from_numpy(x)).numpy())
+        embs.append(emb.float())
+        return emb
+
+    samples, kw, res = entry["loops"][0]
+    plain = click_eval.click_loop_eval(encode, decode, samples, clicks_override=res.clicks, **kw)
+    rel = max(float((c - e).norm() / e.norm()) for c, e in zip(entry["embs"], embs))
+    gap = float(np.abs(np.asarray(res.mean_ious) - np.asarray(plain.mean_ious)).max())
+    return rel, gap
+
+
+def first_error_click(pred_logit, gt, gen):
+    """The trainer's click rule with the first error pixel in raster order in
+    place of a random one: the same clicks on the card and on the CPU."""
+    import torch
+
+    pred, gt_b = pred_logit > 0, gt > 0.5
+    fn, fp = gt_b & ~pred, ~gt_b & pred
+    use_fn = bool(fn.any())
+    region = (fn if use_fn else fp).reshape(-1)
+    if not bool(region.any()):
+        region = torch.ones_like(region)
+    idx = int(torch.argmax(region.int()))
+    W = gt.shape[-1]
+    return (torch.tensor([idx % W, idx // W], dtype=torch.float32, device=gt.device),
+            torch.tensor(float(use_fn), device=gt.device))
+
+
+def _quiet_main(main, argv):
+    """(exit code, stdout) of a tool's ``main``; its lines but the rows'
+    (printed again by the caller) echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    for line in buf.getvalue().splitlines():
+        if not line.endswith("}") or line.startswith("{"):
+            print(f"  | {line}", flush=True)
+    return code, buf.getvalue()
+
+
+def resumed_step_gap(work: pathlib.Path, synth: str, start: int, platforms=("gpu", "cpu")):
+    """One ``train_synthetic --resume`` step from ``synth`` on each of
+    ``platforms`` (the trainer's clicks by ``first_error_click``, TF32 off),
+    then (exit codes, the worst leaf's update gap over its bound, the key
+    biases' largest move, the leaves the first run moved, the leaves)."""
+    import numpy as np
+
+    from sam_quantization_tpu_torch.models import sam as sam_lib
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.quant.sequential import full_float32
+    from sam_quantization_tpu_torch.tools import train_synthetic
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+    from sam_quantization_tpu_torch.train import trainer as trainer_lib
+
+    codes, dirs = [], []
+    sample_click = trainer_lib._sample_error_click
+    trainer_lib._sample_error_click = first_error_click
+    try:
+        with full_float32():
+            for i, platform in enumerate(platforms):
+                dirs.append(work / f"step_{i}_{platform}")
+                shutil.copytree(synth, dirs[-1])
+                codes.append(_quiet_main(train_synthetic.main, [
+                    "--resume", "--out", str(dirs[-1]), "--steps", str(start + 1),
+                    "--eval-samples", "2", "--platform", platform])[0])
+    finally:
+        trainer_lib._sample_error_click = sample_click
+
+    def weights(directory):
+        model = sam_lib.Sam(CONFIGS["vit_tiny"], device="cpu")
+        ckpt_lib.load_weights(str(directory), model, "latest")
+        return {n: p.detach().numpy() for n, p in model.named_parameters()}
+
+    old, got, want = weights(synth), weights(dirs[0]), weights(dirs[1])
+    worst, bias_move, moved = 0.0, 0.0, 0
+    for n in old:
+        upd, ref = got[n] - old[n], want[n] - old[n]
+        moved += bool(np.any(upd))
+        free = np.zeros(upd.shape, bool)  # the key biases' elements
+        if n.endswith("k_proj.bias"):
+            free[:] = True
+        elif n.endswith("attn.qkv.bias"):
+            free[upd.size // 3:2 * upd.size // 3] = True
+        bias_move = max(bias_move, float(np.abs(upd[free]).max(initial=0.0)))
+        tol = (QUALITY_STEP_RTOL * np.abs(ref).max(initial=0.0)
+               + 2 * np.spacing(np.abs(old[n]).max(initial=0.0)))
+        worst = max(worst, float(np.abs(upd[~free] - ref[~free]).max(initial=0.0)) / tol)
+    return codes, worst, bias_move, moved, len(old)
+
+
+def quality_phase(dev, card: str, reset_counts, counts, repo: pathlib.Path) -> None:
+    """Step 22: the quantization-quality table and its trainer on the card.
+    (a) ``tools.quality_table`` on ``checkpoints/vit_tiny_synth``, its default
+    configurations on the eager branch, then the three kernel-path rows merged
+    in on the kernel branch: both runs exit 0 with ``ci_ok`` (each kernel row
+    inside its base row's CI95, JAX's own gate), every encode's launches
+    exactly QUALITY_LAUNCHES; (b) ``tools.train_synthetic --resume`` for
+    QUALITY_TRAIN_STEPS steps on a copy of it: finite losses, exact launches,
+    AdamW's count on by as many steps and the weights moved, ``latest`` read
+    back by the quality tool within QUALITY_TRAIN_TOL; then one resumed step
+    on the card held to the same step on the CPU; (c) the ViT-H leg
+    (QUALITY_VIT_H_LAUNCHES). Each row of (a) that launches a kernel is also
+    run through the plain versions on the CPU (``plain_replay``)."""
+    import numpy as np
+    import torch
+
+    from sam_quantization_tpu_torch.tools import quality_table, train_synthetic
+    from sam_quantization_tpu_torch.train import checkpoint as ckpt_lib
+    from sam_quantization_tpu_torch.train import trainer as trainer_lib
+
+    work = repo / "build" / "chip_quality"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    synth = str(repo / "checkpoints" / "vit_tiny_synth")
+    try:
+        # (a) the table, base rows then kernel rows
+        t0 = time.perf_counter()
+        out = work / "quality.json"
+        common = ["--ckpt", synth, "--eval-samples", str(QUALITY_SCENES), "--out", str(out)]
+        log = []
+        with encode_launches(reset_counts, counts, log):
+            code_base, _ = _quiet_main(quality_table.main, common)
+            base_s = time.perf_counter() - t0
+            code_kernel, _ = _quiet_main(quality_table.main, common + [
+                "--merge", "--attn-impl", "auto", "--configs", *QUALITY_KERNEL_ROWS])
+        table = json.loads(out.read_text())
+        names = quality_table.DEFAULT_CONFIGS + list(QUALITY_KERNEL_ROWS)
+        check(code_base == 0 and code_kernel == 0 and table["ci_ok"] is True
+              and list(table["rows"]) == names,
+              f"quality table, vit_tiny_synth, {QUALITY_SCENES} scenes on the card: exit codes "
+              f"{code_base} / {code_kernel}, ci_ok {table['ci_ok']}, rows {list(table['rows'])} "
+              f"({base_s:.1f} s base rows, {time.perf_counter() - t0:.1f} s in all)  [{card}]")
+        for name, row in table["rows"].items():
+            print(f"  {name}: click1 {row['click1_miou']} {row['click1_ci95']}, click5 "
+                  f"{row['click5_miou']} {row['click5_ci95']}, NoC@90 {row['noc@90']} "
+                  f"{row['noc@90_ci95']}" + (f", within {row['vs_base_row']}'s CI95: "
+                                            f"{row['within_base_ci95']}"
+                                            if "within_base_ci95" in row else ""))
+        check(len(log) == len(names), f"quality table: {len(log)} backends for {len(names)} rows")
+        for name, entry in zip(names, log):
+            want, runs = QUALITY_LAUNCHES[name], entry["runs"]
+            check(len(runs) == 2 * QUALITY_SCENES and all(r == want for r in runs),
+                  f"quality table {name}: launches an encode {runs[0] if runs else None} over "
+                  f"{len(runs)} encodes, all equal: {all(r == runs[0] for r in runs)} "
+                  f"(want {want})")
+        # the rows that launch kernels, again through the plain versions
+        t1 = time.perf_counter()
+        for name, entry in zip(names, log):
+            if not QUALITY_LAUNCHES[name]:
+                continue
+            dtype = str(entry["model"].image_encoder.patch_embed.proj.weight.dtype)[6:]
+            tol = QUALITY_EMB_TOL["int8" if name.startswith("a8_serving") else dtype]
+            rel, gap = plain_replay(entry)
+            check(rel <= tol and gap <= QUALITY_PLAIN_IOU_TOL,
+                  f"quality table {name} against its plain versions on the CPU ({dtype}, the "
+                  f"same weights, the card's clicks replayed, {QUALITY_SCENES} scenes): "
+                  f"embedding rel. L2 {rel:.3e} (<= {tol}), per-click mIoU |d| {gap:.2e} "
+                  f"(<= {QUALITY_PLAIN_IOU_TOL})")
+        print(f"  plain replays {time.perf_counter() - t1:.1f} s")
+        del log
+
+        # (b) the trainer, resumed on a copy of vit_tiny_synth
+        t0 = time.perf_counter()
+        run = work / "train"
+        shutil.copytree(synth, run)
+        start = json.loads((run / "sam_model_latest.json").read_text())["epoch"]
+        losses = []
+        make_step = trainer_lib.make_train_step
+
+        def recorded(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def wrapped(*sa, **skw):
+                aux = step(*sa, **skw)
+                losses.append(float(aux["loss"]))
+                return aux
+            return wrapped
+
+        trainer_lib.make_train_step = recorded
+        reset_counts()
+        try:
+            code, text = _quiet_main(train_synthetic.main, [
+                "--resume", "--out", str(run), "--steps", str(start + QUALITY_TRAIN_STEPS),
+                "--eval-every", str(QUALITY_TRAIN_STEPS)])
+        finally:
+            trainer_lib.make_train_step = make_step
+        train_counts = {k: v for k, v in counts().items() if v}
+        train_s = time.perf_counter() - t0
+        status = json.loads(text.splitlines()[-1])
+        meta = json.loads((run / "sam_model_latest.json").read_text())
+        check(code == 0 and len(losses) == QUALITY_TRAIN_STEPS
+              and all(math.isfinite(v) for v in losses)
+              and meta["epoch"] == start + QUALITY_TRAIN_STEPS
+              and train_counts == {"flash_whole": 4 * QUALITY_TRAIN_STEPS},
+              f"train_synthetic --resume, {QUALITY_TRAIN_STEPS} steps from step {start} on the "
+              f"card: losses {losses[0]:.4f} .. {losses[-1]:.4f}, all finite "
+              f"{all(math.isfinite(v) for v in losses)}, status {status}, latest at step "
+              f"{meta['epoch']} (click1 {meta['click1']:.4f}, click5 {meta['click5']:.4f}), "
+              f"launches {train_counts} ({train_s:.1f} s)  [{card}]")
+        with np.load(run / "sam_model_latest.npz") as new, \
+                np.load(pathlib.Path(synth) / "sam_model_latest.npz") as old:
+            counts_ab = int(old["o0"]), int(new["o0"])
+            leaves = [k for k in old.files if k.startswith("m")]
+            moved = sum(bool(np.any(new[k] != old[k])) for k in leaves)
+        check(counts_ab[1] == counts_ab[0] + QUALITY_TRAIN_STEPS and moved > 0.8 * len(leaves),
+              f"the {QUALITY_TRAIN_STEPS} steps trained: AdamW's count {counts_ab[0]} -> "
+              f"{counts_ab[1]}, {moved} of {len(leaves)} weight leaves moved")
+        code, _ = _quiet_main(quality_table.main, [
+            "--ckpt", str(run), "--name", "latest", "--configs", "fp32", "--eval-samples",
+            str(QUALITY_SCENES), "--out", str(work / "trained.json")])
+        click5 = json.loads((work / "trained.json").read_text())["rows"]["fp32"]["click5_miou"]
+        check(code == 0 and abs(click5 - QUALITY_TRAIN_CLICK5) <= QUALITY_TRAIN_TOL,
+              f"the trained latest in the quality tool: fp32 click5 mIoU {click5} (CPU runs "
+              f"{QUALITY_TRAIN_CLICK5} +- {QUALITY_TRAIN_TOL})")
+
+        # one resumed step on the card against the same step on the CPU
+        t0 = time.perf_counter()
+        codes, worst, bias_move, moved, n = resumed_step_gap(work, synth, start)
+        check(codes == [0, 0] and worst <= 1.0 and bias_move <= QUALITY_ADAM_STEP
+              and moved > 0.8 * n,
+              f"one resumed train_synthetic step, card against CPU (first-error clicks, TF32 "
+              f"off): exit codes {codes}, {moved} of {n} leaves moved, the worst leaf's "
+              f"update gap {worst:.3f} of its bound ({QUALITY_STEP_RTOL} of its largest update "
+              f"+ 2 ulp), key biases moved <= {bias_move:.2e} (<= {QUALITY_ADAM_STEP:.2e}) "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+        # (c) the full-width leg: a seeded ViT-H through the same tool
+        t0 = time.perf_counter()
+        model = seeded_model("vit_h", dev)
+        opt = trainer_lib.make_optimizer(trainer_lib.TrainConfig(), model)
+        ckpt_lib.save_checkpoint(str(work / "vit_h"), model, opt, 0, "best")
+        del model, opt
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t0
+        leg = ["--model", "vit_h", "--ckpt", str(work / "vit_h"), "--eval-samples", "2",
+               "--calib-samples", "1", "--num-clicks", "2", "--noc-clicks", "2",
+               "--out", str(work / "vit_h.json")]
+        log = []
+        with encode_launches(reset_counts, counts, log):
+            codes = [_quiet_main(quality_table.main, leg + ["--configs", "fp32"])[0],
+                     _quiet_main(quality_table.main, leg + [
+                         "--merge", "--attn-impl", "auto", "--configs", "rtn_int4",
+                         "bf16_kernels"])[0]]
+        rows = json.loads((work / "vit_h.json").read_text())["rows"]
+        ious = [v for r in rows.values() for k, v in r.items()
+                if k.startswith("click") and k.endswith("_miou")]
+        check(codes == [0, 0] and list(rows) == list(QUALITY_VIT_H_LAUNCHES)
+              and all(0.0 <= v <= 1.0 for v in ious),
+              f"quality table at ViT-H widths (seeded weights, 2 scenes, 2 clicks): exit codes "
+              f"{codes}, rows {list(rows)}, mIoUs in [0, 1] (random weights: not read); "
+              f"checkpoint written in {save_s:.1f} s, {time.perf_counter() - t0:.1f} s in all")
+        for name, entry in zip(QUALITY_VIT_H_LAUNCHES, log):
+            want, runs = QUALITY_VIT_H_LAUNCHES[name], entry["runs"]
+            check(len(runs) == 4 and all(r == want for r in runs),
+                  f"quality table ViT-H {name}: launches an encode {runs[0] if runs else None} "
+                  f"over {len(runs)} encodes (want {want})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4406,8 +4800,12 @@ def main() -> int:
     hoist_phase(dev, card, vit_h, images[0], reset_counts, counts,
                 {"dense": flash_launches, "W4": w4_launches, "cached int8": int8_launches})
     mark("21 hoisted windowed")
+
+    # ---------------------------------------------------------- quality table
+    quality_phase(dev, card, reset_counts, counts, repo)
+    mark("22 quality table and trainer")
     finish_export()
-    mark("19 (e) AOTInductor package (compiled beside 19-21)")
+    mark("19 (e) AOTInductor package (compiled beside 19-22)")
     print("step seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in STEP_SECONDS.items())
           + f"; total {sum(STEP_SECONDS.values()):.1f} s  [{card}]")
 

@@ -1,2 +1,3 @@
-"""Measurement drivers of the port (counterparts of the JAX package's
-``tools/`` probes), run as ``python -m sam_quantization_tpu_torch.tools.<name>``."""
+"""Tools of the port (counterparts of the repository's root ``tools/``: the
+probes, the tile tuner, the quality table and its trainer), run as
+``python -m sam_quantization_tpu_torch.tools.<name>``."""

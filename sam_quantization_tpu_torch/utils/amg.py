@@ -104,6 +104,14 @@ def mask_to_rle(mask: np.ndarray) -> Dict[str, Any]:
     return {"size": [h, w], "counts": native.rle_encode(mask)}
 
 
+def batched_mask_to_rle(masks: np.ndarray) -> List[Dict[str, Any]]:
+    """(N, H, W) binary masks -> one uncompressed RLE each (the host
+    runtime encodes them on threads)."""
+    masks = np.asarray(masks)
+    h, w = masks.shape[1:]
+    return [{"size": [h, w], "counts": c} for c in native.rle_encode_batch(masks)]
+
+
 def rle_to_mask(rle: Dict[str, Any]) -> np.ndarray:
     h, w = rle["size"]
     return native.rle_decode(rle["counts"], h, w)

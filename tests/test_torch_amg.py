@@ -231,6 +231,16 @@ def test_rle_and_nms_match_jax():
                                   jamg.batched_nms(boxes, scores, idxs, 0.5))
 
 
+def test_batched_mask_to_rle_matches_jax():
+    """Every mask of a batch (random, full, empty, one pixel) gives JAX's RLE."""
+    masks = np.random.default_rng(7).random((6, 37, 21)) > 0.5
+    masks[1], masks[2], masks[3] = True, False, False
+    masks[3, 36, 20] = True
+    got = tamg.batched_mask_to_rle(masks)
+    assert got == jamg.batched_mask_to_rle(masks)
+    assert len(got) == 6 and got[0]["size"] == [37, 21]
+
+
 @pytest.mark.parametrize("hw", [(13, 9), (96, 128), (1, 5), (16, 3)])
 def test_packbits_masks_bit_exact_with_jax(hw):
     binm = np.random.default_rng(6).random((5, *hw)) > 0.5

@@ -1888,3 +1888,47 @@ def test_exported_packed_encoder_launches_kernels_on_card(cuda, tmp_path):
             assert tqm.LAUNCHES[name] == 16
             want = tsam.encode_image(m, x, "eager")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# The quality table's kernel path on the card (tools/quality_table.py): each
+# configuration quantized once on the CPU from vit_tiny_synth, then its click
+# loops (4 scenes, 3 clicks, NoC loop to 3) on the card through the kernels
+# and on the CPU through their plain versions, from the same weights. A mask
+# pixel whose logit sits within rounding of 0 may flip and move the next
+# click, so each loop's per-click mean IoU is held within 1e-2; every
+# counter of the configuration's path must have launched.
+QUALITY_PATHS = {
+    "rtn_int4": ("quant_matmul", "flash_windowed", "flash_whole"),
+    "gptq_int3": ("quant_matmul3", "flash_windowed", "flash_whole"),
+    "rtn_int2u": ("quant_matmul", "flash_windowed", "flash_whole"),
+    "bf16_kernels": ("flash_windowed", "flash_whole"),
+    "a8_serving_kernels_epi": ("flash_windowed", "flash_whole", "flash_windowed int8-out",
+                               "int8_matmul", "int8_matmul_pre"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", sorted(QUALITY_PATHS))
+def test_quality_table_rows_on_card(cuda, config):
+    import copy
+    import pathlib
+
+    from sam_quantization_tpu_torch.data.synthetic import synthetic_samples
+    from sam_quantization_tpu_torch.quant.sequential import full_float32
+    from sam_quantization_tpu_torch.tools import quality_table as qt
+
+    ckpt = pathlib.Path(__file__).resolve().parents[1] / "checkpoints" / "vit_tiny_synth"
+    model, _ = qt.load_model(str(ckpt), "vit_tiny", "best", "cpu")
+    samples = list(synthetic_samples(4, 128, seed=9999))
+    with full_float32():
+        qmodel, ctx = qt.encoder_variant(config, model, *qt.calibration_data(model, 2, "easy"))
+        on_card = copy.deepcopy(qmodel).to(cuda)
+        ref = qt.evaluate(qmodel, ctx, samples, 3, 3, "kernel")[0]
+        for mod in (tfa, tqm, tfm):
+            mod.reset_launch_counts()
+        res = qt.evaluate(on_card, ctx, samples, 3, 3, "kernel")[0]
+        torch.cuda.synchronize()
+    counts = {**tfa.LAUNCHES, **tqm.LAUNCHES, **tfm.LAUNCHES, **tqm.INT8_MATMULS,
+              **{f"{k} int8-out": c for k, c in tfa.INT8_OUT.items()}}
+    assert all(counts[name] > 0 for name in QUALITY_PATHS[config]), counts
+    np.testing.assert_allclose(res.mean_ious, ref.mean_ious, atol=1e-2, rtol=0)
