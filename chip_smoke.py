@@ -205,9 +205,9 @@ Run from the repository root on a machine with one CUDA card. It
     decode; (g) ``python -m sam_quantization_tpu_torch.cli.export vit_h
     --format onnx``. Each part's seconds are printed. (e)'s package is
     compiled by a process of its own (``python3 chip_smoke.py
-    --aoti-package DIR``), started first, and checked after step 22: the
+    --aoti-package DIR``), started first, and checked after step 23: the
     compile (142-183 s of host compilers on an NVIDIA H100 80GB HBM3
-    machine at 700 W) runs beside steps 19-22.
+    machine at 700 W) runs beside steps 19-23.
 20. rel-pos resize (``models/image_encoder.get_rel_pos``): a ViT-H global
     attention whose 127-row tables are resized for grids 48 and 32 (shrunk
     to 95 and 63 rows) and 80 and 128 (grown to 159 and 255): the card's
@@ -234,8 +234,22 @@ Run from the repository root on a machine with one CUDA card. It
     written by the port (fp32 eager: no launch; RTN W4 and bf16 on the
     kernel branch: 64 ``quant_matmul``, 32 ``fused_mlp`` and 28/4 flash, and
     28/4 flash, an encode).
+23. the stage-anatomy probes and the FQ override search (``tools/timing.
+    timed_carry``, ``tools/block_anatomy``, ``attn_stage_probe``,
+    ``mlp_serving_probe``, ``rel_probe``, ``fq_tune``): ``block_anatomy
+    --model vit_h --int4 --a8`` and the other three probes at ViT-H widths,
+    each stage STAGE_ITERS applications captured in one CUDA graph and
+    replayed beside the same loop launched eagerly: every time finite and
+    above zero, the replayed carry bit-equal to the eager loop's, the
+    launches counted over the capture exactly STAGE_ITERS applications'
+    (BLOCK_STAGE_LAUNCHES, ATTN_CASE_LAUNCHES) and none over the replays;
+    ``fq_tune --configs base diag8`` on ``vit_tiny_synth`` at 4 scenes on
+    the CPU and on the card given the CPU's qparams (rows within 1e-3
+    mIoU, NoC and worst-8 lists equal), and free running on the card
+    (rows within 1e-2; the points where its calibration differs from the
+    CPU's printed).
 
-Each step prints its seconds (``step N ...: s``), and a line after step 22
+Each step prints its seconds (``step N ...: s``), and a line after step 23
 all of them. The line before the last is a JSON object with one entry per kernel build
 (its ``dtype``; the packed-weight kernels in float32 and bfloat16, and the
 tuned tiles of ``quant_matmul``, ``quant_matmul3``, ``quant_matmul_a8_sym``
@@ -3281,6 +3295,175 @@ def quality_phase(dev, card: str, reset_counts, counts, repo: pathlib.Path) -> N
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Step 23: the stage-anatomy probes on a CUDA-graph carried timer
+# (tools/timing.timed_carry) and the FQ override search. Each probe runs
+# STAGE_ITERS applications a stage; every stage's launches over the capture
+# are exactly STAGE_ITERS times these per-application counts (block_anatomy
+# by its block's tag; a stage or case not named launches none).
+STAGE_ITERS = 16
+_W4_ATTN = {"quant_matmul": 2}
+BLOCK_STAGE_LAUNCHES = {
+    "bf16": {"part+attn(flash)": {"flash_windowed": 1}, "full block": {"flash_windowed": 1}},
+    "int4-w": {"part+qkv+mix": {"quant_matmul": 1}, "part+attn(eager)": _W4_ATTN,
+               "part+attn(flash)": {**_W4_ATTN, "flash_windowed": 1},
+               "ln2+mlp": {"fused_mlp": 1},
+               "full block": {**_W4_ATTN, "flash_windowed": 1, "fused_mlp": 1},
+               "full block (eager)": {"quant_matmul": 4}},
+    "a8-static": {"part+qkv+mix": {"int8_matmul": 1}, "part+attn(eager)": {"int8_matmul": 1},
+                  "part+attn(flash)": {"int8_matmul": 1, "flash_windowed": 1},
+                  "ln2+mlp": {"int8_matmul": 2},
+                  "full block": {"int8_matmul": 3, "flash_windowed": 1},
+                  "full block (eager)": {"int8_matmul": 3}},
+}
+ATTN_CASE_LAUNCHES = {
+    "qkv int8-static": {"int8_matmul": 1}, "proj int8-static": {"int8_matmul": 1},
+    "proj int8-PRE": {"int8_matmul_pre": 1}, "lin1 int8-static": {"int8_matmul": 1},
+    "FULL attn": {"int8_matmul": 1, "flash_windowed": 1, "flash_windowed int8-out": 1,
+                  "int8_matmul_pre": 1},
+}
+FQ_TUNE_ARGS = ["--configs", "base", "diag8", "--eval-samples", "4", "--calib-samples", "2",
+                "--noc-clicks", "4"]
+# fq_tune card vs CPU: given the same qparams, click mIoU within float32
+# rounding of the quant-mode forward (tests/test_torch_fq_tune.py's 1e-3);
+# free running, each device's own calibration, the FQ tests' 1e-2
+STEP23_IOU_TOL, STEP23_FREE_TOL = 1e-3, 1e-2
+
+
+def stage_probe_phase(card: str, repo: pathlib.Path) -> None:
+    """Step 23: ``tools.block_anatomy --model vit_h --int4 --a8``,
+    ``attn_stage_probe``, ``mlp_serving_probe`` and ``rel_probe`` (ViT-H,
+    STAGE_ITERS applications a stage), each stage one CUDA graph replay
+    beside the eager loop: every time finite and above zero, the graph's
+    carry bit-equal to the eager loop's, the launches over the capture exact
+    and none over the replays; then :func:`fq_tune_card_vs_cpu`."""
+
+    import torch
+
+    from sam_quantization_tpu_torch.tools import (attn_stage_probe, block_anatomy, fq_tune,
+                                                  mlp_serving_probe, rel_probe)
+
+    it = ["--iters", str(STAGE_ITERS)]
+
+    def held(what, t, floor=None, per=None):
+        """Check one Carried; per-application launches ``per``."""
+        want = {k: STAGE_ITERS * n for k, n in (per or {}).items()}
+        times = [t.ms, t.eager_ms] + ([t.ms - floor.ms, t.eager_ms - floor.eager_ms]
+                                      if floor else [])
+        ok = (all(math.isfinite(v) for v in times) and t.ms > 0 and t.eager_ms > 0
+              and torch.equal(t.carry, t.eager_carry) and t.launches == want
+              and not t.replay_launches)
+        if not ok:
+            check(False, f"step 23 {what}: graph {t.ms} eager {t.eager_ms} ms, carries "
+                         f"equal {torch.equal(t.carry, t.eager_carry)}, launches {t.launches} "
+                         f"(want {want}), over replays {t.replay_launches}")
+        return ok
+
+    t0 = time.perf_counter()
+    anatomy = block_anatomy.measure(["--model", "vit_h", "--int4", "--a8"] + it)
+    n_ok = n = 0
+    for tag, rows in anatomy.items():
+        floor = rows[0][1]
+        for name, t in rows:
+            n += 1
+            n_ok += held(f"block_anatomy {tag} {name}", t, None if name == "noop" else floor,
+                         BLOCK_STAGE_LAUNCHES[tag].get(name))
+    check([name for name, _ in anatomy["bf16"]] == [
+        "noop", "ln", "partition", "part+qkv+mix", "part+attn(eager)", "part+attn(flash)",
+        "ln2+mlp", "full block", "full block (eager)"], "step 23 block_anatomy stage list")
+    full = dict(anatomy["a8-static"])["full block"]
+    print(f"  block_anatomy: {time.perf_counter() - t0:.1f} s; a8-static full block graph: "
+          f"capture + instantiate {full.capture_s:.3f} s, peak {full.graph_bytes / 2**20:.1f} "
+          f"MiB  [{card}]")
+
+    t1 = time.perf_counter()
+    for name, t, floor in attn_stage_probe.measure(it):
+        n += 1
+        per = next((v for k, v in ATTN_CASE_LAUNCHES.items() if name.startswith(k)), None)
+        n_ok += held(f"attn_stage_probe {name}", t, floor, per)
+    mlp = mlp_serving_probe.measure(it)
+    for name, t in mlp.items():
+        n += 1
+        n_ok += held(f"mlp_serving_probe {name}", t, None if name == "floor" else mlp["floor"])
+    floor, rows = rel_probe.measure(it)
+    for name, t in [("floor", floor)] + rows:
+        n += 1
+        n_ok += held(f"rel_probe {name}", t, None if name == "floor" else floor)
+    print(f"  attn_stage_probe, mlp_serving_probe, rel_probe: {time.perf_counter() - t1:.1f} s")
+    check(n_ok == n, f"step 23: {n_ok}/{n} stages finite, above zero, graph carry bit-equal "
+                     f"to the eager loop's, launches exact over the capture and none over "
+                     f"the replays")
+
+    fq_tune_card_vs_cpu(card, repo)
+
+
+def fq_tune_card_vs_cpu(card: str, repo: pathlib.Path) -> None:
+    """Step 23's ``fq_tune --configs base diag8`` (FQ_TUNE_ARGS) on the CPU,
+    then on the card given the CPU's qparams call for call (base, diag8's
+    first and second calibration): rows within STEP23_IOU_TOL click mIoU and
+    NoC equal, the worst-8 lists equal. Then free running on the card: its
+    calibration differs from the CPU's by float32 sum order (step 16), so
+    its rows are held within STEP23_FREE_TOL, and the points whose
+    calibration differs are printed as the cause of any other difference."""
+    import torch
+
+    from sam_quantization_tpu_torch.quant.fq import pipeline as fqp
+    from sam_quantization_tpu_torch.tools import fq_tune
+
+    argv = ["--ckpt", str(repo / "checkpoints" / "vit_tiny_synth")] + FQ_TUNE_ARGS
+    calibrate = fqp.calibrate_sam
+
+    def run(platform, replace=None):
+        calibs = []
+
+        def recorded(*a, **k):
+            q = replace() if replace else calibrate(*a, **k)
+            calibs.append(q)
+            return q
+        fqp.calibrate_sam = recorded
+        t = time.perf_counter()
+        try:
+            code, text = _quiet_main(fq_tune.main, argv + ["--platform", platform])
+        finally:
+            fqp.calibrate_sam = calibrate
+        lines = text.splitlines()
+        worst = next(ln for ln in lines if "worst-8" in ln).split(":", 1)[1].strip()
+        print(f"  fq_tune {platform}{' (given the CPU qparams)' if replace else ''}: "
+              f"{lines[-1]} ({time.perf_counter() - t:.1f} s)")
+        return code, json.loads(lines[-1]), worst, calibs
+
+    cpu = run("cpu")
+    given = iter(cpu[3])
+    held = run("gpu", lambda: fqp.qparams_to(next(given), "cuda"))
+    free = run("gpu")
+
+    def rows_match(got, tol):
+        return all(abs(got[c][k] - cpu[1][c][k]) <= tol and
+                   (tol == STEP23_FREE_TOL or got[c][n] == cpu[1][c][n])
+                   for c in cpu[1] for k in ("click1", "click5") for n in ("noc@85", "noc@90"))
+
+    check(held[0] == cpu[0] == 0 and held[1].keys() == cpu[1].keys()
+          and rows_match(held[1], STEP23_IOU_TOL) and held[2] == cpu[2],
+          f"step 23 fq_tune: the card given the CPU's qparams, rows within "
+          f"{STEP23_IOU_TOL} click mIoU and NoC equal, worst-8 list equal  [{card}]")
+    # the cause of a free-running difference: the calibrations' own gaps
+    gaps = []
+    for k, (sc, z) in cpu[3][0].items():
+        fsc, fz = (t.cpu() for t in free[3][0][k])
+        rel = float(((fsc - sc).abs() / sc).max())
+        flips = (int((torch.round(fsc / fsc.min()) != torch.round(sc / sc.min())).sum())
+                 if sc.ndim else 0)
+        if rel or flips or not torch.equal(fz, z):
+            gaps.append((rel, k, flips, bool(torch.equal(fz, z))))
+    gaps.sort(reverse=True)
+    print(f"  fq_tune free-running card calibration against the CPU's (base): {len(gaps)} of "
+          f"{len(cpu[3][0])} points differ; largest: " + "; ".join(
+              f"{k} scale rel {r:.2e}, PTF flips {f}, zeros equal {z}" for r, k, f, z in gaps[:4]))
+    same = free[1] == cpu[1] and free[2] == cpu[2]
+    check(free[0] == 0 and free[1].keys() == cpu[1].keys() and rows_match(free[1], STEP23_FREE_TOL),
+          f"step 23 fq_tune free running on the card: rows within {STEP23_FREE_TOL} of the "
+          f"CPU's ({'equal' if same else 'they differ: the calibration gaps above'})")
+
+
 def main() -> int:
     import torch
 
@@ -4804,8 +4987,12 @@ def main() -> int:
     # ---------------------------------------------------------- quality table
     quality_phase(dev, card, reset_counts, counts, repo)
     mark("22 quality table and trainer")
+
+    # --------------------------------------------- stage probes and fq_tune
+    stage_probe_phase(card, repo)
+    mark("23 stage probes and fq_tune")
     finish_export()
-    mark("19 (e) AOTInductor package (compiled beside 19-22)")
+    mark("19 (e) AOTInductor package (compiled beside 19-23)")
     print("step seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in STEP_SECONDS.items())
           + f"; total {sum(STEP_SECONDS.values()):.1f} s  [{card}]")
 

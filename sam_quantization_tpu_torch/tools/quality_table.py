@@ -196,31 +196,19 @@ def encoder_variant(name: str, model, calib_sam, calib_imgs):
         enc, _losses = sequential.gptq_quantize_encoder(
             dense(), calib_imgs, GPTQConfig(bits=4, groupsize=32, sym=True))
         return _with_encoder(model, cache_int8(enc, act_scales=scales)), None
-    if name == "fq_int8":
-        from sam_quantization_tpu_torch.quant.fq.pipeline import (
-            FQConfig, calibrate_sam, quantize_sam)
+    if name in ("fq_int8", "fq_int8_tuned"):
+        # fq_int8_tuned: the pointwise-SNR diagnosis flags the residual
+        # stream's LN-input points; the 8 worst stay float, every other LN /
+        # softmax integer (tools/fq_tune.py's diag8_skip)
+        from sam_quantization_tpu_torch.quant.fq.pipeline import FQConfig
+        from sam_quantization_tpu_torch.tools import fq_tune
 
-        fqcfg = FQConfig()  # int8 W, uint8 A, PTF int-LN + LIS
-        qparams = calibrate_sam(model, calib_sam, fqcfg)
-        return quantize_sam(model, fqcfg, qparams)
-    if name == "fq_int8_tuned":
-        # the pointwise-SNR diagnosis flags the residual stream's LN-input
-        # points; the 8 worst stay float, every other LN / softmax integer
-        from sam_quantization_tpu_torch.quant.fq.pipeline import (
-            FQConfig, calibrate_sam, fq_pointwise_snr, quantize_sam)
-        from sam_quantization_tpu_torch.quant.overrides import QuantOverrides
-
-        fqcfg = FQConfig()
-        qparams = calibrate_sam(model, calib_sam, fqcfg)
-        qmodel, _ = quantize_sam(model, fqcfg, qparams)
-        snr = fq_pointwise_snr(qmodel, calib_sam[:2], fqcfg, qparams)
-        ov = QuantOverrides()
-        skipped = [p for p, _ in list(snr.items())[:8]]
-        for p in skipped:
-            ov.add(p, skip=True)
-        print(f"  fq_int8_tuned: skipping worst-SNR points {skipped}")
-        qparams = calibrate_sam(model, calib_sam, fqcfg, overrides=ov)
-        return quantize_sam(model, fqcfg, qparams, overrides=ov)
+        diag = 8 if name == "fq_int8_tuned" else 0  # int8 W, uint8 A, PTF int-LN + LIS
+        qmodel, make_ctx, worst = fq_tune.build(model, calib_sam, FQConfig(), diag=diag,
+                                                diag_action="skip")
+        if diag:
+            print(f"  fq_int8_tuned: skipping worst-SNR points {[p for p, _ in worst]}")
+        return qmodel, make_ctx
     raise ValueError(name)
 
 

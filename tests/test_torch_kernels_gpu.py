@@ -1932,3 +1932,55 @@ def test_quality_table_rows_on_card(cuda, config):
               **{f"{k} int8-out": c for k, c in tfa.INT8_OUT.items()}}
     assert all(counts[name] > 0 for name in QUALITY_PATHS[config]), counts
     np.testing.assert_allclose(res.mean_ious, ref.mean_ious, atol=1e-2, rtol=0)
+
+
+# tools/timing.timed_carry on a ViT-B windowed block on the kernel branch:
+# each application's kernel launches, by block_anatomy's tag
+GRAPH_BLOCK_LAUNCHES = {
+    "bf16": {"flash_windowed": 1},
+    "int4-w": {"flash_windowed": 1, "quant_matmul": 2, "fused_mlp": 1},
+    "a8-static": {"flash_windowed": 1, "int8_matmul": 3},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(GRAPH_BLOCK_LAUNCHES))
+def test_graph_replayed_block_equals_eager_on_card(cuda, tag):
+    """Four applications of the block captured in one CUDA graph: its replayed
+    carry is bit-equal to the eager loop's; the counters read 4 applications'
+    launches over the capture and none over the replays, and over the whole
+    call the warm-up's, the eager loops' and the capture's."""
+    from sam_quantization_tpu_torch.models.configs import CONFIGS
+    from sam_quantization_tpu_torch.tools import attn_stage_probe, block_anatomy, timing
+
+    ecfg = CONFIGS["vit_b"].image_encoder
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    block = attn_stage_probe.dense_block(ecfg, gen, cuda)
+    p = block_anatomy.param_sets(block, int4=True, a8=True)[tag]
+    x = torch.randn((1, ecfg.grid_size, ecfg.grid_size, ecfg.embed_dim), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    full = dict(block_anatomy.stages(p, ecfg, on_card=True))["full block"]
+    per = GRAPH_BLOCK_LAUNCHES[tag]
+    before = timing.launch_counts()
+    t = timing.timed_carry(full, x, 4, timing.scale_mix, outer=2, name=tag)
+    after = timing.launch_counts()
+    assert t.launches == {k: 4 * n for k, n in per.items()}, t.launches
+    assert t.replay_launches == {}
+    assert timing.launch_delta(before, after) == {k: (1 + 2 * 4 + 4) * n for k, n in per.items()}
+    assert torch.equal(t.carry, t.eager_carry)
+    assert torch.isfinite(t.carry.float()).all() and t.carry.abs().max() > 0
+    assert t.ms > 0 and t.eager_ms > 0 and t.capture_s > 0 and t.graph_bytes > 0
+
+
+@pytest.mark.gpu
+def test_timed_carry_names_a_stage_that_cannot_be_captured(cuda):
+    """A host sync inside the stage: the capture fails and the error names
+    the stage; no time is returned."""
+    from sam_quantization_tpu_torch.tools import timing
+
+    x = torch.ones(1024, device=cuda)
+    with pytest.raises(RuntimeError, match="stage 'host sync' cannot be captured"):
+        timing.timed_carry(lambda z: z * float(z.sum().item() > 0), x, 2, name="host sync")
+    # the card still runs and captures after the failed capture
+    t = timing.timed_carry(lambda z: z * 2.0, x, 2, outer=1, name="after")
+    assert torch.equal(t.carry, t.eager_carry)
